@@ -1,0 +1,95 @@
+#!/usr/bin/env python3
+"""Where the time goes on the card: a ``torch.profiler`` breakdown of the
+port's RQ1/RQ2 paths at TREC Robust04 scale (528,155 documents).
+
+Run from the repository root on a machine with one NVIDIA H100:
+
+    python3 benchmarks/torch_rq_profile.py
+
+It builds the Robust04-scale index on the card (``repro_torch.index.
+robust04``), warms every pipeline up once, then profiles one timed run of
+each setting over the 250 T topics (chunks of 16) and prints, per setting:
+the wall time, the device time summed over kernels, the device's idle
+share of the wall time, the operators with the most device time, and the
+port's own kernels whatever their rank.
+"""
+from __future__ import annotations
+
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+FORM = "T"
+TOP = 12
+#: device names of the port's hand-written kernels (csrc/*.cu)
+PORT_KERNELS = ("topk_segments_kernel", "topk_merge_kernel",
+                "fused_scoring_kernel")
+
+
+def _device_us(evt) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main() -> int:
+    import torch
+    if not torch.cuda.is_available():
+        print("torch_rq_profile: no CUDA device", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch as rt
+    from repro_torch.common import card
+    from repro_torch.core import BackendDescriptor
+    from repro_torch.index.robust04 import robust04
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    index, forms, _ = robust04(device="cuda")
+    topics = forms[FORM]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device="cuda")
+    rq1 = rt.Retrieve("BM25") % 10
+    rq2 = (rt.Retrieve("BM25") >> (rt.Extract("QL") **
+                                   rt.Extract("TF_IDF"))) % 1000
+    kernels = BackendDescriptor.default({"fat", "fused_topk",
+                                         "fused_scoring"})
+    runs = [("rq1 unoptimised", rq1, None, False),
+            ("rq1 kernels", rq1, kernels, True),
+            ("rq1 full (pruned)", rq1, None, True),
+            ("rq2 unoptimised", rq2, None, False),
+            ("rq2 optimised", rq2, None, True)]
+    for name, pipe, desc, opt in runs:
+        be = rt.TorchBackend(index, default_k=1000, query_chunk=16,
+                             descriptor=desc, device="cuda")
+        node = rt.compile_pipeline(pipe, be) if opt else pipe
+        rt.run_pipeline(node, Q, backend=be, optimize=False)   # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            rt.run_pipeline(node, Q, backend=be, optimize=False)
+            torch.cuda.synchronize()
+            wall_us = 1e6 * (time.perf_counter() - t0)
+        # device-side events only: a CPU operator also reports the device
+        # time of the kernels it launched, which would count it twice
+        evts = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+        dev_us = sum(_device_us(e) for e in evts)
+        idle = 1.0 - dev_us / wall_us if wall_us else float("nan")
+        print(f"== {name} ({FORM}, {len(topics.qids)} topics): wall "
+              f"{wall_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms, "
+              f"device idle share {idle:.3f}")
+        ranked = sorted(evts, key=_device_us, reverse=True)
+        for rank, e in enumerate(ranked):
+            if rank < TOP or any(k in e.key for k in PORT_KERNELS):
+                print(f"   {rank + 1:3d}. {_device_us(e) / 1e3:10.3f} ms  "
+                      f"{e.count:6d} calls  {e.key[:90]}")
+    print(card())
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,17 @@
+"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice).
+
+    from repro_torch.core import *
+    be = TorchBackend(build_index(synthesize_corpus()))
+    pipe = Retrieve("BM25") % 10
+    res = Experiment([pipe], topics, qrels, ["map"], backend=be)
+"""
+from repro_torch.core.compiler import Context, TorchBackend, run_pipeline  # noqa: F401
+from repro_torch.core.data import make_queries  # noqa: F401
+from repro_torch.core.descriptor import BackendDescriptor  # noqa: F401
+from repro_torch.core.experiment import Experiment, format_table  # noqa: F401
+from repro_torch.core.ir import Op, Schema, SchemaError, lower, raise_ir  # noqa: F401
+from repro_torch.core.passes import compile_pipeline, explain_pipeline  # noqa: F401
+from repro_torch.core.stages import (Extract, FatRetrieve,  # noqa: F401
+                                     FusedFatRetrieve, FusedTopKRetrieve,
+                                     PrunedRetrieve, Retrieve)
+from repro_torch.core.transformer import Transformer  # noqa: F401

@@ -1,0 +1,86 @@
+// Exact top-k of batched score rows on Hopper.
+//
+// Replaces: src/repro/kernels/topk/topk.py::streaming_topk_pallas, the
+// TPU kernel that streams one score vector through VMEM in 4096-wide
+// blocks and merges each block into a running [k] scratch (block-max skip,
+// k rounds of argmax/argmin).  That design leans on the TPU's sequential
+// grid; here the blocks of a grid run in parallel and in no order, so the
+// kernel computes the function instead.
+//
+// Bound on this card: reading the scores once, NQ * N * 4 bytes (16 x
+// 528,155 f32 = 33.8 MB on the RQ1 path, about 10 us at 3.35 TB/s).
+// A chunk holds only 16 rows, so one block per row would leave 116 of the
+// 132 SMs idle and each SM latency-bound on its 2 MB row.  The design cuts
+// every row into segments so that about two blocks per SM run: stage 1
+// takes each segment's top-k (repro::block_topk_row: a 4-pass radix select
+// plus a collection pass, four loads in flight per thread); stage 2 merges
+// the segments' sorted candidate lists of each row with the same routine.
+// The segment's passes after the first read it from the 50 MB L2.
+//
+// Contract: values sorted descending, ties to the lowest index (the
+// lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.  With more
+// than one segment each must hold at least k elements (the wrapper picks
+// the count); candidates live in scratch the wrapper allocates.
+#include <climits>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+#include "topk_block.cuh"
+
+namespace {
+
+constexpr int THREADS = 512;
+constexpr int MERGE_THREADS = 256;
+
+__global__ void __launch_bounds__(THREADS)
+topk_segments_kernel(const float* __restrict__ scores, int64_t n,
+                     int64_t seg_len, int k, float* __restrict__ out_vals,
+                     int* __restrict__ out_idxs) {
+  __shared__ repro::TopKSmem<THREADS> sm;
+  const int64_t q = blockIdx.y;
+  const int64_t s = blockIdx.x;
+  const int64_t lo = s * seg_len;
+  const int64_t len = n - lo < seg_len ? n - lo : seg_len;
+  const int64_t out = (q * gridDim.x + s) * k;
+  repro::block_topk_row<THREADS>(scores + q * n + lo, len, k, nullptr, lo,
+                                 out_vals + out, out_idxs + out, sm);
+}
+
+__global__ void __launch_bounds__(MERGE_THREADS)
+topk_merge_kernel(const float* __restrict__ cand_vals,
+                  const int* __restrict__ cand_idxs, int64_t m, int k,
+                  float* __restrict__ vals, int* __restrict__ idxs) {
+  __shared__ repro::TopKSmem<MERGE_THREADS> sm;
+  const int64_t q = blockIdx.x;
+  repro::block_topk_row<MERGE_THREADS>(cand_vals + q * m, m, k,
+                                       cand_idxs + q * m, 0, vals + q * k,
+                                       idxs + q * k, sm);
+}
+
+}  // namespace
+
+// scores [nq, n] -> vals/idxs [nq, k].  n_seg > 1 needs cand_vals and
+// cand_idxs of nq * n_seg * k elements each.
+extern "C" int repro_topk_f32(const float* scores, int64_t nq, int64_t n,
+                              int k, int n_seg, float* cand_vals,
+                              int* cand_idxs, float* vals, int* idxs,
+                              void* stream) {
+  if (k < 1 || k > repro::TOPK_MAX_K || n < k || n > INT_MAX || nq < 1 ||
+      nq > 65535 || n_seg < 1)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (n_seg == 1) {
+    topk_segments_kernel<<<dim3(1, (unsigned int)nq), THREADS, 0, st>>>(
+        scores, n, n, k, vals, idxs);
+    return (int)cudaGetLastError();
+  }
+  const int64_t seg_len = (n + n_seg - 1) / n_seg;
+  if (n - (int64_t)(n_seg - 1) * seg_len < k) return (int)cudaErrorInvalidValue;
+  topk_segments_kernel<<<dim3((unsigned int)n_seg, (unsigned int)nq), THREADS,
+                         0, st>>>(scores, n, seg_len, k, cand_vals, cand_idxs);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  topk_merge_kernel<<<(unsigned int)nq, MERGE_THREADS, 0, st>>>(
+      cand_vals, cand_idxs, (int64_t)n_seg * k, k, vals, idxs);
+  return (int)cudaGetLastError();
+}

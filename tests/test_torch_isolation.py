@@ -1,0 +1,79 @@
+"""The port stands alone: it imports neither JAX nor the JAX package, and its
+entry points run on the card unless the caller asks for the CPU."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+import repro_torch as rt
+from repro_torch.index.corpus import synthesize_corpus, synthesize_topics
+corpus = synthesize_corpus(n_docs=400, vocab=3000, mean_len=40, seed=1)
+topics = synthesize_topics(corpus, n_topics=3, q_len=3, rels_per_topic=5,
+                           seed=2)
+be = rt.TorchBackend(rt.build_index(corpus, device="cpu"), default_k=20,
+                     device="cpu")
+Q = rt.make_queries(topics.terms, topics.weights, topics.qids, device="cpu")
+pipes = [rt.Retrieve("BM25") % 5,
+         (rt.Retrieve("BM25") >> (rt.Extract("QL") ** rt.Extract("DPH"))) % 5]
+res = rt.Experiment(pipes, Q, topics.qrels, ["map"], backend=be)
+assert res["results"][1]["features"].shape == (3, 5, 2)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "repro"
+             or m.startswith("repro."))
+print("LOADED", bad)
+"""
+
+
+def test_subprocess_run_loads_no_jax_and_no_reference_package():
+    env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env, cwd=ROOT,
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "LOADED []" in out.stdout, out.stdout
+
+
+def _imports(path: Path) -> list[str]:
+    names = []
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            names.append(node.module)
+    return names
+
+
+def test_no_source_file_imports_jax_or_reference_package():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    assert len(files) > 20
+    for path in files:
+        for name in _imports(path):
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro"), (path, name)
+
+
+def test_default_device_is_the_card(monkeypatch):
+    from repro_torch.core.compiler import TorchBackend
+    from repro_torch.core.data import empty_results, make_queries
+    from repro_torch.index import build_index
+    from repro_torch.index.corpus import synthesize_corpus
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    corpus = synthesize_corpus(n_docs=200, vocab=1000, mean_len=20, seed=0)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_index(corpus)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_queries([[1, 2, -1]])
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        empty_results(2, 5)
+    index = build_index(corpus, device="cpu")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TorchBackend(index)
+    assert TorchBackend(index, device="cpu").device.type == "cpu"
