@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the time goes on the card: a ``torch.profiler`` breakdown of the
-port's RQ1/RQ2 paths at TREC Robust04 scale (528,155 documents).
+port's RQ1/RQ2 paths and of its dense second stage (brute-force and IVF-PQ
+DenseRetrieve) at TREC Robust04 scale (528,155 documents).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
     python3 benchmarks/torch_rq_profile.py
 
-It builds the Robust04-scale index on the card (``repro_torch.index.
-robust04``), warms every pipeline up once, then profiles one timed run of
-each setting over the 250 T topics (chunks of 16) and prints, per setting:
+It builds the Robust04-scale index and its dense state on the card
+(``repro_torch.index.robust04``), warms every pipeline up once, then
+profiles one timed run of each setting over the 250 T topics (chunks of
+16) and prints, per setting:
 the wall time, the device time summed over kernels, the device's idle
 share of the wall time, the operators with the most device time, and the
 port's own kernels whatever their rank.
@@ -24,7 +26,8 @@ FORM = "T"
 TOP = 12
 #: device names of the port's hand-written kernels (csrc/*.cu)
 PORT_KERNELS = ("topk_segments_kernel", "topk_merge_kernel",
-                "fused_scoring_kernel")
+                "fused_scoring_kernel", "dense_segments_kernel",
+                "pq_segments_kernel")
 
 
 def _device_us(evt) -> float:
@@ -43,11 +46,13 @@ def main() -> int:
     import repro_torch as rt
     from repro_torch.common import card
     from repro_torch.core import BackendDescriptor
-    from repro_torch.index.robust04 import robust04
+    from repro_torch.index.robust04 import (NPROBE, PQ_M, PQ_REFINE,
+                                            robust04, robust04_dense)
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     index, forms, _ = robust04(device="cuda")
+    dense, ivf, ivfpq, _ = robust04_dense(index)
     topics = forms[FORM]
     Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
                         device="cuda")
@@ -56,14 +61,22 @@ def main() -> int:
                                    rt.Extract("TF_IDF"))) % 1000
     kernels = BackendDescriptor.default({"fat", "fused_topk",
                                          "fused_scoring"})
-    runs = [("rq1 unoptimised", rq1, None, False),
-            ("rq1 kernels", rq1, kernels, True),
-            ("rq1 full (pruned)", rq1, None, True),
-            ("rq2 unoptimised", rq2, None, False),
-            ("rq2 optimised", rq2, None, True)]
-    for name, pipe, desc, opt in runs:
-        be = rt.TorchBackend(index, default_k=1000, query_chunk=16,
-                             descriptor=desc, device="cuda")
+    d2 = rt.DenseRetrieve(k=10, nprobe=0) % 10
+    d4 = rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10
+    flat = dict(ivf=ivf)
+    pq = dict(ivfpq=ivfpq, pq_m=PQ_M, pq_refine=PQ_REFINE)
+    runs = [("rq1 unoptimised", rq1, None, False, {}),
+            ("rq1 kernels", rq1, kernels, True, {}),
+            ("rq1 full (pruned)", rq1, None, True, {}),
+            ("rq2 unoptimised", rq2, None, False, {}),
+            ("rq2 optimised", rq2, None, True, {}),
+            ("D2 brute force unoptimised", d2, None, False, flat),
+            ("D2 brute force optimised", d2, None, True, flat),
+            ("D4 IVF-PQ unoptimised", d4, None, False, pq),
+            ("D4 IVF-PQ optimised", d4, None, True, pq)]
+    for name, pipe, desc, opt, dense_kw in runs:
+        be = rt.TorchBackend(index, dense, default_k=1000, query_chunk=16,
+                             descriptor=desc, device="cuda", **dense_kw)
         node = rt.compile_pipeline(pipe, be) if opt else pipe
         rt.run_pipeline(node, Q, backend=be, optimize=False)   # warm-up
         torch.cuda.synchronize()

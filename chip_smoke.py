@@ -9,8 +9,12 @@ It builds the CUDA kernels from ``src/repro_torch/csrc``, builds the TREC
 Robust04-scale index (528,155 documents) on the card, holds each kernel
 against its plain PyTorch version at the main path's shapes, runs the
 paper's RQ1 (``Retrieve("BM25") % 10``) and RQ2 (``Retrieve >> (Extract **
-Extract) % 1000``) Experiments for the T/TD/TDN topic formulations, and
-shows through the kernels' launch counters that the main path ran on them.
+Extract) % 1000``) Experiments for the T/TD/TDN topic formulations, then
+builds the dense second stage (embeddings, IVF-flat, IVF-PQ) and runs its
+four pipelines — BM25 >> DenseRerank, brute-force, IVF-flat and IVF-PQ
+DenseRetrieve, each % 10 — unoptimised and optimised on the T topics, and
+shows through the kernels' launch counters that each main path ran on its
+kernels.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -45,9 +49,9 @@ TPU_KERNELS = [
      "src/repro/kernels/topk/topk.py:74"),
     ("fused_scoring_pallas", "ported",
      "src/repro/kernels/fused_scoring/fused_scoring.py:70"),
-    ("dense_topk_pallas", "to port",
+    ("dense_topk_pallas", "ported",
      "src/repro/kernels/dense_scoring/dense_scoring.py:55"),
-    ("pq_topk_pallas", "to port",
+    ("pq_topk_pallas", "ported",
      "src/repro/kernels/pq_scoring/pq_scoring.py:69"),
     ("flash_attention_pallas", "to port",
      "src/repro/kernels/flash_attention/flash_attention.py:85"),
@@ -86,6 +90,13 @@ def topk_overlap(a, b, k: int) -> float:
     a, b = a.cpu().numpy(), b.cpu().numpy()
     return sum(len(set(x[x >= 0].tolist()) & set(y[y >= 0].tolist())) / k
                for x, y in zip(a, b)) / len(a)
+
+
+def bound(nbytes: float, ops: float) -> tuple[float, str]:
+    """The least milliseconds the card could take: the larger of the bytes
+    over the HBM rate and the fp32 operations over the fp32 rate."""
+    b, o = 1e3 * nbytes / HBM_BYTES_PER_S, 1e3 * ops / FP32_OPS_PER_S
+    return max(b, o), "bytes" if b >= o else "operations"
 
 
 def _check_docids(ref_d, ref_s, d, rtol=2e-5, atol=1e-5) -> int:
@@ -159,6 +170,38 @@ def phase_small_parity():
     log("[small] card (kernels) and CPU (plain) agree on the 3000-doc corpus:"
         " scores/features within rtol 2e-5 / atol 1e-5, docids equal except "
         f"{n_ties} rank(s) inside a score tie")
+
+    # the dense stage: embeddings built on each device agree; from the same
+    # embeddings (so the host k-means builds the same lists and codes) the
+    # four dense pipelines agree
+    from repro_torch.index.dense import build_dense_index
+    dense = {dev: build_dense_index(rt.build_index(corpus, device=dev))
+             for dev in ("cpu", "cuda")}
+    torch.testing.assert_close(dense["cuda"].emb.cpu(), dense["cpu"].emb,
+                               rtol=1e-5, atol=1e-6)
+    dpipes = [(rt.Retrieve("BM25", k=200) >> rt.DenseRerank(alpha=0.3)) % 10,
+              rt.DenseRetrieve(k=10, nprobe=0) % 10,
+              rt.DenseRetrieve(k=10, nprobe=8) % 10,
+              rt.DenseRetrieve(k=10, nprobe=8, pq=True) % 10]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        be = rt.TorchBackend(rt.build_index(corpus, device=dev),
+                             dense["cpu"], default_k=60, query_chunk=4,
+                             ivf_lists=16, pq_m=8, device=dev)
+        Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                            device=dev)
+        out[dev] = [rt.run_pipeline(p, Q, backend=be) for p in dpipes]
+        kinds = [rt.compile_pipeline(p, be).kind for p in dpipes]
+        assert kinds == ["fused_dense_rerank"] + ["fused_dense_retrieve"] * 3
+    n_ties = 0
+    for a, b in zip(out["cpu"], out["cuda"]):
+        b = {key: v.cpu() for key, v in b.items()}
+        torch.testing.assert_close(b["scores"], a["scores"], rtol=2e-5,
+                                   atol=1e-5)
+        n_ties += _check_docids(a["docids"], a["scores"], b["docids"])
+    log("[small] dense: embeddings built on the card within rtol 1e-5 / atol "
+        "1e-6 of the CPU's; D1-D4 (fused) agree card vs CPU, docids equal "
+        f"except {n_ties} rank(s) inside a score tie")
 
 
 def phase_index():
@@ -285,6 +328,195 @@ def phase_kernels(index, forms) -> dict:
     return rows
 
 
+def phase_dense_build(index) -> dict:
+    """The dense state of the Robust04-scale collection on the card, and
+    the backends of the dense main path over it."""
+    import repro_torch as rt
+    from repro_torch.index.dense import pq_store_bytes
+    from repro_torch.index.robust04 import PQ_M, PQ_REFINE, robust04_dense
+    dense, ivf, ivfpq, info = robust04_dense(index)
+    n = index.n_docs
+    flat = dense.emb.numel() * dense.emb.element_size() / n
+    pq = pq_store_bytes(ivfpq) / n
+    log(f"[dense] built on {dense.emb.device}: embeddings [{n}, {dense.dim}] "
+        f"{info['dense_s']:.2f} s (on the device), IVF {ivf.n_lists} lists "
+        f"{info['ivf_s']:.2f} s (host k-means + list-ordered copy), PQ m="
+        f"{PQ_M} {info['pq_s']:.2f} s (host codebooks + codes); max_list_len "
+        f"{ivf.max_list_len}; bytes per document: flat {flat:.2f}, PQ "
+        f"{pq:.2f}, reduction {flat / pq:.2f}x")
+    kw = dict(default_k=1000, query_chunk=CHUNK, device=DEVICE)
+    return {"dense": dense, "ivf": ivf, "ivfpq": ivfpq,
+            "be": rt.TorchBackend(index, dense, ivf=ivf, **kw),
+            "be_pq": rt.TorchBackend(index, dense, ivfpq=ivfpq, pq_m=PQ_M,
+                                     pq_refine=PQ_REFINE, **kw)}
+
+
+def phase_dense_kernels(index, forms, state) -> dict:
+    """The dense- and PQ-scoring kernels against their plain versions on
+    the card, at the shapes of the first chunk of 16 T topics on the dense
+    main path: D2's shared store, D3's gathered IVF rows, D1's gathered
+    rerank candidates, D4's gathered codes — with and without base, with
+    duplicate rows and codes, NEG-masked rows, rows shorter than a
+    segment, a dim that is not a multiple of 4 (the kernel's scalar loads)
+    and k in (1, 10, 80, 128)."""
+    import torch
+    from repro_torch.core.data import make_queries
+    from repro_torch.index import dense as DN
+    from repro_torch.index.retrieve import retrieve_topk
+    from repro_torch.index.robust04 import NPROBE, PQ_REFINE
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+    from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
+    from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
+    t = forms["T"]
+    Q = make_queries(t.terms[:CHUNK], t.weights[:CHUNK], t.qids[:CHUNK],
+                     device=DEVICE)
+    be, pqi = state["be"], state["ivfpq"]
+    qv = be.embed_queries(Q)
+    emb = state["dense"].emb
+    n, dim = emb.shape
+    # D3: the IVF-flat candidate rows; D1: BM25's 200 candidates with
+    # alpha * bm25 as base; D4: the IVF-PQ candidate codes and tables
+    emb_c, base_c, _ = DN._ivf_candidates(state["ivf"], qv, nprobe=NPROBE)
+    docs, bm25 = retrieve_topk(index, Q["terms"], Q["weights"], model="BM25",
+                               k=200, max_postings=be.max_postings)
+    emb_r = emb[docs.clamp(min=0).long()]
+    base_r = torch.where(docs >= 0, 0.3 * bm25, DN.NEG)
+    codes_c, table, base_p, _, r = DN._pq_candidates(
+        pqi, qv, k=10, nprobe=NPROBE, refine=PQ_REFINE, shortlist=None)
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    dup = emb.clone()
+    dup[1::2] = dup[0:n - 1:2]                  # every odd row repeats
+    short = emb[:1500]
+    masked = torch.where(torch.rand(CHUNK, n, device=DEVICE, generator=g)
+                         < 0.999, DN.NEG, 0.0)
+    # dim 62: scalar loads, for shared rows in groups of 8 and of 3
+    # queries and for gathered rows
+    e62, q62 = emb[:, :62].contiguous(), qv[:, :62].contiguous()
+    cases = {"D2 shared": (emb, qv, None),
+             "D2 shared +base": (emb, qv, masked),
+             "D2 duplicate rows": (dup, qv, None),
+             "D3 gathered": (emb_c, qv, base_c),
+             "D3 no base": (emb_c, qv, None),
+             "D1 rerank": (emb_r, qv, base_r),
+             "shorter than a segment": (short, qv, None),
+             "[16, 100, 64] rows": (emb_r[:, :100], qv, None),
+             "dim 62 shared": (e62, q62, masked),
+             "dim 62 shared, 3 queries": (e62, q62[:3], None),
+             "dim 62 gathered": (emb_r[..., :62].contiguous(), q62, base_r)}
+    err, n_ties = 0.0, 0
+    for name, (e, q, b) in cases.items():
+        for k in (1, 10, 80, 128):
+            if k > e.shape[-2]:
+                continue
+            v1, i1 = streaming_dense_topk(e, q, b, k=k)
+            v2, i2 = dense_topk_ref(e, q, b, k=k)
+            torch.cuda.synchronize()
+            torch.testing.assert_close(v1, v2, rtol=1e-5, atol=1e-5)
+            n_ties += _check_docids(i2, v2, i1, rtol=1e-5, atol=1e-5)
+            err = max(err, float((v1 - v2).abs().max()))
+    log(f"[dense kernels] dense_topk within rtol/atol 1e-5 of its plain "
+        f"version on {list(cases)} x k in (1, 10, 80, 128): max abs err "
+        f"{err:.3e}, docids equal except {n_ties} rank(s) inside a tie; "
+        f"D3 rows {tuple(emb_c.shape)}, D1 rows {tuple(emb_r.shape)}")
+    rows = {}
+    shapes = {"D2": (emb, None), "D3": (emb_c, base_c), "D1": (emb_r, base_r)}
+    for name, (e, b) in shapes.items():
+        k = 10
+        nq, c = CHUNK, e.shape[-2]
+        nbytes = e.numel() * 4 + qv.numel() * 4 + nq * k * 8 + \
+            (0 if b is None else b.numel() * 4)
+        bms, by = bound(nbytes, 2 * nq * c * dim)
+        ms = time_ms(lambda: streaming_dense_topk(e, qv, b, k=k))
+        plain = time_ms(lambda: dense_topk_ref(e, qv, b, k=k))
+        if e.dim() == 2:
+            lib = time_ms(lambda: torch.topk(qv @ e.T, k))
+        else:
+            lib = time_ms(lambda: torch.topk(torch.baddbmm(
+                b[..., None], e, qv[..., None])[..., 0], k))
+        rows[f"dense_topk {name}"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err,
+            "shape": f"{'x'.join(map(str, e.shape))} x {nq} queries k={k}"}
+        log(f"[dense kernels] dense_topk {name} {tuple(e.shape)} k={k}: "
+            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (two calls: "
+            f"matmul + torch.topk) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+
+    ucodes = torch.randint(0, 2, codes_c.shape, device=DEVICE, generator=g,
+                           dtype=torch.uint8)
+    dcodes = codes_c.clone()
+    dcodes[:, 1::2] = dcodes[:, 0:codes_c.shape[1] - 1:2]
+    pcases = {"D4 gathered": (codes_c, base_p), "D4 no base": (codes_c, None),
+              "duplicate rows": (dcodes, base_p),
+              "codes in {0, 1}": (ucodes, None),
+              "[16, 100, 16] rows": (codes_c[:, :100], base_p[:, :100])}
+    for name, (c, b) in pcases.items():
+        for k in (1, 10, 80, 128):
+            if k > c.shape[1]:
+                continue
+            v1, i1 = streaming_pq_topk(c, table, b, k=k)
+            v2, i2 = pq_topk_ref(c, table, b, k=k)
+            torch.cuda.synchronize()
+            assert torch.equal(v1, v2) and torch.equal(i1, i2), \
+                ("pq_topk", name, k)
+    log(f"[dense kernels] pq_topk equals its plain version (values and "
+        f"indices) on {list(pcases)} x k in (1, 10, 80, 128); D4 codes "
+        f"{tuple(codes_c.shape)}, shortlist r={r}")
+    nq, c, m = codes_c.shape
+    nbytes = c * nq * (m + 4) + table.numel() * 4 + nq * r * 8
+    bms, by = bound(nbytes, nq * c * m)
+    ms = time_ms(lambda: streaming_pq_topk(codes_c, table, base_p, k=r))
+    plain = time_ms(lambda: pq_topk_ref(codes_c, table, base_p, k=r))
+    rows["pq_topk D4"] = {"ms": ms, "plain_ms": plain, "library_ms": None,
+                          "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
+                          "shape": f"{nq}x{c}x{m} uint8 k={r}"}
+    log(f"[dense kernels] pq_topk D4 ({nq}, {c}, {m}) k={r}: kernel "
+        f"{ms:.4f} ms, plain {plain:.4f} ms, library none (no single call), "
+        f"bound {bms:.4f} ms ({by})")
+    return rows
+
+
+def phase_dense(forms, state) -> None:
+    """D1-D4 on the 250 T topics, each unoptimised and optimised through
+    ``Experiment(measure_time=True)``."""
+    import repro_torch as rt
+    from repro_torch.index.robust04 import NPROBE
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    pipes = {
+        "D1": ((rt.Retrieve("BM25", k=200) >> rt.DenseRerank(alpha=0.3)) % 10,
+               state["be"], "fused_dense_rerank"),
+        "D2": (rt.DenseRetrieve(k=10, nprobe=0) % 10, state["be"],
+               "fused_dense_retrieve"),
+        "D3": (rt.DenseRetrieve(k=10, nprobe=NPROBE) % 10, state["be"],
+               "fused_dense_retrieve"),
+        "D4": (rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10,
+               state["be_pq"], "fused_dense_retrieve")}
+    res = {}
+    for name, (pipe, be, kind) in pipes.items():
+        got = rt.compile_pipeline(pipe, be).kind
+        assert got == kind, (name, got)
+        out = {}
+        for setting, opt in (("unoptimised", False), ("optimised", True)):
+            r = rt.Experiment([pipe], Q, topics.qrels, ["map", "ndcg_cut_10"],
+                              backend=be, optimize=opt, measure_time=True)
+            out[setting] = (r["table"][0], r["results"][0])
+        (ru, Ru), (ro, Ro) = out["unoptimised"], out["optimised"]
+        assert Ro["docids"].shape == (len(topics.qids), 10)
+        assert bool(Ro["scores"].isfinite().all())
+        ovl = topk_overlap(Ru["docids"], Ro["docids"], 10)
+        assert ovl >= 0.99, (name, ovl)
+        res[name] = Ro
+        log(f"[dense] {name} T unoptimised mrt_ms {ru['mrt_ms']:.4f} map "
+            f"{ru['map']:.4f}  optimised ({got}) mrt_ms {ro['mrt_ms']:.4f} "
+            f"map {ro['map']:.4f} ndcg_cut_10 {ro['ndcg_cut_10']:.4f}  "
+            f"overlap@10 fused vs unfused {ovl:.4f}")
+    for name in ("D3", "D4"):
+        log(f"[dense] recall@10 of {name} against D2 (brute force): "
+            f"{topk_overlap(res[name]['docids'], res['D2']['docids'], 10):.4f}")
+
+
 def phase_rq1(index, forms) -> None:
     import repro_torch as rt
     from repro_torch.core import BackendDescriptor
@@ -361,9 +593,13 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
     from repro_torch.kernels.fused_scoring.ops import fused_scoring
+    from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
     from repro_torch.kernels.topk.ops import streaming_topk
 
+    # the plain versions' matmuls in full fp32, as the kernels compute
+    torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
     smi = phase_toolchain()
     log(f"[toolchain] card: {smi}")
@@ -388,17 +624,41 @@ def main() -> int:
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
 
+    state = phase_dense_build(index)
+    rows.update(phase_dense_kernels(index, forms, state))
+    # the dense main path: counts from zero, read right after D1-D4
+    streaming_dense_topk.launches = 0
+    streaming_pq_topk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    phase_dense(forms, state)
+    dense = {"dense_topk": streaming_dense_topk.launches,
+             "pq_topk": streaming_pq_topk.launches}
+    log(f"[main] dense D1-D4 {time.perf_counter() - t0:.1f} s; launches: "
+        f"dense_topk {dense['dense_topk']}, pq_topk {dense['pq_topk']}; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} bytes")
+    for name, n in dense.items():
+        assert n > 0, f"kernel {name} was not launched on the dense path"
+    launches.update(dense)
+
     log(json.dumps({"tpu_kernels": [
         {"function": f, "status": s, "replaces": r}
         for f, s, r in TPU_KERNELS]}))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     log(smi)
-    sources = {"topk": ("src/repro_torch/csrc/topk.cu", TPU_KERNELS[0][2]),
-               "fused_scoring": ("src/repro_torch/csrc/fused_scoring.cu",
-                                 TPU_KERNELS[1][2])}
+    sources = {"topk": ("topk", "src/repro_torch/csrc/topk.cu",
+                        TPU_KERNELS[0][2]),
+               "fused_scoring": ("fused_scoring",
+                                 "src/repro_torch/csrc/fused_scoring.cu",
+                                 TPU_KERNELS[1][2]),
+               "dense_topk": ("dense_topk D2",
+                              "src/repro_torch/csrc/dense_topk.cu",
+                              TPU_KERNELS[2][2]),
+               "pq_topk": ("pq_topk D4", "src/repro_torch/csrc/pq_topk.cu",
+                           TPU_KERNELS[3][2])}
     kernels = []
-    for name, (src, rep) in sources.items():
-        r = rows[name]
+    for name, (row, src, rep) in sources.items():
+        r = rows[row]
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": rep, "launches": launches[name],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],

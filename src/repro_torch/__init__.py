@@ -6,6 +6,7 @@ the reference.  Entry points run on the card unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.
 
     from repro_torch import Experiment, Retrieve, TorchBackend, build_index
+    from repro_torch import DenseRerank, DenseRetrieve
 """
 from repro_torch.core.compiler import TorchBackend, run_pipeline
 from repro_torch.core.data import make_queries
@@ -13,7 +14,9 @@ from repro_torch.core.descriptor import BackendDescriptor
 from repro_torch.core.experiment import Experiment, format_table
 from repro_torch.core.ir import Schema, SchemaError, lower, raise_ir
 from repro_torch.core.passes import compile_pipeline, explain_pipeline
-from repro_torch.core.stages import Extract, FatRetrieve, Retrieve
+from repro_torch.core.stages import (DenseRerank, DenseRetrieve, Extract,
+                                     FatRetrieve, FusedDenseRerank,
+                                     FusedDenseRetrieve, Retrieve)
 from repro_torch.index import (build_index, expand_topics, index_from_arrays,
                                synthesize_corpus, synthesize_topics)
 
@@ -21,6 +24,7 @@ __all__ = [
     "TorchBackend", "BackendDescriptor", "compile_pipeline",
     "explain_pipeline", "run_pipeline", "lower", "raise_ir",
     "Schema", "SchemaError", "make_queries", "Experiment", "format_table",
-    "Retrieve", "FatRetrieve", "Extract", "build_index", "expand_topics",
+    "Retrieve", "FatRetrieve", "Extract", "DenseRetrieve", "DenseRerank",
+    "FusedDenseRetrieve", "FusedDenseRerank", "build_index", "expand_topics",
     "index_from_arrays", "synthesize_corpus", "synthesize_topics",
 ]

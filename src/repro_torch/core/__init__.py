@@ -1,4 +1,5 @@
-"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice).
+"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice and the
+dense second stage).
 
     from repro_torch.core import *
     be = TorchBackend(build_index(synthesize_corpus()))
@@ -11,7 +12,9 @@ from repro_torch.core.descriptor import BackendDescriptor  # noqa: F401
 from repro_torch.core.experiment import Experiment, format_table  # noqa: F401
 from repro_torch.core.ir import Op, Schema, SchemaError, lower, raise_ir  # noqa: F401
 from repro_torch.core.passes import compile_pipeline, explain_pipeline  # noqa: F401
-from repro_torch.core.stages import (Extract, FatRetrieve,  # noqa: F401
-                                     FusedFatRetrieve, FusedTopKRetrieve,
-                                     PrunedRetrieve, Retrieve)
+from repro_torch.core.stages import (DenseRerank, DenseRetrieve,  # noqa: F401
+                                     Extract, FatRetrieve, FusedDenseRerank,
+                                     FusedDenseRetrieve, FusedFatRetrieve,
+                                     FusedTopKRetrieve, PrunedRetrieve,
+                                     Retrieve)
 from repro_torch.core.transformer import Transformer  # noqa: F401

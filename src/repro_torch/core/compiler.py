@@ -33,16 +33,25 @@ from repro_torch.index.inverted import BLOCK, InvertedIndex
 
 class TorchBackend:
     """Execution backend over the torch index: capability descriptor plus
-    chunked query execution on one device.
+    chunked query execution on one device, and the dense second stage's
+    state (embeddings, query projection, IVF and IVF-PQ indexes).
 
     The optimisation surface consulted by the rewrite/fusion passes lives
     on ``self.descriptor``; pass ``descriptor=BackendDescriptor.default(
     capability_set)`` to restrict it.  ``device=None`` means the card and
-    raises without one; the index is moved there if it lives elsewhere."""
+    raises without one; the index is moved there if it lives elsewhere.
 
-    def __init__(self, index: InvertedIndex, *, default_k: int = 1000,
-                 query_chunk: int = 16,
-                 descriptor: BackendDescriptor | None = None, device=None):
+    The dense state is built on first use, so a sparse-only backend pays
+    nothing for it: ``dense`` (pass one to share it across backends), the
+    query projection (the same draws as the embeddings' projection), the
+    IVF-flat index with ``ivf_lists`` lists and the IVF-PQ index with
+    ``pq_m`` subspaces (``ivf=`` / ``ivfpq=`` supply ready ones)."""
+
+    def __init__(self, index: InvertedIndex, dense=None, *,
+                 default_k: int = 1000, query_chunk: int = 16,
+                 descriptor: BackendDescriptor | None = None, device=None,
+                 ivf=None, ivf_lists: int | None = None, ivfpq=None,
+                 pq_m: int = 8, pq_refine: int = 4):
         self.device = resolve_device(device)
         if index.device != self.device:
             index = dataclasses.replace(
@@ -59,6 +68,60 @@ class TorchBackend:
         self.max_postings = int(lens.max())
         self.max_blocks_per_term = self.max_postings // BLOCK
         self.total_blocks = int(index.doc_ids.shape[0]) // BLOCK
+        if dense is not None and dense.emb.device != self.device:
+            dense = dataclasses.replace(dense, emb=dense.emb.to(self.device))
+        self._dense = dense
+        self._qproj_t = None
+        self._ivf = ivf
+        self.ivf_lists = ivf_lists
+        self._ivfpq = ivfpq
+        self.pq_m = int(pq_m)
+        self.pq_refine = int(pq_refine)
+
+    # -- dense second stage --------------------------------------------------
+    @property
+    def dense(self):
+        """Dense doc embeddings (``repro_torch.index.dense.DenseIndex``),
+        built on first use from the forward file."""
+        if self._dense is None:
+            from repro_torch.index.dense import build_dense_index
+            self._dense = build_dense_index(self.index)
+        return self._dense
+
+    @property
+    def _qproj(self) -> torch.Tensor:
+        """The query projection [vocab, dim]: numpy's draws from the
+        embeddings' seed, the same draws as their projection."""
+        if self._qproj_t is None:
+            from repro_torch.index.dense import projection
+            self._qproj_t = projection(self.index.vocab, self.dense.dim,
+                                       self.dense.seed, self.device)
+        return self._qproj_t
+
+    @property
+    def ivf(self):
+        """IVF-flat dense index, built on first use from the dense
+        embeddings with ``ivf_lists`` lists."""
+        if self._ivf is None:
+            from repro_torch.index.dense import build_ivf_index
+            self._ivf = build_ivf_index(self.dense, n_lists=self.ivf_lists)
+        return self._ivf
+
+    @property
+    def ivfpq(self):
+        """IVF-PQ compressed dense index, built on first use.  Shares the
+        coarse quantiser with ``self.ivf`` when that is already built;
+        otherwise builds a ``keep_flat=False`` skeleton."""
+        if self._ivfpq is None:
+            from repro_torch.index.dense import build_ivfpq_index
+            self._ivfpq = build_ivfpq_index(self.dense, n_lists=self.ivf_lists,
+                                            m=self.pq_m, ivf=self._ivf)
+        return self._ivfpq
+
+    def embed_queries(self, Q) -> torch.Tensor:
+        """Q's terms/weights [NQ, MAXQ] -> unit query vectors [NQ, dim]."""
+        from repro_torch.index.dense import embed_queries
+        return embed_queries(self._qproj, Q["terms"], Q["weights"])
 
     def map_query_chunks(self, fn, Q, *extra):
         """Run the batched ``fn(terms, weights, *extra)`` on chunks of

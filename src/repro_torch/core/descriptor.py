@@ -21,10 +21,11 @@ from __future__ import annotations
 import dataclasses
 
 #: the full capability set of the torch backend: exactly what the port
-#: implements (block-max pruning, fat postings, and the two kernel
-#: lowerings)
+#: implements (block-max pruning, fat postings, and the kernel lowerings:
+#: sparse top-k, fused scoring, dense retrieval, dense rerank, IVF-PQ)
 DEFAULT_CAPABILITIES = frozenset({
     "pruned_topk", "fat", "fused_topk", "fused_scoring",
+    "dense_topk", "fused_dense", "pq_topk",
 })
 
 
@@ -47,11 +48,16 @@ class BackendDescriptor:
                 **overrides) -> "BackendDescriptor":
         """Descriptor for the torch backend: full (or given) capability
         set, kernel limits read off the kernel packages."""
+        from repro_torch.kernels.dense_scoring.ops import \
+            MAX_KERNEL_K as DENSE_K
+        from repro_torch.kernels.pq_scoring.ops import MAX_KERNEL_K as PQ_K
         from repro_torch.kernels.topk.ops import MAX_KERNEL_K as TOPK_K
         kw = dict(
             capabilities=(DEFAULT_CAPABILITIES if capabilities is None
                           else frozenset(capabilities)),
-            kernel_limits=(("topk", TOPK_K), ("fat", None)),
+            kernel_limits=(("topk", TOPK_K), ("fat", None),
+                           ("dense_topk", DENSE_K), ("dense_rerank", DENSE_K),
+                           ("pq_topk", PQ_K)),
         )
         kw.update(overrides)
         return cls(**kw)

@@ -18,7 +18,11 @@ An explicit ordered pipeline of IR-to-IR passes:
   fusion              — lowering onto the CUDA kernel paths:
                         ``cutoff(retrieve)`` -> FusedTopKRetrieve
                         (kernels/topk), ``cutoff(fat_retrieve)`` ->
-                        FusedFatRetrieve (kernels/fused_scoring).  Both are
+                        FusedFatRetrieve (kernels/fused_scoring),
+                        ``cutoff(dense_retrieve)`` -> FusedDenseRetrieve
+                        (kernels/dense_scoring, kernels/pq_scoring) and
+                        ``retrieve >> cutoff(dense_rerank)`` ->
+                        FusedDenseRerank (kernels/dense_scoring).  All are
                         exact rewrites, so the gate is the capability plus
                         the kernel-native predicate; every decision is
                         recorded with ``"source": "capability"``
@@ -46,7 +50,8 @@ from repro_torch.obs.tracing import NOOP_TRACER, get_tracer
 # ---------------------------------------------------------------------------
 
 _RETRIEVER_KINDS = frozenset({"retrieve", "pruned_retrieve",
-                              "fused_topk_retrieve"})
+                              "fused_topk_retrieve", "dense_retrieve",
+                              "fused_dense_retrieve", "fused_dense_rerank"})
 _FAT_KINDS = frozenset({"fat_retrieve", "fused_fat_retrieve"})
 
 
@@ -69,6 +74,9 @@ def _stage_schema(op: Op, s_in: Schema | None, backend,
     elif kind == "extract":
         out = Schema("F", k_in, None if s_in is None else (w_in or 0) + 1,
                      True)
+    elif kind == "dense_rerank":
+        out = Schema("F" if s_in is not None and s_in.out == "F" else "R",
+                     k_in, w_in, True)
     elif kind == "then":
         r_sch = s_in
         child_outs = []
@@ -447,12 +455,13 @@ class CSEPass(Pass):
 # ---------------------------------------------------------------------------
 
 class FusionPass(Pass):
-    """Lower ``cutoff(retrieve)`` / ``cutoff(fat_retrieve)`` onto the CUDA
-    kernel paths.  Both fused forms are exact rewrites of the chain they
-    replace, so the gate is the backend's capability plus the kernel-native
-    predicate (a k the kernel itself serves); the measured gate over CUDA
-    events is later work.  Every decision (either way) is recorded in
-    ``PassContext.decisions``."""
+    """Lower ``cutoff(retrieve)``, ``cutoff(fat_retrieve)``,
+    ``cutoff(dense_retrieve)`` and ``retrieve >> cutoff(dense_rerank)``
+    onto the CUDA kernel paths.  Every fused form is an exact rewrite of
+    the chain it replaces, so the gate is the backend's capability plus the
+    kernel-native predicate (a k the kernel itself serves); the measured
+    gate over CUDA events is later work.  Every decision (either way) is
+    recorded in ``PassContext.decisions``."""
     name = "fusion"
 
     def __init__(self, descriptor: BackendDescriptor):
@@ -463,6 +472,8 @@ class FusionPass(Pass):
 
     def _walk(self, op: Op, pctx: PassContext) -> Op:
         op = _rebuild(op, [self._walk(i, pctx) for i in op.inputs])
+        if op.kind == "then":
+            return self._fuse_dense_rerank_pairs(op, pctx)
         if op.kind != "cutoff" or not op.inputs[0].is_leaf:
             return op
         desc = self.descriptor
@@ -472,9 +483,17 @@ class FusionPass(Pass):
         k_in = inner.params.get("k") or be.default_k
         if K > k_in:
             return op
+        # clamp to the corpus size as the stage executors do
         K = min(K, be.index.n_docs)
+        k_in = min(k_in, be.index.n_docs)
         model = inner.params.get("model")
-        if inner.kind == "retrieve" and desc.supports("fused_topk"):
+        if inner.kind == "dense_retrieve":
+            need = "pq_topk" if (inner.params.get("pq")
+                                 and inner.params.get("nprobe")) \
+                else "dense_topk"
+            if desc.supports(need):
+                return self._fuse_dense_retrieve(op, inner, K, k_in, pctx)
+        elif inner.kind == "retrieve" and desc.supports("fused_topk"):
             fused = leaf(S.FusedTopKRetrieve(model=model, k=K))
             if self._gate(pctx, "topk", desc.kernel_native("topk", K)):
                 pctx.trace.append(("fuse_topk", op, fused))
@@ -489,6 +508,81 @@ class FusionPass(Pass):
                 pctx.trace.append(("fuse_fat", op, fused))
                 return fused
         return op
+
+    # -- dense candidate generation: cutoff(dense_retrieve) -----------------
+    def _fuse_dense_retrieve(self, op: Op, inner: Op, K: int, k_in: int,
+                             pctx: PassContext) -> Op:
+        from repro_torch.index import dense as DN
+        be = pctx.backend
+        desc = self.descriptor
+        nprobe = inner.params["nprobe"]
+        if nprobe and inner.params.get("pq"):
+            # two-level IVF-PQ: the fused stage keeps the *unfused* chain's
+            # ADC shortlist depth (from the pre-cutoff k_in), so fusion
+            # stays exact — the cutoff of the re-scored shortlist commutes
+            # with selecting K directly.  The kernel must carry that depth,
+            # so kernel_native is evaluated at it
+            pqi = be.ivfpq
+            npb = min(nprobe, pqi.n_lists)
+            r = DN._pq_shortlist_depth(k_in, be.pq_refine,
+                                       npb * pqi.max_list_len)
+            fused = leaf(S.FusedDenseRetrieve(k=K, nprobe=nprobe, pq=True,
+                                              pq_shortlist=r))
+            if self._gate(pctx, "pq_topk", desc.kernel_native("pq_topk", r)):
+                pctx.trace.append(("fuse_pq_topk", op, fused))
+                return fused
+            return op
+        fused = leaf(S.FusedDenseRetrieve(k=K, nprobe=nprobe))
+        if self._gate(pctx, "dense_topk",
+                      desc.kernel_native("dense_topk", K)):
+            pctx.trace.append(("fuse_dense_topk", op, fused))
+            return fused
+        return op
+
+    # -- dense second stage: retrieve >> cutoff(dense_rerank) --------------
+    def _fuse_dense_rerank_pairs(self, op: Op, pctx: PassContext) -> Op:
+        """Within a ``then`` chain, lower each adjacent ``retrieve,
+        cutoff(dense_rerank)`` pair to one FusedDenseRerank stage (the
+        rewrite pass has already pushed the pipeline-level cutoff onto the
+        last R-producer, so the paper's ``bm25 >> neural % K`` arrives here
+        in exactly this shape)."""
+        if not self.descriptor.supports("fused_dense"):
+            return op
+        kids = list(op.inputs)
+        changed = False
+        i = 0
+        while i < len(kids) - 1:
+            fused = self._try_dense_rerank_pair(kids[i], kids[i + 1], pctx)
+            if fused is not None:
+                kids[i:i + 2] = [fused]
+                changed = True
+            else:
+                i += 1
+        if not changed:
+            return op
+        return kids[0] if len(kids) == 1 else Op("then", {}, kids)
+
+    def _try_dense_rerank_pair(self, a: Op, b: Op,
+                               pctx: PassContext) -> Op | None:
+        if not (a.kind == "retrieve" and b.kind == "cutoff"
+                and b.inputs[0].kind == "dense_rerank"):
+            return None
+        be = pctx.backend
+        K = b.params["k"]
+        k_in = a.params.get("k") or be.default_k
+        if K > k_in:
+            return None
+        K = min(K, be.index.n_docs)
+        k_in = min(k_in, be.index.n_docs)
+        fused = leaf(S.FusedDenseRerank(model=a.params["model"], k_in=k_in,
+                                        k=K,
+                                        alpha=b.inputs[0].params["alpha"]))
+        if self._gate(pctx, "dense_rerank",
+                      self.descriptor.kernel_native("dense_rerank", K)):
+            pctx.trace.append(("fuse_dense_rerank", Op("then", {}, (a, b)),
+                               fused))
+            return fused
+        return None
 
     def _gate(self, pctx: PassContext, pattern: str,
               kernel_native: bool) -> bool:

@@ -1,5 +1,5 @@
 """Concrete IR transformers (paper Table 1) over the torch backend: the
-sparse stages of the RQ1/RQ2 path.
+sparse stages of the RQ1/RQ2 path and the dense second stage.
 
 Leaf stages close over *static* config only.  Execution is batched over the
 query axis and chunked by the backend (``backend.map_query_chunks``).
@@ -141,6 +141,112 @@ class FusedFatRetrieve(Transformer):
                    "features": feats}
 
 
+class DenseRetrieve(Transformer):
+    """ANN-style dense candidate generation over the IVF dense index
+    (Q -> R): embed the query, probe the ``nprobe`` closest coarse lists,
+    score only those lists' documents.  ``nprobe=0`` scores every document
+    (exact brute force).  ``pq=True`` scores candidates against the
+    compressed IVF-PQ store (ADC table lookups + exact float re-scoring of
+    the shortlist) instead of the float list store."""
+    kind = "dense_retrieve"
+    reads_results = False
+
+    def __init__(self, k: int | None = None, nprobe: int = 8,
+                 pq: bool = False):
+        super().__init__(k=k, nprobe=int(nprobe), pq=bool(pq))
+
+    def execute(self, ctx, Q, R):
+        be = ctx.backend
+        k = min(self.params["k"] or be.default_k, be.index.n_docs)
+        return _dense_retrieve(be, Q, k=k, nprobe=self.params["nprobe"],
+                               pq=self.params["pq"], fused=False)
+
+
+class FusedDenseRetrieve(Transformer):
+    """``DenseRetrieve % K`` lowered to the dense-scoring kernel path
+    (``kernels/dense_scoring``, or ``kernels/pq_scoring`` when ``pq=True``)
+    at the cutoff depth, created by the IR lowering pass (core/passes.py).
+    ``pq_shortlist`` pins the ADC shortlist depth (the pass sets it to the
+    *unfused* chain's depth so fusion is an exact rewrite; ``None`` =
+    refine*k)."""
+    kind = "fused_dense_retrieve"
+    reads_results = False
+
+    def __init__(self, k: int = 10, nprobe: int = 8, pq: bool = False,
+                 pq_shortlist: int | None = None):
+        super().__init__(
+            k=int(k), nprobe=int(nprobe), pq=bool(pq),
+            pq_shortlist=None if pq_shortlist is None else int(pq_shortlist))
+
+    def execute(self, ctx, Q, R):
+        be = ctx.backend
+        k = min(self.params["k"], be.index.n_docs)
+        return _dense_retrieve(be, Q, k=k, nprobe=self.params["nprobe"],
+                               pq=self.params["pq"], fused=True,
+                               shortlist=self.params["pq_shortlist"])
+
+
+def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
+                    shortlist: int | None = None):
+    """The search both dense retrieval stages run, chunk by chunk: IVF-PQ
+    (``nprobe`` and ``pq``), IVF-flat (``nprobe``) or brute force."""
+    from repro_torch.index import dense as DN
+    if nprobe and pq:
+        state = be.ivfpq
+        search = (DN.ivfpq_retrieve_topk_fused if fused
+                  else DN.ivfpq_retrieve_topk)
+        kw = {"nprobe": min(nprobe, state.n_lists), "refine": be.pq_refine}
+        if fused:
+            kw["shortlist"] = shortlist
+    elif nprobe:
+        state = be.ivf
+        search = DN.ivf_retrieve_topk_fused if fused else DN.ivf_retrieve_topk
+        kw = {"nprobe": min(nprobe, state.n_lists)}
+    else:
+        state = be.dense
+        search = (DN.dense_retrieve_exact_fused if fused
+                  else DN.dense_retrieve_exact)
+        kw = {}
+
+    def run(terms, weights):
+        qv = be.embed_queries({"terms": terms, "weights": weights})
+        return search(state, qv, k=k, **kw)
+
+    docs, scores = be.map_query_chunks(run, Q)
+    return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
+
+
+class FusedDenseRerank(Transformer):
+    """``Retrieve >> DenseRerank % K`` lowered to one fused stage: sparse
+    candidates at depth ``k_in``, dense re-scoring on the kernel with the
+    sparse score as the additive base, top-k at the cutoff depth ``k``
+    (core/passes.py)."""
+    kind = "fused_dense_rerank"
+    reads_results = False
+
+    def __init__(self, model: str = "BM25", k_in: int = 1000, k: int = 10,
+                 alpha: float = 0.0):
+        super().__init__(model=model, k_in=int(k_in), k=int(k),
+                         alpha=float(alpha))
+
+    def execute(self, ctx, Q, R):
+        be = ctx.backend
+        p = self.params
+        k_in = min(p["k_in"], be.index.n_docs)
+        k = min(p["k"], be.index.n_docs)
+        emb = be.dense.emb
+
+        def run(terms, weights):
+            qv = be.embed_queries({"terms": terms, "weights": weights})
+            return RT.retrieve_dense_rerank_fused(
+                be.index, emb, terms, weights, qv, model=p["model"],
+                k_in=k_in, k=k, alpha=p["alpha"],
+                max_postings=be.max_postings)
+
+        docs, scores = be.map_query_chunks(run, Q)
+        return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
+
+
 # ---------------------------------------------------------------------------
 # feature extraction
 # ---------------------------------------------------------------------------
@@ -165,3 +271,42 @@ class Extract(Transformer):
         feats = R.get("features")
         feats = f if feats is None else torch.cat([feats, f], -1)
         return Q, {**R, "features": feats}
+
+
+# ---------------------------------------------------------------------------
+# re-ranking
+# ---------------------------------------------------------------------------
+
+def _sort_by_scores(R, new_scores):
+    """R re-ordered by ``new_scores`` [NQ, K], descending (a stable sort:
+    ties keep their order in R)."""
+    order = torch.argsort(-new_scores, dim=1, stable=True)
+    out = {**R, "docids": torch.gather(R["docids"], 1, order),
+           "scores": torch.gather(new_scores, 1, order)}
+    if "features" in R:
+        out["features"] = torch.gather(
+            R["features"], 1,
+            order[..., None].expand(-1, -1, R["features"].shape[-1]))
+    return out
+
+
+class DenseRerank(Transformer):
+    """Dense (embedding) re-scoring of the candidate set — the neural
+    re-ranker slot (CEDR/BERT in Listing 1), backed by the dense index:
+    ``alpha * score + emb[doc] @ q``."""
+    kind = "dense_rerank"
+
+    def __init__(self, alpha: float = 0.0):
+        super().__init__(alpha=alpha)
+
+    def execute(self, ctx, Q, R):
+        be = ctx.backend
+        emb = be.dense.emb
+        alpha = self.params["alpha"]
+
+        def run(terms, weights, docids, scores):
+            qv = be.embed_queries({"terms": terms, "weights": weights})
+            return RT.dense_rerank_scores(emb, qv, docids, scores, alpha)
+
+        s = be.map_query_chunks(run, Q, R["docids"], R["scores"])
+        return Q, _sort_by_scores(R, s)

@@ -15,12 +15,15 @@
 // takes each segment's top-k (repro::block_topk_row: a 4-pass radix select
 // plus a collection pass, four loads in flight per thread); stage 2 merges
 // the segments' sorted candidate lists of each row with the same routine.
-// The segment's passes after the first read it from the 50 MB L2.
+// The segment's passes after the first read it from the 50 MB L2.  The
+// merge stage is exported (repro::launch_topk_merge) for the dense- and
+// PQ-scoring kernels, which merge their segments the same way.
 //
 // Contract: values sorted descending, ties to the lowest index (the
-// lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.  With more
-// than one segment each must hold at least k elements (the wrapper picks
-// the count); candidates live in scratch the wrapper allocates.
+// lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.  The wrapper
+// plans the segments (kernels/segments.py; only the last may hold fewer
+// than k, and repro::segment_topk pads its list) and allocates the
+// candidate scratch.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -42,8 +45,8 @@ topk_segments_kernel(const float* __restrict__ scores, int64_t n,
   const int64_t lo = s * seg_len;
   const int64_t len = n - lo < seg_len ? n - lo : seg_len;
   const int64_t out = (q * gridDim.x + s) * k;
-  repro::block_topk_row<THREADS>(scores + q * n + lo, len, k, nullptr, lo,
-                                 out_vals + out, out_idxs + out, sm);
+  repro::segment_topk<THREADS>(scores + q * n + lo, len, k, lo,
+                               out_vals + out, out_idxs + out, sm);
 }
 
 __global__ void __launch_bounds__(MERGE_THREADS)
@@ -59,28 +62,36 @@ topk_merge_kernel(const float* __restrict__ cand_vals,
 
 }  // namespace
 
-// scores [nq, n] -> vals/idxs [nq, k].  n_seg > 1 needs cand_vals and
-// cand_idxs of nq * n_seg * k elements each.
+cudaError_t repro::launch_topk_merge(const float* cand_vals,
+                                     const int* cand_idxs, int64_t nq,
+                                     int64_t m, int k, float* vals, int* idxs,
+                                     cudaStream_t stream) {
+  if (k < 1 || k > repro::TOPK_MAX_K || m < k || m > INT_MAX || nq < 1 ||
+      nq > INT_MAX)
+    return cudaErrorInvalidValue;
+  topk_merge_kernel<<<(unsigned int)nq, MERGE_THREADS, 0, stream>>>(
+      cand_vals, cand_idxs, m, k, vals, idxs);
+  return cudaGetLastError();
+}
+
+// scores [nq, n] -> vals/idxs [nq, k], in n_seg segments of seg_len.
+// n_seg > 1 needs cand_vals and cand_idxs of nq * n_seg * k elements each.
 extern "C" int repro_topk_f32(const float* scores, int64_t nq, int64_t n,
-                              int k, int n_seg, float* cand_vals,
-                              int* cand_idxs, float* vals, int* idxs,
-                              void* stream) {
+                              int k, int n_seg, int64_t seg_len,
+                              float* cand_vals, int* cand_idxs, float* vals,
+                              int* idxs, void* stream) {
   if (k < 1 || k > repro::TOPK_MAX_K || n < k || n > INT_MAX || nq < 1 ||
-      nq > 65535 || n_seg < 1)
+      nq > 65535 || n_seg < 1 || seg_len < 1 ||
+      (int64_t)(n_seg - 1) * seg_len >= n || (int64_t)n_seg * seg_len < n ||
+      (n_seg > 1 && seg_len < k))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  if (n_seg == 1) {
-    topk_segments_kernel<<<dim3(1, (unsigned int)nq), THREADS, 0, st>>>(
-        scores, n, n, k, vals, idxs);
-    return (int)cudaGetLastError();
-  }
-  const int64_t seg_len = (n + n_seg - 1) / n_seg;
-  if (n - (int64_t)(n_seg - 1) * seg_len < k) return (int)cudaErrorInvalidValue;
+  float* ov = n_seg == 1 ? vals : cand_vals;
+  int* oi = n_seg == 1 ? idxs : cand_idxs;
   topk_segments_kernel<<<dim3((unsigned int)n_seg, (unsigned int)nq), THREADS,
-                         0, st>>>(scores, n, seg_len, k, cand_vals, cand_idxs);
+                         0, st>>>(scores, n, seg_len, k, ov, oi);
   const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  topk_merge_kernel<<<(unsigned int)nq, MERGE_THREADS, 0, st>>>(
-      cand_vals, cand_idxs, (int64_t)n_seg * k, k, vals, idxs);
-  return (int)cudaGetLastError();
+  if (err != cudaSuccess || n_seg == 1) return (int)err;
+  return (int)repro::launch_topk_merge(cand_vals, cand_idxs, nq,
+                                      (int64_t)n_seg * k, k, vals, idxs, st);
 }

@@ -5,10 +5,12 @@
 // value by a 4-pass radix select (8 bits a pass, a 256-bin histogram in
 // shared memory with warp-aggregated atomics), collects the elements above
 // that key plus the lowest-indexed elements equal to it, and ranks those k
-// candidates in shared memory.  `block_topk_row` is the merge the dense and
-// PQ scoring kernels can call on their own candidate rows.
+// candidates in shared memory.  The topk, dense-scoring and PQ-scoring
+// kernels all take their top-k with `block_topk_row`, and all merge their
+// segments' candidate lists with `launch_topk_merge` (defined in topk.cu).
 #pragma once
 
+#include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
 
@@ -88,16 +90,33 @@ __device__ void block_topk_row(const float* __restrict__ row, int64_t n,
       }
     }
     __syncthreads();
-    if (tid == 0) {
+    // the bin holding the k-th largest: the highest bin b with at least
+    // `remaining` elements in bins >= b.  Warp 0 finds it: lane l sums bins
+    // [8l, 8l + 8), a suffix scan over the lanes gives the count above each
+    // lane's bins, and the one lane whose range holds the crossing walks
+    // its 8 bins down (the shuffles keep every read of sm.remaining ahead
+    // of the one write)
+    if (warp == 0) {
       const unsigned int rem = (unsigned int)sm.remaining;
-      unsigned int above = 0;
-      int b = 255;
-      for (; b > 0; --b) {
-        if (above + sm.hist[b] >= rem) break;
-        above += sm.hist[b];
+      unsigned int local = 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) local += sm.hist[lane * 8 + j];
+      unsigned int suffix = local;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const unsigned int v = __shfl_down_sync(0xffffffffu, suffix, off);
+        if (lane + off < 32) suffix += v;
       }
-      sm.remaining = (int)(rem - above);
-      sm.prefix = prefix | ((uint32_t)b << shift);
+      unsigned int above = suffix - local;
+      if (above < rem && rem <= suffix) {
+        int b = lane * 8 + 7;
+        for (; b > lane * 8; --b) {
+          if (above + sm.hist[b] >= rem) break;
+          above += sm.hist[b];
+        }
+        sm.remaining = (int)(rem - above);
+        sm.prefix = prefix | ((uint32_t)b << shift);
+      }
     }
     mask |= 255u << shift;
     __syncthreads();
@@ -184,5 +203,31 @@ __device__ void block_topk_row(const float* __restrict__ row, int64_t n,
   }
   __syncthreads();
 }
+
+// One segment's candidate list for a later merge: the top min(k, len) of
+// row[0, len) (indices lo + i), then (-inf, INT_MAX) pads up to k slots.
+// Only the last segment of a row is shorter than k, and its pads sit past
+// every real candidate of the row in the merge's order, so the merge (which
+// holds at least k real candidates) never takes one.
+template <int THREADS>
+__device__ void segment_topk(const float* __restrict__ row, int64_t len,
+                             int k, int64_t lo, float* __restrict__ out_vals,
+                             int* __restrict__ out_idxs,
+                             TopKSmem<THREADS>& sm) {
+  const int kk = len < k ? (int)len : k;
+  block_topk_row<THREADS>(row, len, kk, nullptr, lo, out_vals, out_idxs, sm);
+  for (int j = kk + (int)threadIdx.x; j < k; j += THREADS) {
+    out_vals[j] = -__int_as_float(0x7f800000);  // -inf
+    out_idxs[j] = INT_MAX;
+  }
+}
+
+// Merge each row's candidate lists, cand_vals/cand_idxs [nq, m] (the
+// segments' sorted top-k lists in segment order, so equal values appear in
+// ascending index order), into vals/idxs [nq, k].  Launches one block per
+// row on `stream` and returns cudaGetLastError().  Defined in topk.cu.
+cudaError_t launch_topk_merge(const float* cand_vals, const int* cand_idxs,
+                              int64_t nq, int64_t m, int k, float* vals,
+                              int* idxs, cudaStream_t stream);
 
 }  // namespace repro

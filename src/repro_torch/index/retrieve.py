@@ -17,8 +17,10 @@ target (cf. paper §4):
                           model (fat postings [Macdonald et al.]).  The
                           target of the RQ2 rewrite.
 
-Plus the kernel lowerings ``retrieve_topk_fused`` / ``retrieve_fat_fused``
-and the unoptimised counterpart of fat, ``extract_feature_docvectors``.
+Plus the kernel lowerings ``retrieve_topk_fused`` / ``retrieve_fat_fused``,
+the unoptimised counterpart of fat, ``extract_feature_docvectors``, and the
+dense second stage over sparse candidates, ``retrieve_dense_rerank`` and
+its kernel lowering ``retrieve_dense_rerank_fused``.
 
 Summation order.  A document's score is the sum of its query terms'
 contributions in query-slot order, as in the reference's scatter-add over
@@ -222,6 +224,51 @@ def retrieve_fat_fused(index: InvertedIndex, terms, weights, *,
     all_s = all_s * (weights[..., None, None] *
                      post["mask"][..., None].to(torch.float32))
     return _fat_topk(_scatter_slots(index.n_docs, post, all_s), k)
+
+
+# ---------------------------------------------------------------------------
+# dense second stage: sparse candidates re-scored by the dense index
+# ---------------------------------------------------------------------------
+
+def dense_rerank_scores(emb, qvecs, docids, scores, alpha: float):
+    """The dense re-score of result lists docids/scores [NQ, K]:
+    ``alpha * score + emb[doc] @ q``, -inf for padding (docid -1)."""
+    dots = torch.matmul(emb[docids.clamp(min=0).long()],
+                        qvecs[..., None])[..., 0]
+    return torch.where(docids >= 0, alpha * scores + dots, -torch.inf)
+
+
+def retrieve_dense_rerank(index: InvertedIndex, emb, terms, weights, qvecs,
+                          *, model: str, k_in: int, k: int, alpha: float,
+                          max_postings: int):
+    """The unfused ``Retrieve >> DenseRerank % K`` chain: sparse top-k_in
+    candidates, dense re-scoring (``alpha * sparse + emb @ q``), full
+    stable sort, slice to K — the semantics the fused form below must
+    reproduce exactly."""
+    docs, scores = retrieve_topk(index, terms, weights, model=model, k=k_in,
+                                 max_postings=max_postings)
+    ds = dense_rerank_scores(emb, qvecs, docs, scores, alpha)
+    order = torch.argsort(-ds, dim=1, stable=True)[:, :k]
+    return torch.gather(docs, 1, order), torch.gather(ds, 1, order)
+
+
+def retrieve_dense_rerank_fused(index: InvertedIndex, emb, terms, weights,
+                                qvecs, *, model: str, k_in: int, k: int,
+                                alpha: float, max_postings: int):
+    """``Retrieve >> DenseRerank % K`` lowered through the dense-scoring
+    kernel: the sparse contribution rides in as the kernel's ``base`` and
+    its top-k runs at the *cutoff* depth K, so the candidate list is never
+    fully sorted (``kernels/dense_scoring``)."""
+    from repro_torch.index.dense import NEG
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    docs, scores = retrieve_topk(index, terms, weights, model=model, k=k_in,
+                                 max_postings=max_postings)
+    base = torch.where(docs >= 0, alpha * scores, NEG)
+    vals, idxs = streaming_dense_topk(emb[docs.clamp(min=0).long()], qvecs,
+                                      base, k=k)
+    ok = vals > NEG / 2
+    out_docs = torch.where(ok, torch.gather(docs, 1, idxs.long()), -1)
+    return out_docs.to(torch.int32), torch.where(ok, vals, -torch.inf)
 
 
 # ---------------------------------------------------------------------------

@@ -23,8 +23,12 @@ be = rt.TorchBackend(rt.build_index(corpus, device="cpu"), default_k=20,
 Q = rt.make_queries(topics.terms, topics.weights, topics.qids, device="cpu")
 pipes = [rt.Retrieve("BM25") % 5,
          (rt.Retrieve("BM25") >> (rt.Extract("QL") ** rt.Extract("DPH"))) % 5]
+pipes += [(rt.Retrieve("BM25", k=30) >> rt.DenseRerank(alpha=0.3)) % 5,
+          rt.DenseRetrieve(k=5, nprobe=2) % 5,
+          rt.DenseRetrieve(k=5, nprobe=2, pq=True) % 5]
 res = rt.Experiment(pipes, Q, topics.qrels, ["map"], backend=be)
 assert res["results"][1]["features"].shape == (3, 5, 2)
+assert all(r["docids"].shape == (3, 5) for r in res["results"][2:])
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

@@ -126,25 +126,28 @@ def test_failed_compile_raises_with_compiler_output():
 
 @pytest.mark.parametrize("nq,n,k", [(16, 528155, 10), (1, 528155, 128),
                                     (250, 70001, 10), (3, 1000, 128),
-                                    (4, 9000, 128), (2, 130, 7)])
+                                    (4, 9000, 128), (2, 130, 7),
+                                    (16, 2 * 4096 + 100, 128)])
 def test_segment_plan_covers_rows_and_merges_to_topk(nq, n, k):
-    """The kernel's two-stage plan — each segment's top-k, then a top-k of
-    the segments' sorted candidate lists taken by position — gives the
-    row's top-k with the lowest-index tie rule; here with the plain top-k
-    standing in for both stages."""
-    from repro_torch.common import cdiv
-    from repro_torch.kernels.topk.ops import segments
-    s = segments(nq, n, k, 132)
-    seg = cdiv(n, s)
-    assert 1 <= s and (s == 1 or n - (s - 1) * seg >= k)
-    assert s == 1 or nq * s >= 132 or n // s < 2 * 4096
+    """The kernel's two-stage plan — each segment's top-min(k, len),
+    padded to k with (-inf, INT_MAX), then a top-k of the segments' lists
+    taken by position — gives the row's top-k with the lowest-index tie
+    rule; here with the plain top-k standing in for both stages."""
+    from repro_torch.kernels.segments import plan_segments
+    from repro_torch.kernels.topk.ops import MIN_SEGMENT
+    s, seg = plan_segments(nq, n, k, 132, min_len=MIN_SEGMENT)
+    assert 1 <= s and (s - 1) * seg < n <= s * seg
+    assert s == 1 or seg >= max(k, MIN_SEGMENT)
+    assert s == 1 or nq * s >= 132 or n // s < 2 * MIN_SEGMENT
     rng = np.random.default_rng(n)
     row = torch.from_numpy(rng.integers(0, 40, n).astype(np.float32))
     cand_v, cand_i = [], []
     for lo in range(0, n, seg):
-        v, i = streaming_topk_ref(row[lo:lo + seg], k=min(k, n - lo))
-        cand_v.append(v)
-        cand_i.append(i + lo)
+        kk = min(k, n - lo)
+        v, i = streaming_topk_ref(row[lo:lo + seg], k=kk)
+        cand_v.append(torch.cat([v, torch.full((k - kk,), -torch.inf)]))
+        cand_i.append(torch.cat([i + lo, torch.full((k - kk,), 2**31 - 1,
+                                                    dtype=torch.int32)]))
     v, pos = streaming_topk_ref(torch.cat(cand_v), k=k)
     want_v, want_i = streaming_topk_ref(row, k=k)
     assert torch.equal(v, want_v)
