@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Where the time goes on the card: a ``torch.profiler`` breakdown of the
-port's RQ1/RQ2 paths and of its dense second stage (brute-force and IVF-PQ
-DenseRetrieve) at TREC Robust04 scale (528,155 documents).
+port's RQ1/RQ2 paths, of its dense second stage (brute-force and IVF-PQ
+DenseRetrieve) at TREC Robust04 scale (528,155 documents), and of the RAG
+answer stage's LM (cell G1: Qwen2-1.5B, random weights from seed 0).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -10,7 +11,8 @@ Run from the repository root on a machine with one NVIDIA H100:
 It builds the Robust04-scale index and its dense state on the card
 (``repro_torch.index.robust04``), warms every pipeline up once, then
 profiles one timed run of each setting over the 250 T topics (chunks of
-16) and prints, per setting:
+16), and for G1 the prefill of one chunk of 16 prompts of 1,024 tokens
+and its 31 greedy decode steps apart, and prints, per setting:
 the wall time, the device time summed over kernels, the device's idle
 share of the wall time, the operators with the most device time, and the
 port's own kernels whatever their rank.
@@ -27,7 +29,9 @@ TOP = 12
 #: device names of the port's hand-written kernels (csrc/*.cu)
 PORT_KERNELS = ("topk_segments_kernel", "topk_merge_kernel",
                 "fused_scoring_kernel", "dense_segments_kernel",
-                "pq_segments_kernel")
+                "pq_segments_kernel", "flash_attention_kernel")
+#: cell G1: prompt length, greedy tokens, documents per prompt
+G1_PROMPT, G1_NEW, G1_DOCS = 1024, 32, 4
 
 
 def _device_us(evt) -> float:
@@ -35,6 +39,70 @@ def _device_us(evt) -> float:
         if hasattr(evt, name):
             return float(getattr(evt, name))
     return 0.0
+
+
+def _profile(name: str, run) -> None:
+    """Warm ``run`` up once, then profile one call of it and print the
+    wall time, the device time, the idle share and the top operators."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    run()                                                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_us = 1e6 * (time.perf_counter() - t0)
+    # device-side events only: a CPU operator also reports the device
+    # time of the kernels it launched, which would count it twice
+    evts = [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
+    dev_us = sum(_device_us(e) for e in evts)
+    idle = 1.0 - dev_us / wall_us if wall_us else float("nan")
+    print(f"== {name}: wall {wall_us / 1e3:.3f} ms, device "
+          f"{dev_us / 1e3:.3f} ms, device idle share {idle:.3f}")
+    ranked = sorted(evts, key=_device_us, reverse=True)
+    for rank, e in enumerate(ranked):
+        if rank < TOP or any(k in e.key for k in PORT_KERNELS):
+            print(f"   {rank + 1:3d}. {_device_us(e) / 1e3:10.3f} ms  "
+                  f"{e.count:6d} calls  {e.key[:90]}")
+
+
+def _profile_g1(index, dense, Q) -> None:
+    """G1's LM on one chunk of 16 T topics: the prefill, then the decode
+    steps, each profiled apart."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.core import Context
+    from repro_torch.models import transformer_lm as tlm
+    cfg = dataclasses.replace(qwen2_1_5b.model_cfg(), attn_impl="pallas")
+    be = rt.TorchBackend(index, dense, default_k=1000, query_chunk=16,
+                         device="cuda")
+    be.register_lm(cfg.name, cfg, seed=0)
+    lm = be.lm(cfg.name)[1]
+    Q16 = {k: v[:16] for k, v in Q.items()}
+    R = rt.run_pipeline(rt.Retrieve("BM25") >> rt.DenseRerank() % 8, Q16,
+                        backend=be)
+    gen = rt.Generate(cfg.name, max_new_tokens=G1_NEW,
+                      max_prompt_len=G1_PROMPT, prompt_docs=G1_DOCS)
+    prompts = gen.assemble(Context(be), Q16, R)
+    cache = tlm.init_kv_cache(cfg, 16, G1_PROMPT + G1_NEW, device="cuda")
+    logits, _ = tlm.prefill(cfg, lm, prompts, cache)
+    first = torch.argmax(logits, -1)[:, None]
+
+    def decode():
+        tok = first
+        for t in range(G1_NEW - 1):
+            out, _ = tlm.decode_step(cfg, lm, tok, cache, G1_PROMPT + t)
+            tok = torch.argmax(out, -1)[:, None]
+
+    _profile(f"G1 prefill (16 x {G1_PROMPT} tokens, {cfg.name})",
+             lambda: tlm.prefill(cfg, lm, prompts, cache))
+    _profile(f"G1 decode ({G1_NEW - 1} steps of 16 tokens)", decode)
 
 
 def main() -> int:
@@ -48,8 +116,6 @@ def main() -> int:
     from repro_torch.core import BackendDescriptor
     from repro_torch.index.robust04 import (NPROBE, PQ_M, PQ_REFINE,
                                             robust04, robust04_dense)
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     index, forms, _ = robust04(device="cuda")
     dense, ivf, ivfpq, _ = robust04_dense(index)
@@ -78,28 +144,9 @@ def main() -> int:
         be = rt.TorchBackend(index, dense, default_k=1000, query_chunk=16,
                              descriptor=desc, device="cuda", **dense_kw)
         node = rt.compile_pipeline(pipe, be) if opt else pipe
-        rt.run_pipeline(node, Q, backend=be, optimize=False)   # warm-up
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            rt.run_pipeline(node, Q, backend=be, optimize=False)
-            torch.cuda.synchronize()
-            wall_us = 1e6 * (time.perf_counter() - t0)
-        # device-side events only: a CPU operator also reports the device
-        # time of the kernels it launched, which would count it twice
-        evts = [e for e in prof.key_averages()
-                if e.device_type == DeviceType.CUDA and _device_us(e) > 0]
-        dev_us = sum(_device_us(e) for e in evts)
-        idle = 1.0 - dev_us / wall_us if wall_us else float("nan")
-        print(f"== {name} ({FORM}, {len(topics.qids)} topics): wall "
-              f"{wall_us / 1e3:.3f} ms, device {dev_us / 1e3:.3f} ms, "
-              f"device idle share {idle:.3f}")
-        ranked = sorted(evts, key=_device_us, reverse=True)
-        for rank, e in enumerate(ranked):
-            if rank < TOP or any(k in e.key for k in PORT_KERNELS):
-                print(f"   {rank + 1:3d}. {_device_us(e) / 1e3:10.3f} ms  "
-                      f"{e.count:6d} calls  {e.key[:90]}")
+        _profile(f"{name} ({FORM}, {len(topics.qids)} topics)",
+                 lambda: rt.run_pipeline(node, Q, backend=be, optimize=False))
+    _profile_g1(index, dense, Q)
     print(card())
     return 0
 

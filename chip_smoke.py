@@ -12,9 +12,13 @@ paper's RQ1 (``Retrieve("BM25") % 10``) and RQ2 (``Retrieve >> (Extract **
 Extract) % 1000``) Experiments for the T/TD/TDN topic formulations, then
 builds the dense second stage (embeddings, IVF-flat, IVF-PQ) and runs its
 four pipelines — BM25 >> DenseRerank, brute-force, IVF-flat and IVF-PQ
-DenseRetrieve, each % 10 — unoptimised and optimised on the T topics, and
-shows through the kernels' launch counters that each main path ran on its
-kernels.
+DenseRetrieve, each % 10 — unoptimised and optimised on the T topics, then
+holds the flash-attention kernel against its plain version and runs the
+RAG answer stage at full width (cell G1: ``Retrieve("BM25") >>
+DenseRerank() % 8 >> Generate(...)`` with Qwen2-1.5B, 28 layers, random
+weights from seed 0, 1,024-token prompts and 32 greedy tokens on the 250 T
+topics), and shows through the kernels' launch counters that each main
+path ran on its kernels.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -37,11 +41,22 @@ CHUNK = 16
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, fp32 outside tensor cores
+BF16_TC_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 #: fp32 operations per posting for each model, counted from the model
 #: lines of csrc/fused_scoring.cu (adds, multiplies, divides, min/max and
 #: transcendental calls each count one)
 MODEL_OPS = {"BM25": 12, "TF_IDF": 8, "QL": 12, "DPH": 23, "Coord": 1}
 RQ2_MODELS = ("BM25", "QL", "TF_IDF")
+#: cell G1, the RAG answer stage: prompt and decode lengths, documents per
+#: prompt, the reranked depth the prompt reads
+G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
+#: least share of the 250 T topics whose first generated token the kernel
+#: path and the einsum path agree on (both bf16, same weights).  The
+#: einsum path rounds its probabilities to bf16 before the PV product, the
+#: kernel keeps them in fp32, and a 151,936-way argmax over bf16 logits
+#: flips where the top two lie within a rounding: 244 of 250 agreed on the
+#: H100 (PERF.md, G1); 0.95 leaves room for another card's sums
+G1_FIRST_TOKEN_MIN = 0.95
 
 #: every TPU kernel of the JAX package: function -> (status, file:line)
 TPU_KERNELS = [
@@ -53,7 +68,7 @@ TPU_KERNELS = [
      "src/repro/kernels/dense_scoring/dense_scoring.py:55"),
     ("pq_topk_pallas", "ported",
      "src/repro/kernels/pq_scoring/pq_scoring.py:69"),
-    ("flash_attention_pallas", "to port",
+    ("flash_attention_pallas", "ported",
      "src/repro/kernels/flash_attention/flash_attention.py:85"),
 ]
 
@@ -202,6 +217,63 @@ def phase_small_parity():
     log("[small] dense: embeddings built on the card within rtol 1e-5 / atol "
         "1e-6 of the CPU's; D1-D4 (fused) agree card vs CPU, docids equal "
         f"except {n_ties} rank(s) inside a score tie")
+    _small_rag(corpus, topics, dense["cpu"])
+
+
+def _small_rag(corpus, topics, dense) -> None:
+    """The RAG stage on the 3000-doc corpus: an fp32 LM of d_head 64 on the
+    flash kernel (card) against the plain version (CPU), same weights."""
+    import copy
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import Context
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer_lm as tlm
+    cfg = tlm.LMConfig(name="rag-small", n_layers=2, d_model=256, n_q=4,
+                       n_kv=2, d_head=64, d_ff=512, vocab=4096,
+                       qkv_bias=True, tie_embeddings=True,
+                       dtype=torch.float32, attn_impl="pallas")
+    lm = tlm.init_params(cfg, torch.Generator().manual_seed(0))
+    lms = {"cpu": lm, "cuda": copy.deepcopy(lm).to("cuda")}
+    P, T = 96, 8                          # a prompt of one and a half tiles
+    gen = rt.Generate("rag-small", max_new_tokens=T, max_prompt_len=P,
+                      prompt_docs=3)
+    rag = rt.Retrieve("BM25") >> rt.DenseRerank() % 8 >> gen
+    out = {}
+    before = flash_attention.launches
+    for dev in ("cpu", "cuda"):
+        be = rt.TorchBackend(rt.build_index(corpus, device=dev), dense,
+                             default_k=60, query_chunk=4, device=dev)
+        be.register_lm("rag-small", cfg, lms[dev])
+        Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                            device=dev)
+        out[dev] = {k: v.cpu() for k, v in
+                    rt.run_pipeline(rag, Q, backend=be).items()}
+        if dev == "cpu":
+            prompts = gen.assemble(Context(be), Q, out["cpu"])
+    n_flash = flash_attention.launches - before
+    assert n_flash == cfg.n_layers * 2, n_flash      # 2 chunks of 4 queries
+    a, b = out["cpu"], out["cuda"]
+    assert torch.equal(a["docids"], b["docids"])
+    # a token may differ only where the CPU's logits at that step put the
+    # card's token within a tie of the argmax; later tokens follow it
+    ties = []
+    for q in range(a["tokens"].shape[0]):
+        diff = (a["tokens"][q] != b["tokens"][q]).nonzero()
+        if len(diff) == 0:
+            continue
+        t = int(diff[0])
+        seq = torch.cat([prompts[q], a["tokens"][q, :t]])[None]
+        cache = tlm.init_kv_cache(cfg, 1, seq.shape[1], device="cpu")
+        logits, _ = tlm.prefill(cfg, lm, seq, cache)
+        gap = float(logits[0, a["tokens"][q, t]] - logits[0, b["tokens"][q, t]])
+        tol = 1e-4 * float(logits.abs().max())
+        assert 0 <= gap <= tol, (q, t, gap, tol)
+        ties.append((q, t, gap))
+    log(f"[small] RAG (fp32 LM, d_head 64, {P}-token prompts, {T} tokens, "
+        f"flash kernel {n_flash} launches on the card): docids equal, tokens "
+        f"equal card vs CPU except {len(ties)} row(s) from a near-tie of "
+        f"logits within 1e-4 of their largest magnitude {ties}")
 
 
 def phase_index():
@@ -517,6 +589,238 @@ def phase_dense(forms, state) -> None:
             f"{topk_overlap(res[name]['docids'], res['D2']['docids'], 10):.4f}")
 
 
+def phase_attention_kernels() -> dict:
+    """The flash-attention kernel against its plain version on the card:
+    the JAX package's sweep (MHA/GQA/MQA x f32/bf16, chunk 32 and 128), one
+    query row, ragged S and T, T < S with rows whose chunk holds no key,
+    and G1's prefill shape, at the JAX
+    contract's atol (2e-6 f32, 2e-2 bf16); then G1's timings."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.configs import qwen2_1_5b
+    cfg = qwen2_1_5b.model_cfg()
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    tol = {torch.float32: 2e-6, torch.bfloat16: 2e-2}
+    # (B, S, T, H, Hkv, D, causal, chunk)
+    cases = [(1, 128, 128, 2, 2, 64, True, 0), (2, 256, 256, 4, 2, 64, True, 0),
+             (1, 256, 256, 8, 1, 128, True, 0),
+             (1, 256, 256, 4, 2, 64, True, 32),
+             (1, 256, 256, 4, 2, 64, True, 128),
+             (2, 1, 1, 12, 2, 128, True, 0), (2, 1, 70, 4, 2, 64, False, 0),
+             (3, 100, 100, 12, 2, 128, True, 0),
+             (2, 70, 131, 4, 2, 64, False, 0),
+             (2, 200, 200, 4, 2, 64, True, 48),
+             # rows whose chunk starts at or past T see no key
+             (2, 100, 70, 4, 2, 64, True, 32),
+             (2, 130, 70, 4, 2, 128, False, 48),
+             (CHUNK, G1_PROMPT, G1_PROMPT, cfg.n_q, cfg.n_kv, cfg.d_head,
+              True, 0)]
+    # f32: the kernel within the contract's 2e-6 of the plain version
+    # evaluated in float64 (the exact function of these inputs), and within
+    # 4e-6 of the plain version in float32, which sums in its own order and
+    # is itself up to 2e-6 from the exact function; bf16: both round one
+    # fp32 result, within 2e-2 of each other
+    err = {"f32 vs f64": 0.0, "f32 vs plain": 0.0, "plain f32 vs f64": 0.0,
+           "bf16 vs plain": 0.0}
+    for B, S, T, H, HKV, D, causal, chunk in cases:
+        for dt in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, S, H, D, device=DEVICE, generator=g).to(dt)
+            k = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
+            v = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
+            a = flash_attention(q, k, v, causal=causal, chunk=chunk)
+            b = flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
+            torch.cuda.synchronize()
+            assert a.dtype == dt and a.shape == q.shape
+            diff = float((a.float() - b.float()).abs().max())
+            if dt == torch.bfloat16:
+                assert diff <= tol[dt], (B, S, T, H, HKV, D, chunk, diff)
+                err["bf16 vs plain"] = max(err["bf16 vs plain"], diff)
+                continue
+            exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                        causal=causal, chunk=chunk)
+            e_k = float((a.double() - exact).abs().max())
+            e_p = float((b.double() - exact).abs().max())
+            assert e_k <= tol[dt] and diff <= 2 * tol[dt], \
+                (B, S, T, H, HKV, D, chunk, e_k, diff, e_p)
+            for key, e in (("f32 vs f64", e_k), ("f32 vs plain", diff),
+                           ("plain f32 vs f64", e_p)):
+                err[key] = max(err[key], e)
+            del exact
+    log(f"[attention kernels] flash_attention on (B, S, T, H, Hkv, D, causal,"
+        f" chunk) = {cases} x f32/bf16: f32 within atol 2e-6 of the plain "
+        f"version in float64 and 4e-6 of it in float32, bf16 within 2e-2 of "
+        f"the plain version; max abs err "
+        f"{ {k: float(f'{e:.3e}') for k, e in err.items()} }")
+
+    # G1's prefill attention: one layer of one chunk of 16 prompts
+    B, S, H, HKV, D = CHUNK, G1_PROMPT, cfg.n_q, cfg.n_kv, cfg.d_head
+    dt = torch.bfloat16
+    q = torch.randn(B, S, H, D, device=DEVICE, generator=g).to(dt)
+    k = torch.randn(B, S, HKV, D, device=DEVICE, generator=g).to(dt)
+    v = torch.randn(B, S, HKV, D, device=DEVICE, generator=g).to(dt)
+    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True))
+    ops = 4 * B * H * D * S * (S + 1) / 2
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+    b_ops = 1e3 * ops / BF16_TC_OPS_PER_S
+    b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    log(f"[attention kernels] flash_attention G1 q {tuple(q.shape)} k/v "
+        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain {plain:.4f} "
+        f"ms, library (scaled_dot_product_attention) {lib:.4f} ms; bound "
+        f"{b_ops:.4f} ms (operations: {ops / 1e9:.2f} GFLOP at the bf16 "
+        f"tensor-core rate; {1e3 * ops / FP32_OPS_PER_S:.4f} ms at the fp32 "
+        f"rate; bytes {nbytes / 1e6:.1f} MB, {b_bytes:.4f} ms); achieved "
+        f"{ops / ms / 1e9:.2f} TFLOP/s")
+    return {"flash_attention": {
+        "ms": ms, "plain_ms": plain, "library_ms": lib,
+        "bound_ms": max(b_ops, b_bytes),
+        "bound_by": "operations" if b_ops >= b_bytes else "bytes",
+        "max_abs_err": err["bf16 vs plain"],
+        "shape": f"q [{B}, {S}, {H}, {D}] k/v [{B}, {S}, {HKV}, {D}] bf16 "
+                 f"causal"}}
+
+
+def phase_generate(index, forms, state) -> dict:
+    """Cell G1: the RAG answer stage at full width on the 250 T topics
+    through ``Experiment(measure_time=True)``; reads the launch counters
+    right after it, then times one chunk's prefill and decode apart and
+    runs the einsum attention path on the same weights."""
+    import dataclasses
+    import torch
+    import repro_torch as rt
+    from repro_torch.configs import qwen2_1_5b
+    from repro_torch.core import Context, ir
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.models import transformer_lm as tlm
+    cfg = dataclasses.replace(qwen2_1_5b.model_cfg(), attn_impl="pallas")
+    be = rt.TorchBackend(index, state["dense"], default_k=1000,
+                         query_chunk=CHUNK, device=DEVICE)
+    t0 = time.perf_counter()
+    be.register_lm(cfg.name, cfg, seed=0)
+    torch.cuda.synchronize()
+    lm = be.lm(cfg.name)[1]
+    n_params = sum(p.numel() for p in lm.parameters())
+    log(f"[generate] {cfg.name}: {cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q}/{cfg.n_kv} heads of {cfg.d_head}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}; {n_params} parameters in "
+        f"{cfg.dtype} drawn on the card from seed 0 in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    def generate(model):
+        return rt.Generate(model, max_new_tokens=G1_NEW,
+                           max_prompt_len=G1_PROMPT, prompt_docs=G1_DOCS)
+
+    def rag(model):
+        return (rt.Retrieve("BM25") >> rt.DenseRerank() % G1_DEPTH
+                >> generate(model))
+
+    pipe = rag(cfg.name)
+    report = {}
+    op = rt.compile_pipeline(pipe, be, report=report)
+    kinds = [o.kind for o in ir.chain(op)]
+    assert kinds == ["fused_dense_rerank", "generate"], kinds
+    log(f"[generate] compile report: chain {kinds}; fusion decisions "
+        f"{report['fusion_decisions']}; passes "
+        f"{[(n, round(1e3 * s, 3)) for n, s in report['pass_timings_s']]} ms")
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    nq = len(topics.qids)
+
+    # the main path: counts from zero, read right after the Experiment
+    flash_attention.launches = 0
+    streaming_dense_topk.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = rt.Experiment([pipe], Q, topics.qrels, ["map", "ndcg_cut_10"],
+                        backend=be, measure_time=True)
+    launches = {"flash_attention": flash_attention.launches,
+                "dense_topk": streaming_dense_topk.launches}
+    row, A = res["table"][0], res["results"][0]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[main] G1 {time.perf_counter() - t0:.1f} s (warm-up + timed run);"
+        f" launches: flash_attention {launches['flash_attention']} (28 layers"
+        f" x 16 chunks x 2 runs = 896), dense_topk {launches['dense_topk']};"
+        f" peak device memory {peak} bytes")
+    for name, n in launches.items():
+        assert n > 0, f"kernel {name} was not launched on the G1 path"
+    tokens = A["tokens"]
+    assert tokens.shape == (nq, G1_NEW) and tokens.dtype == torch.int32
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
+    assert A["docids"].shape == (nq, G1_DEPTH)
+    log(f"[generate] G1 mrt_ms {row['mrt_ms']:.4f} per query (250 T topics,"
+        f" chunks of {CHUNK}); map {row['map']:.4f} ndcg_cut_10 "
+        f"{row['ndcg_cut_10']:.4f} of the reranked depth {G1_DEPTH}; "
+        f"tokens {tuple(tokens.shape)} in [{int(tokens.min())}, "
+        f"{int(tokens.max())}], {len(torch.unique(tokens))} distinct")
+
+    # prefill and decode of one chunk, timed apart
+    Q16 = {key: val[:CHUNK] for key, val in Q.items()}
+    prompts = generate(cfg.name).assemble(Context(be), Q16,
+                                          {"docids": A["docids"][:CHUNK]})
+    P = G1_PROMPT + G1_NEW
+    times = {"prefill": [], "decode": []}
+    for _ in range(3):
+        cache = tlm.init_kv_cache(cfg, CHUNK, P, device=DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = tlm.prefill(cfg, lm, prompts, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        tok = torch.argmax(logits, -1)
+        for t in range(G1_NEW - 1):
+            logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
+                                            G1_PROMPT + t)
+            tok = torch.argmax(logits, -1)
+        torch.cuda.synchronize()
+        times["prefill"].append(t1 - t0)
+        times["decode"].append(time.perf_counter() - t1)
+    pre, dec = min(times["prefill"]), min(times["decode"])
+    log(f"[generate] one chunk of {CHUNK} (best of 3): prefill {1e3 * pre:.2f}"
+        f" ms = {CHUNK * G1_PROMPT / pre:.0f} tokens/s; {G1_NEW - 1} decode "
+        f"steps {1e3 * dec:.2f} ms = {1e3 * dec / (G1_NEW - 1):.3f} ms/step ="
+        f" {CHUNK * (G1_NEW - 1) / dec:.0f} tokens/s")
+
+    # the einsum attention path on the card, same weights
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    be.register_lm("qwen2-1.5b-einsum", cfg_x, lm)
+    Ax = rt.run_pipeline(rag("qwen2-1.5b-einsum"), Q, backend=be)
+    docs = float((Ax["docids"] == A["docids"]).all(1).float().mean())
+    first = float((Ax["tokens"][:, 0] == tokens[:, 0]).float().mean())
+    whole = float((Ax["tokens"] == tokens).all(1).float().mean())
+    same = (Ax["tokens"] == tokens).float().mean(0)
+    log(f"[generate] flash kernel vs einsum path ({docs:.4f} of the topics "
+        f"with equal docids): first token agrees on {first:.4f} of {nq} "
+        f"topics, all {G1_NEW} tokens on {whole:.4f}; "
+        f"per-step agreement {[round(float(x), 3) for x in same]}")
+    # where the first tokens differ: both paths' prefill logits of those
+    # prompts, the gap between the two tokens on each side
+    rows = (Ax["tokens"][:, 0] != tokens[:, 0]).nonzero()[:, 0][:CHUNK]
+    if len(rows):
+        Qd = {key: val[rows] for key, val in Q.items()}
+        pd = generate(cfg.name).assemble(Context(be), Qd,
+                                         {"docids": A["docids"][rows]})
+        tk, tx = tokens[rows, 0].long(), Ax["tokens"][rows, 0].long()
+        gaps = []
+        for c in (cfg, cfg_x):
+            cache = tlm.init_kv_cache(c, len(rows), G1_PROMPT, device=DEVICE)
+            lg = tlm.prefill(c, lm, pd, cache)[0].float()
+            own, other = (tk, tx) if c is cfg else (tx, tk)
+            ar = torch.arange(len(rows), device=lg.device)
+            gaps.append((lg[ar, own] - lg[ar, other]).tolist())
+        log(f"[generate] the {len(rows)} first-token flips: logit gap "
+            f"between the two tokens, kernel path {gaps[0]}, einsum path "
+            f"{gaps[1]} (bf16 logits; spacing 0.5 in [64, 128), 1 in "
+            f"[128, 256))")
+    assert first >= G1_FIRST_TOKEN_MIN, first
+    return launches
+
+
 def phase_rq1(index, forms) -> None:
     import repro_torch as rt
     from repro_torch.core import BackendDescriptor
@@ -641,6 +945,12 @@ def main() -> int:
         assert n > 0, f"kernel {name} was not launched on the dense path"
     launches.update(dense)
 
+    rows.update(phase_attention_kernels())
+    # the RAG main path (cell G1): its counts are set to zero and read
+    # inside phase_generate, around its Experiment
+    g1 = phase_generate(index, forms, state)
+    launches["flash_attention"] = g1["flash_attention"]
+
     log(json.dumps({"tpu_kernels": [
         {"function": f, "status": s, "replaces": r}
         for f, s, r in TPU_KERNELS]}))
@@ -655,7 +965,10 @@ def main() -> int:
                               "src/repro_torch/csrc/dense_topk.cu",
                               TPU_KERNELS[2][2]),
                "pq_topk": ("pq_topk D4", "src/repro_torch/csrc/pq_topk.cu",
-                           TPU_KERNELS[3][2])}
+                           TPU_KERNELS[3][2]),
+               "flash_attention": ("flash_attention",
+                                   "src/repro_torch/csrc/flash_attention.cu",
+                                   TPU_KERNELS[4][2])}
     kernels = []
     for name, (row, src, rep) in sources.items():
         r = rows[row]

@@ -6,7 +6,7 @@ the reference.  Entry points run on the card unless the caller passes
 ``device="cpu"``; without a card and without that argument they raise.
 
     from repro_torch import Experiment, Retrieve, TorchBackend, build_index
-    from repro_torch import DenseRerank, DenseRetrieve
+    from repro_torch import DenseRerank, DenseRetrieve, Generate
 """
 from repro_torch.core.compiler import TorchBackend, run_pipeline
 from repro_torch.core.data import make_queries
@@ -16,7 +16,7 @@ from repro_torch.core.ir import Schema, SchemaError, lower, raise_ir
 from repro_torch.core.passes import compile_pipeline, explain_pipeline
 from repro_torch.core.stages import (DenseRerank, DenseRetrieve, Extract,
                                      FatRetrieve, FusedDenseRerank,
-                                     FusedDenseRetrieve, Retrieve)
+                                     FusedDenseRetrieve, Generate, Retrieve)
 from repro_torch.index import (build_index, expand_topics, index_from_arrays,
                                synthesize_corpus, synthesize_topics)
 
@@ -25,6 +25,6 @@ __all__ = [
     "explain_pipeline", "run_pipeline", "lower", "raise_ir",
     "Schema", "SchemaError", "make_queries", "Experiment", "format_table",
     "Retrieve", "FatRetrieve", "Extract", "DenseRetrieve", "DenseRerank",
-    "FusedDenseRetrieve", "FusedDenseRerank", "build_index", "expand_topics",
+    "FusedDenseRetrieve", "FusedDenseRerank", "Generate", "build_index", "expand_topics",
     "index_from_arrays", "synthesize_corpus", "synthesize_topics",
 ]

@@ -1,11 +1,16 @@
-"""Shared utilities: device policy, the card's stamp, registries, integer
-helpers and the top-k rule every ranking on the sparse path follows."""
+"""Shared utilities: device policy, the LMs' default dtype, the card's stamp,
+registries, integer helpers and the top-k rule every ranking on the sparse
+path follows."""
 from __future__ import annotations
 
 import subprocess
 from typing import Any
 
 import torch
+
+#: default parameter / activation dtype of the LMs; fp32 is kept for the
+#: softmax and the normalisation statistics
+DEFAULT_DTYPE = torch.bfloat16
 
 
 def resolve_device(device=None) -> torch.device:

@@ -1,5 +1,5 @@
-"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice and the
-dense second stage).
+"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice, the
+dense second stage and the RAG answer stage).
 
     from repro_torch.core import *
     be = TorchBackend(build_index(synthesize_corpus()))
@@ -15,6 +15,6 @@ from repro_torch.core.passes import compile_pipeline, explain_pipeline  # noqa: 
 from repro_torch.core.stages import (DenseRerank, DenseRetrieve,  # noqa: F401
                                      Extract, FatRetrieve, FusedDenseRerank,
                                      FusedDenseRetrieve, FusedFatRetrieve,
-                                     FusedTopKRetrieve, PrunedRetrieve,
-                                     Retrieve)
+                                     FusedTopKRetrieve, Generate,
+                                     PrunedRetrieve, Retrieve)
 from repro_torch.core.transformer import Transformer  # noqa: F401

@@ -33,8 +33,9 @@ from repro_torch.index.inverted import BLOCK, InvertedIndex
 
 class TorchBackend:
     """Execution backend over the torch index: capability descriptor plus
-    chunked query execution on one device, and the dense second stage's
-    state (embeddings, query projection, IVF and IVF-PQ indexes).
+    chunked query execution on one device, the dense second stage's state
+    (embeddings, query projection, IVF and IVF-PQ indexes) and the
+    generate stage's LMs (``register_lm``).
 
     The optimisation surface consulted by the rewrite/fusion passes lives
     on ``self.descriptor``; pass ``descriptor=BackendDescriptor.default(
@@ -77,6 +78,41 @@ class TorchBackend:
         self._ivfpq = ivfpq
         self.pq_m = int(pq_m)
         self.pq_refine = int(pq_refine)
+        #: name -> (LMConfig, TransformerLM): decoder LMs the generate stage
+        #: resolves by name, so its IR params stay scalar
+        self._lms: dict = {}
+
+    # -- generate-stage LMs --------------------------------------------------
+    def register_lm(self, name: str, cfg, params=None, *, seed: int = 0):
+        """Register a decoder LM under ``name`` for the generate stage.
+
+        ``cfg`` is a :class:`repro_torch.models.transformer_lm.LMConfig`;
+        ``params`` (a ``TransformerLM`` on this backend's device) defaults
+        to a fresh :func:`~repro_torch.models.transformer_lm.init_params`
+        draw on the device from a generator seeded with ``seed``.  The
+        generate stage refers to the model by name only."""
+        from repro_torch.models import transformer_lm as tlm
+        if params is None:
+            gen = torch.Generator(device=self.device).manual_seed(seed)
+            params = tlm.init_params(cfg, gen)
+        else:
+            tlm.check_supported(cfg)
+        dev = params.embed.device
+        if dev.type != self.device.type:
+            raise ValueError(f"LM {name!r} lies on {dev}, the backend on "
+                             f"{self.device}")
+        self._lms[name] = (cfg, params)
+        return self
+
+    def lm(self, name: str):
+        """(cfg, params) of a registered LM; KeyError names the gap."""
+        try:
+            return self._lms[name]
+        except KeyError:
+            raise KeyError(
+                f"no LM registered as {name!r} on this backend "
+                f"(have {sorted(self._lms)}); call "
+                f"backend.register_lm(name, cfg) first") from None
 
     # -- dense second stage --------------------------------------------------
     @property

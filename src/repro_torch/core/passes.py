@@ -6,9 +6,10 @@ An explicit ordered pipeline of IR-to-IR passes:
                         Then-of-Then / FeatureUnion nests, inline Scale and
                         Linear children into Linear weights)
   schema_inference    — infer per-op :class:`~repro_torch.core.ir.Schema`
-                        (Q/R/F stream, static k, feature width) and validate
-                        the typing rules (a rank cutoff must attach to an
-                        R-producing expression)
+                        (Q/R/F/A stream, static k, feature width) and
+                        validate the typing rules (a rank cutoff must attach
+                        to an R-producing expression; generate reads R and
+                        its A stream is terminal)
   rewrite             — the equivalence rules (cutoff merge/into-then/
                         scale-swap/pushdown, fat fusion, scale folding)
                         applied bottom-up to fixpoint against the backend
@@ -59,12 +60,26 @@ def _carry(s_in: Schema | None):
     return (None, None) if s_in is None else (s_in.k, s_in.width)
 
 
+def _reject_answer(st: Schema, where: str, child: Op) -> None:
+    """A is terminal: no ranking combinator may consume an answer stream."""
+    if st.out == "A":
+        raise SchemaError(
+            f"{where} typed against an answer-bearing (A) expression "
+            f"({child.label()}): generate is terminal — no ranking stage "
+            f"may consume its output")
+
+
 def _stage_schema(op: Op, s_in: Schema | None, backend,
                   annot: dict | None) -> Schema:
     """Schema of ``op``'s output stream given the schema of the incoming R
     stream (None = statically unknown / absent)."""
     kind = op.kind
     k_in, w_in = _carry(s_in)
+    if s_in is not None and s_in.out == "A":
+        raise SchemaError(
+            f"stage {op.label()} typed against an answer-bearing (A) "
+            f"stream: generate is terminal — no stage may consume its "
+            f"output")
     if kind in _RETRIEVER_KINDS:
         k = op.params.get("k") or (backend.default_k if backend else None)
         out = Schema("R", k, None, False)
@@ -77,6 +92,15 @@ def _stage_schema(op: Op, s_in: Schema | None, backend,
     elif kind == "dense_rerank":
         out = Schema("F" if s_in is not None and s_in.out == "F" else "R",
                      k_in, w_in, True)
+    elif kind == "generate":
+        if s_in is None:
+            raise SchemaError(
+                f"generate ({op.label()}) typed against a pure Q -> Q "
+                f"expression: prompt assembly reads ranked results, so "
+                f"generate may only follow an R-producing expression")
+        # A: answer-bearing results; k carries the result depth the prompt
+        # reads, width the static decode length
+        out = Schema("A", k_in, op.params["max_new_tokens"], True)
     elif kind == "then":
         r_sch = s_in
         child_outs = []
@@ -98,20 +122,30 @@ def _stage_schema(op: Op, s_in: Schema | None, backend,
                 f"rank cutoff %{op.params['k']} typed against a pure "
                 f"Q -> Q expression ({op.inputs[0].label()}): a cutoff may "
                 f"only attach to an R-producing expression")
+        if st.out == "A":
+            raise SchemaError(
+                f"rank cutoff %{op.params['k']} typed against an "
+                f"answer-bearing (A) expression ({op.inputs[0].label()}): "
+                f"generate is terminal — apply the cutoff before it")
         K = op.params["k"]
         out = Schema(st.out, K if st.k is None else min(K, st.k), st.width,
                      st.reads_results)
     elif kind == "scale":
         st = _stage_schema(op.inputs[0], s_in, backend, annot)
+        _reject_answer(st, "score scale", op.inputs[0])
         out = Schema(st.out, st.k, st.width, st.reads_results)
     elif kind == "linear":
         sts = [_stage_schema(c, s_in, backend, annot) for c in op.inputs]
+        for st, c in zip(sts, op.inputs):
+            _reject_answer(st, "linear combination", c)
         ks = [st.k for st in sts]
         out = Schema("R", None if any(k is None for k in ks) else max(ks),
                      None, any(st.reads_results for st in sts))
     elif kind in ("setop", "concat"):
         s1 = _stage_schema(op.inputs[0], s_in, backend, annot)
         s2 = _stage_schema(op.inputs[1], s_in, backend, annot)
+        _reject_answer(s1, f"{kind} operand", op.inputs[0])
+        _reject_answer(s2, f"{kind} operand", op.inputs[1])
         if kind == "setop" and op.params.get("op") == "intersect":
             k = s1.k
         else:
@@ -119,6 +153,8 @@ def _stage_schema(op: Op, s_in: Schema | None, backend,
         out = Schema("R", k, None, s1.reads_results or s2.reads_results)
     elif kind == "feature_union":
         sts = [_stage_schema(c, s_in, backend, annot) for c in op.inputs]
+        for st, c in zip(sts, op.inputs):
+            _reject_answer(st, "feature union", c)
         widths = [st.width if st.width else 1 for st in sts]
         out = Schema("F", sts[0].k,
                      None if any(st.out == "F" and st.width is None

@@ -1,5 +1,6 @@
 """Concrete IR transformers (paper Table 1) over the torch backend: the
-sparse stages of the RQ1/RQ2 path and the dense second stage.
+sparse stages of the RQ1/RQ2 path, the dense second stage and the RAG
+answer stage.
 
 Leaf stages close over *static* config only.  Execution is batched over the
 query axis and chunked by the backend (``backend.map_query_chunks``).
@@ -310,3 +311,124 @@ class DenseRerank(Transformer):
 
         s = be.map_query_chunks(run, Q, R["docids"], R["scores"])
         return Q, _sort_by_scores(R, s)
+
+
+# ---------------------------------------------------------------------------
+# generation (RAG answer stage)
+# ---------------------------------------------------------------------------
+
+def assemble_prompt_fn(index, *, vocab: int, max_prompt_len: int,
+                       prompt_docs: int):
+    """Batched prompt assembler ``(terms [NQ, MAXQ], weights, docids
+    [NQ, K]) -> [NQ, max_prompt_len] int32``.
+
+    Each query's terms followed by the forward-index terms of its top
+    ``prompt_docs`` documents, mapped into the LM vocab (ids 0/1 reserved
+    for pad/bos), compacted to the front and cyclically repeated to fill
+    exactly ``max_prompt_len`` positions, as the JAX package assembles
+    them; integer-exact."""
+    fwd_start, fwd_terms = index.fwd_start, index.fwd_terms
+    max_fwd = int(index.max_fwd_len)
+    n_terms = int(fwd_terms.shape[0])
+    P = int(max_prompt_len)
+
+    def assemble(terms, weights, docids):
+        nq = terms.shape[0]
+        dev = terms.device
+        d = docids[:, :prompt_docs].long()
+        d0 = d.clamp(min=0)
+        start = fwd_start[d0]
+        count = fwd_start[d0 + 1] - start
+        win = torch.arange(max_fwd, device=dev)
+        idx = (start[..., None] + win).clamp(0, n_terms - 1)
+        dvalid = (win < count[..., None]) & (d >= 0)[..., None]
+        dterm = torch.where(dvalid, fwd_terms[idx].long(), -1)
+        cand = torch.cat([terms.long(), dterm.reshape(nq, -1)], dim=1)
+        valid = cand >= 0
+        tok = 2 + cand.clamp(min=0) % (vocab - 2)
+        pos = torch.cumsum(valid, dim=1) - 1
+        slot = torch.where(valid & (pos < P), pos, P)
+        prompt = torch.zeros((nq, P + 1), dtype=torch.long, device=dev)
+        prompt = prompt.scatter(1, slot, tok)[:, :P]
+        n = valid.sum(dim=1, keepdim=True).clamp(1, P)
+        fill = torch.arange(P, device=dev)[None, :]
+        rep = torch.gather(prompt, 1, (fill % n).expand(nq, P))
+        return torch.where(fill < n, prompt, rep).to(torch.int32)
+
+    return assemble
+
+
+def greedy_generate_fn(cfg, *, max_prompt_len: int, max_new_tokens: int):
+    """Batched greedy decode ``(lm, prompts [B, P]) -> tokens [B, T]``: one
+    prefill over the prompt block, then ``T - 1`` greedy decode steps (a
+    Python loop in place of the JAX package's ``lax.scan``) against a
+    [B, P + T] KV cache, updated in place.  The argmax of each step's
+    logits (in ``cfg.dtype``) takes the first maximum, as ``jnp.argmax``
+    does."""
+    from repro_torch.models import transformer_lm as tlm
+    P, T = int(max_prompt_len), int(max_new_tokens)
+
+    def gen(lm, prompts):
+        cache = tlm.init_kv_cache(cfg, prompts.shape[0], P + T,
+                                  device=prompts.device)
+        logits, cache = tlm.prefill(cfg, lm, prompts, cache)
+        tok = torch.argmax(logits, dim=-1).to(torch.int32)
+        out = [tok]
+        for t in range(T - 1):
+            logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
+                                            P + t)
+            tok = torch.argmax(logits, dim=-1).to(torch.int32)
+            out.append(tok)
+        return torch.stack(out, dim=1)
+
+    return gen
+
+
+class Generate(Transformer):
+    """RAG answer stage (R -> A): assemble the top-``prompt_docs`` documents
+    into a fixed-length prompt and decode ``max_new_tokens`` greedy tokens
+    with the named backend-registered LM (``backend.register_lm``).
+
+    All params are scalar statics, so the op stays content-addressable.
+    The output is the answer-bearing A relation: the incoming ranking plus
+    a ``tokens [NQ, max_new_tokens]`` column block; A is terminal, no
+    ranking stage may consume it (core/passes.py schema rules).  Prompts
+    are prefilled and decoded per chunk of ``query_chunk`` queries; each
+    row's tokens depend on its own prompt alone."""
+    kind = "generate"
+    out_kind = "A"
+    reads_results = True
+
+    def __init__(self, model: str, max_new_tokens: int = 16,
+                 max_prompt_len: int = 64, prompt_docs: int = 4):
+        super().__init__(model=model, max_new_tokens=int(max_new_tokens),
+                         max_prompt_len=int(max_prompt_len),
+                         prompt_docs=int(prompt_docs))
+
+    def _assembler(self, be):
+        cfg, _ = be.lm(self.params["model"])
+        return assemble_prompt_fn(
+            be.index, vocab=cfg.vocab,
+            max_prompt_len=self.params["max_prompt_len"],
+            prompt_docs=self.params["prompt_docs"])
+
+    def assemble(self, ctx, Q, R):
+        """Prompts [NQ, max_prompt_len] for the incoming ranking."""
+        return ctx.backend.map_query_chunks(self._assembler(ctx.backend), Q,
+                                            R["docids"])
+
+    def execute(self, ctx, Q, R):
+        assert R is not None, "Generate needs retrieved results"
+        be = ctx.backend
+        cfg, lm = be.lm(self.params["model"])
+        assemble = self._assembler(be)
+        gen = greedy_generate_fn(
+            cfg, max_prompt_len=self.params["max_prompt_len"],
+            max_new_tokens=self.params["max_new_tokens"])
+
+        def run(terms, weights, docids):
+            return gen(lm, assemble(terms, weights, docids))
+
+        tokens = be.map_query_chunks(run, Q, R["docids"])
+        return Q, {"qid": Q["qid"], "docids": R["docids"],
+                   "scores": R["scores"], "tokens": tokens}

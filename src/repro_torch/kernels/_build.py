@@ -51,6 +51,10 @@ SIGNATURES = {
     # cand_idxs, vals, idxs, stream
     "repro_pq_topk": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I64,
                       _P, _P, _P, _P, _P),
+    # q, k, v, out, B, S, T, H, Hkv, D, causal, chunk, is_bf16, scale,
+    # stream
+    "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
+                              _I32, _I32, _I32, _I32, _F32, _P),
 }
 
 

@@ -1,0 +1,230 @@
+"""Decoder-only GQA transformer LM, the serving half (the port of
+``src/repro/models/transformer_lm.py``: its config, parameters, prefill and
+decode against a KV cache).
+
+One implementation covers the dense LMs of the JAX package (qwen2-1.5b:
+QKV bias, tied embeddings).  The JAX package stacks layer parameters on a
+leading ``L`` axis and scans over them; here :class:`TransformerLM` holds
+one :class:`Block` per layer and a Python loop walks them, so a layer's
+attention chunk is a plain int and each layer calls ``layers.attn_apply``
+(the JAX package's ``_attn_with_traced_chunk`` and ``attn_apply`` are one
+function here).  The LM prefill runs its attention on the flash-attention
+kernel when ``attn_impl="pallas"``; decode steps stay on the einsum path,
+as in the JAX package.  :func:`lm_from_arrays` carries a
+JAX ``init_params`` tree across, so both packages compute one function.
+
+Not ported yet (ROADMAP §1): mixture-of-experts layers, chunked-local
+attention on the kernel, and the training forward and loss.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.common import DEFAULT_DTYPE, resolve_device
+from repro_torch.models import layers as L
+
+
+@dataclasses.dataclass(frozen=True, kw_only=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_q: int
+    n_kv: int
+    d_head: int
+    d_ff: int
+    vocab: int
+    qkv_bias: bool = False
+    tie_embeddings: bool = False
+    rope_theta: float = 1e6
+    norm_eps: float = 1e-6
+    moe: Any = None
+    # per-layer chunked local attention: 0 = all-global; else layers whose
+    # index % chunk_every != chunk_every-1 use chunked attention (llama4 iRoPE)
+    attn_chunk: int = 0
+    attn_chunk_every: int = 4
+    # execution knobs
+    attn_impl: str = "xla"           # "xla" | "pallas"
+    dtype: Any = DEFAULT_DTYPE
+
+    @property
+    def params_dense(self) -> int:
+        """Approximate parameter count excluding MoE experts."""
+        d, h = self.d_model, self.d_head
+        attn = self.n_layers * d * h * (2 * self.n_q + 2 * self.n_kv)
+        emb = self.vocab * d * (1 if self.tie_embeddings else 2)
+        mlp = 0 if self.moe else self.n_layers * 3 * d * self.d_ff
+        return attn + emb + mlp + 2 * self.n_layers * d
+
+    def attn_dims(self) -> L.AttnDims:
+        return L.AttnDims(d_model=self.d_model, n_q=self.n_q, n_kv=self.n_kv,
+                          d_head=self.d_head, qkv_bias=self.qkv_bias,
+                          rope_theta=self.rope_theta)
+
+
+def check_supported(cfg: LMConfig) -> None:
+    """Raise for the configurations whose slice is not ported yet."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
+            f"ported yet: ROADMAP §1, MoE")
+    if cfg.attn_chunk and cfg.attn_impl == "pallas":
+        raise NotImplementedError(
+            f"{cfg.name}: chunked-local attention on the flash-attention "
+            f"kernel is not ported yet: ROADMAP §1, chunked-local attention")
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+class Block(nn.Module):
+    """One transformer layer's parameters."""
+
+    def __init__(self, cfg: LMConfig, device=None):
+        super().__init__()
+        self.attn = L.Attention(cfg.attn_dims(), cfg.dtype, device)
+        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+        self.ln_attn = nn.Parameter(
+            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.ln_mlp = nn.Parameter(
+            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
+            requires_grad=False)
+
+
+class TransformerLM(nn.Module):
+    """The LM's parameters: ``embed`` [vocab, d_model], one :class:`Block`
+    per layer, ``ln_final`` and, without tied embeddings, ``unembed``
+    [d_model, vocab].  Made uninitialised; :func:`init_params` draws them
+    and :func:`lm_from_arrays` copies them in."""
+
+    def __init__(self, cfg: LMConfig, device=None):
+        super().__init__()
+        check_supported(cfg)
+        self.embed = nn.Parameter(
+            torch.empty(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
+                        device=device), requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, device)
+                                    for _ in range(cfg.n_layers))
+        self.ln_final = nn.Parameter(
+            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
+            requires_grad=False)
+        self.unembed = None
+        if not cfg.tie_embeddings:
+            self.unembed = nn.Parameter(
+                torch.empty(cfg.d_model, cfg.vocab, dtype=cfg.dtype,
+                            device=device), requires_grad=False)
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator) -> TransformerLM:
+    """A fresh draw of every weight (the JAX package's ``init_params``
+    distribution), on the generator's device."""
+    lm = TransformerLM(cfg, device=generator.device)
+    with torch.no_grad():
+        lm.embed.copy_(L.dense_init(generator, (cfg.vocab, cfg.d_model),
+                                    cfg.dtype, scale=1.0))
+        for blk in lm.layers:
+            blk.attn = L.attn_init(generator, cfg.attn_dims(), cfg.dtype)
+            blk.mlp = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.dtype)
+        if lm.unembed is not None:
+            lm.unembed.copy_(L.dense_init(generator, (cfg.d_model, cfg.vocab),
+                                          cfg.dtype))
+    return lm
+
+
+def lm_from_arrays(cfg: LMConfig, tree: dict, device=None) -> TransformerLM:
+    """The LM whose weights are ``tree``, the JAX ``init_params`` tree with
+    numpy (or array-like) leaves, layer leaves stacked on a leading L axis;
+    each is cast to its parameter's dtype on ``device`` (``None`` = the
+    card)."""
+    lm = TransformerLM(cfg, device=resolve_device(device))
+
+    def put(param, a):
+        param.copy_(torch.from_numpy(np.array(a, np.float32)))
+
+    with torch.no_grad():
+        put(lm.embed, tree["embed"])
+        put(lm.ln_final, tree["ln_final"])
+        if lm.unembed is not None:
+            put(lm.unembed, tree["unembed"])
+        lay = tree["layers"]
+        attn_names = ("wq", "wk", "wv", "wo") + \
+            (("bq", "bk", "bv") if cfg.qkv_bias else ())
+        for i, blk in enumerate(lm.layers):
+            for name in attn_names:
+                put(getattr(blk.attn, name), lay["attn"][name][i])
+            for name in ("w_gate", "w_up", "w_down"):
+                put(getattr(blk.mlp, name), lay["mlp"][name][i])
+            put(blk.ln_attn, lay["ln_attn"][i])
+            put(blk.ln_mlp, lay["ln_mlp"][i])
+    return lm
+
+
+# ---------------------------------------------------------------------------
+# serving: prefill + decode against a stacked KV cache
+# ---------------------------------------------------------------------------
+
+def _layer_chunks(cfg: LMConfig) -> list[int]:
+    """Per-layer attention chunk size (0 = global attention)."""
+    if not cfg.attn_chunk:
+        return [0] * cfg.n_layers
+    every = cfg.attn_chunk_every
+    return [cfg.attn_chunk if i % every != every - 1 else 0
+            for i in range(cfg.n_layers)]
+
+
+def _block(cfg: LMConfig, p: Block, x, positions, chunk: int,
+           kv_cache=None, cache_index: int | None = None,
+           memo: dict | None = None) -> torch.Tensor:
+    """One transformer layer: x [B, S, d] -> x'."""
+    h = L.rmsnorm(x, p.ln_attn, cfg.norm_eps)
+    x = x + L.attn_apply(p.attn, h, positions=positions, kv_cache=kv_cache,
+                         cache_index=cache_index, chunk=chunk,
+                         impl=cfg.attn_impl, memo=memo)
+    h = L.rmsnorm(x, p.ln_mlp, cfg.norm_eps)
+    return x + L.mlp_apply(p.mlp, h)
+
+
+def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
+                  device=None) -> dict:
+    """{"k", "v"}: zeros [n_layers, batch, max_len, n_kv, d_head] on
+    ``device`` (``None`` = the card)."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
+    return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
+
+
+def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
+                cache: dict, start_pos: int):
+    """Shared prefill/decode pass: runs tokens [B, S] at absolute offset
+    ``start_pos`` against the cache, which it updates in place; returns
+    (logits of the last position [B, vocab] in ``cfg.dtype``, cache)."""
+    S = tokens.shape[1]
+    x = lm.embed.to(cfg.dtype)[tokens.long()]
+    positions = start_pos + torch.arange(S, device=tokens.device)
+    memo = {}          # RoPE tables and masks, made once for all layers
+    for i, (blk, chunk) in enumerate(zip(lm.layers, _layer_chunks(cfg))):
+        x = _block(cfg, blk, x, positions, chunk,
+                   kv_cache=(cache["k"][i], cache["v"][i]),
+                   cache_index=start_pos, memo=memo)
+    x = L.rmsnorm(x[:, -1:], lm.ln_final, cfg.norm_eps)
+    unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
+    return (x @ unembed.to(cfg.dtype))[:, 0], cache
+
+
+def prefill(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
+            cache: dict):
+    """tokens [B, P] at offset 0 -> (logits [B, vocab], cache)."""
+    return _serve_pass(cfg, lm, tokens, cache, 0)
+
+
+def decode_step(cfg: LMConfig, lm: TransformerLM, token: torch.Tensor,
+                cache: dict, pos: int):
+    """token [B, 1] at absolute position ``pos`` -> (logits, cache)."""
+    return _serve_pass(cfg, lm, token, cache, pos)

@@ -1,0 +1,128 @@
+"""The port's LM (``models/transformer_lm.py``, the greedy decode of
+``core/stages.py``) against the JAX package on the CPU.
+
+Weights are the JAX package's ``init_params`` draw, carried across with
+``lm_from_arrays``, so both sides compute one function.  In float32 the
+prefill logits and the KV cache agree within 1e-4 (28 matmul sums in two
+orders) and greedy tokens are equal; in bfloat16 each side rounds its
+activations at the same cast points but sums in its own order, so logits
+are held within 3 % of their largest magnitude.  The JAX "pallas" path
+runs in interpret mode.  The RAG pipeline is tests/test_torch_rag.py."""
+import dataclasses
+import functools
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import qwen2_1_5b as jqwen
+from repro.core.stages import greedy_generate_fn as jgreedy
+from repro.models import transformer_lm as JT
+from repro_torch.configs import qwen2_1_5b as tqwen
+from repro_torch.core.stages import greedy_generate_fn
+from repro_torch.models import transformer_lm as TT
+
+DT = {"float32": (jnp.float32, torch.float32),
+      "bfloat16": (jnp.bfloat16, torch.bfloat16)}
+
+
+def _tiny_jcfg(dtype="float32", impl="xla"):
+    return JT.LMConfig(name="tiny", n_layers=2, d_model=32, n_q=4, n_kv=2,
+                       d_head=8, d_ff=64, vocab=128, remat=False,
+                       dtype=DT[dtype][0], attn_impl=impl)
+
+
+def _port_cfg(jcfg):
+    """The port's LMConfig with the same fields as a JAX one."""
+    kw = {f.name: getattr(jcfg, f.name)
+          for f in dataclasses.fields(TT.LMConfig)
+          if f.name not in ("dtype", "moe")}
+    return TT.LMConfig(**kw, dtype=DT[jnp.dtype(jcfg.dtype).name][1])
+
+
+def _carry(jcfg, seed=0):
+    """(JAX params, the port's LM on the CPU with the same weights)."""
+    params = JT.init_params(jcfg, jax.random.key(seed))
+    tree = jax.tree.map(lambda a: np.asarray(a, np.float32), params)
+    return params, TT.lm_from_arrays(_port_cfg(jcfg), tree, "cpu")
+
+
+def _f32(x):
+    if isinstance(x, torch.Tensor):
+        return x.to(torch.float32).numpy()
+    return np.asarray(jnp.asarray(x, jnp.float32))
+
+
+CASES = {"tiny float32": (lambda: _tiny_jcfg("float32"), 1e-4),
+         "tiny bfloat16": (lambda: _tiny_jcfg("bfloat16"), None),
+         "qwen2 reduced": (lambda: jqwen.reduced()[0], None)}
+
+
+def _close(got, want, tol):
+    """float32: within ``tol``; bfloat16: within 3 % of the largest
+    magnitude (each side rounds to bf16 after sums in its own order)."""
+    got, want = _f32(got), _f32(want)
+    atol = tol if tol is not None else 0.03 * float(np.abs(want).max())
+    np.testing.assert_allclose(got, want, rtol=tol or 0.0, atol=atol)
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_prefill_and_decode_match_reference(case, impl):
+    make, tol = CASES[case]
+    jcfg = dataclasses.replace(make(), attn_impl=impl)
+    params, lm = _carry(jcfg)
+    cfg = _port_cfg(jcfg)
+    rng = np.random.default_rng(3)
+    B, P, T = 3, 32, 4
+    toks = rng.integers(0, jcfg.vocab, (B, P), dtype=np.int32)
+    jl, jc = jax.jit(functools.partial(JT.prefill, jcfg))(
+        params, jnp.asarray(toks), JT.init_kv_cache(jcfg, B, P + T))
+    tc = TT.init_kv_cache(cfg, B, P + T, device="cpu")
+    tl, tc = TT.prefill(cfg, lm, torch.tensor(toks), tc)
+    assert tl.dtype == cfg.dtype and tl.shape == (B, jcfg.vocab)
+    _close(tl, jl, tol)
+    _close(tc["k"], jc["k"], tol)
+    _close(tc["v"], jc["v"], tol)
+    nxt = rng.integers(0, jcfg.vocab, (B, 1), dtype=np.int32)
+    jl, jc = jax.jit(functools.partial(JT.decode_step, jcfg))(
+        params, jnp.asarray(nxt), jc, P)
+    tl, tc = TT.decode_step(cfg, lm, torch.tensor(nxt), tc, P)
+    _close(tl, jl, tol)
+    _close(tc["k"], jc["k"], tol)
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_greedy_tokens_equal_in_float32(impl):
+    jcfg = _tiny_jcfg("float32", impl)
+    params, lm = _carry(jcfg, seed=1)
+    prompts = np.random.default_rng(4).integers(2, 128, (4, 24),
+                                                dtype=np.int32)
+    want = jax.jit(jgreedy(jcfg, max_prompt_len=24, max_new_tokens=6))(
+        params, jnp.asarray(prompts))
+    got = greedy_generate_fn(_port_cfg(jcfg), max_prompt_len=24,
+                             max_new_tokens=6)(lm, torch.tensor(prompts))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def test_qwen2_configs_match_reference():
+    full = tqwen.model_cfg()
+    assert _port_cfg(jqwen.model_cfg()) == full
+    assert full.params_dense == jqwen.model_cfg().params_dense
+    assert _port_cfg(jqwen.reduced()[0]) == tqwen.reduced()[0]
+    np.testing.assert_array_equal(tqwen.reduced()[1]()["tokens"],
+                                  jqwen.reduced()[1]()["tokens"])
+
+
+def test_unported_configs_raise():
+    with pytest.raises(NotImplementedError, match="MoE"):
+        TT.TransformerLM(TT.LMConfig(name="m", n_layers=1, d_model=8, n_q=2,
+                                     n_kv=1, d_head=4, d_ff=8, vocab=16,
+                                     moe=object()))
+    with pytest.raises(NotImplementedError, match="chunked-local"):
+        TT.TransformerLM(TT.LMConfig(name="c", n_layers=1, d_model=8, n_q=2,
+                                     n_kv=1, d_head=4, d_ff=8, vocab=16,
+                                     attn_chunk=4, attn_impl="pallas"))

@@ -29,6 +29,17 @@ pipes += [(rt.Retrieve("BM25", k=30) >> rt.DenseRerank(alpha=0.3)) % 5,
 res = rt.Experiment(pipes, Q, topics.qrels, ["map"], backend=be)
 assert res["results"][1]["features"].shape == (3, 5, 2)
 assert all(r["docids"].shape == (3, 5) for r in res["results"][2:])
+import torch
+from repro_torch.configs import qwen2_1_5b
+from repro_torch.models.transformer_lm import LMConfig
+assert qwen2_1_5b.model_cfg().n_layers == 28
+cfg = LMConfig(name="t", n_layers=1, d_model=32, n_q=4, n_kv=2, d_head=8,
+               d_ff=64, vocab=128, dtype=torch.float32, attn_impl="pallas")
+be.register_lm("t", cfg)
+rag = (rt.Retrieve("BM25") >> rt.DenseRerank() % 4
+       >> rt.Generate("t", max_new_tokens=3, max_prompt_len=16,
+                      prompt_docs=2))
+assert rt.run_pipeline(rag, Q, backend=be)["tokens"].shape == (3, 3)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
