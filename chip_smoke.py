@@ -13,7 +13,8 @@ Extract) % 1000``) Experiments for the T/TD/TDN topic formulations, then
 builds the dense second stage (embeddings, IVF-flat, IVF-PQ) and runs its
 four pipelines — BM25 >> DenseRerank, brute-force, IVF-flat and IVF-PQ
 DenseRetrieve, each % 10 — unoptimised and optimised on the T topics, then
-holds the flash-attention kernel against its plain version and runs the
+holds the flash-attention kernels against their plain version (and times
+the bf16 one beside the library call at shapes around G1's) and runs the
 RAG answer stage at full width (cell G1: ``Retrieve("BM25") >>
 DenseRerank() % 8 >> Generate(...)`` with Qwen2-1.5B, 28 layers, random
 weights from seed 0, 1,024-token prompts and 32 greedy tokens on the 250 T
@@ -51,11 +52,13 @@ RQ2_MODELS = ("BM25", "QL", "TF_IDF")
 #: prompt, the reranked depth the prompt reads
 G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
 #: least share of the 250 T topics whose first generated token the kernel
-#: path and the einsum path agree on (both bf16, same weights).  The
-#: einsum path rounds its probabilities to bf16 before the PV product, the
-#: kernel keeps them in fp32, and a 151,936-way argmax over bf16 logits
-#: flips where the top two lie within a rounding: 244 of 250 agreed on the
-#: H100 (PERF.md, G1); 0.95 leaves room for another card's sums
+#: path and the einsum path agree on (both bf16, same weights).  Both
+#: round the probabilities to bf16 before the PV product (the einsum path
+#: casts them to v's type, the bf16 kernel feeds them to wgmma as bf16),
+#: but they sum in other orders, and a 151,936-way argmax over bf16 logits
+#: flips where the top two lie within a rounding: 244-245 of 250 agreed on
+#: the H100 with the earlier fp32-probability kernel (PERF.md, G1); 0.95
+#: leaves room for another card's sums
 G1_FIRST_TOKEN_MIN = 0.95
 
 #: every TPU kernel of the JAX package: function -> (status, file:line)
@@ -114,6 +117,35 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
     return max(b, o), "bytes" if b >= o else "operations"
 
 
+def ptxas_report(log: str) -> dict:
+    """Each kernel entry of an ``nvcc -Xptxas -v`` log -> its registers,
+    stack frame and spill bytes, keyed by its name (``name<args>``, or the
+    mangled name where ``c++filt`` is not at hand)."""
+    import re
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1)
+            out[name] = {}
+        elif name and "spill stores" in line:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", line)]
+            out[name].update(stack=nums[0], spill_stores=nums[1],
+                             spill_loads=nums[2])
+        elif name and "Used" in line:
+            out[name]["registers"] = int(
+                re.search(r"Used (\d+) registers", line).group(1))
+    try:
+        names = subprocess.run(["c++filt"], input="\n".join(out), text=True,
+                               capture_output=True, check=True).stdout.split(
+                                   "\n")
+    except (OSError, subprocess.CalledProcessError):
+        return out
+    # "void (anonymous namespace)::name<args>(params)" -> "name<args>"
+    return {n.replace("(anonymous namespace)::", "").split("(")[0]
+            .removeprefix("void "): r for n, r in zip(names, out.values())}
+
+
 def _check_docids(ref_d, ref_s, d, rtol=2e-5, atol=1e-5) -> int:
     """Docids equal except at ranks where the reference's neighbouring
     scores tie within the tolerance (or at the last rank, whose neighbour
@@ -144,9 +176,8 @@ def phase_toolchain():
     _build.library()
     build_s = time.perf_counter() - t0
     log(f"[toolchain] kernels built in {build_s:.2f} s")
-    for line in _build.build_log().splitlines():
-        if "Used" in line or "spill" in line:
-            log(f"[toolchain] ptxas: {line.strip()}")
+    for name, rep in ptxas_report(_build.build_log()).items():
+        log(f"[toolchain] ptxas: {name}: {rep}")
     return smi
 
 
@@ -590,12 +621,16 @@ def phase_dense(forms, state) -> None:
 
 
 def phase_attention_kernels() -> dict:
-    """The flash-attention kernel against its plain version on the card:
+    """The flash-attention kernels against their plain version on the card:
     the JAX package's sweep (MHA/GQA/MQA x f32/bf16, chunk 32 and 128), one
     query row, ragged S and T, T < S with rows whose chunk holds no key,
-    and G1's prefill shape, at the JAX
-    contract's atol (2e-6 f32, 2e-2 bf16); then G1's timings."""
+    and G1's prefill shape, at the JAX contract's atol (2e-6 f32 on the
+    CUDA-core kernel, 2e-2 bf16 on the wgmma kernel); bf16 also at S and T
+    ragged against the wgmma kernel's 128-row tiles; then the wgmma
+    kernel's ptxas report and G1's timings."""
+    import re
     import torch
+    from repro_torch.kernels import _build
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
     from repro_torch.configs import qwen2_1_5b
@@ -616,65 +651,93 @@ def phase_attention_kernels() -> dict:
              (2, 130, 70, 4, 2, 128, False, 48),
              (CHUNK, G1_PROMPT, G1_PROMPT, cfg.n_q, cfg.n_kv, cfg.d_head,
               True, 0)]
+    # ragged against the bf16 kernel's 128-row q and kv tiles; the last,
+    # 576 work tiles of one or two kv tiles, crosses the persistent CTAs'
+    # work-tile boundaries many times
+    bf16_cases = [(1, 129, 129, 12, 2, 128, True, 0),
+                  (1, 1000, 1000, 12, 2, 128, True, 0),
+                  (1, 1023, 1023, 12, 2, 128, True, 0),
+                  (1, 1000, 1000, 4, 2, 64, True, 0),
+                  (24, 129, 129, 12, 2, 128, True, 0)]
     # f32: the kernel within the contract's 2e-6 of the plain version
     # evaluated in float64 (the exact function of these inputs), and within
     # 4e-6 of the plain version in float32, which sums in its own order and
     # is itself up to 2e-6 from the exact function; bf16: both round one
-    # fp32 result, within 2e-2 of each other
+    # fp32 result (the kernel's P V from P in bf16), within 2e-2 of each
+    # other
     err = {"f32 vs f64": 0.0, "f32 vs plain": 0.0, "plain f32 vs f64": 0.0,
            "bf16 vs plain": 0.0}
-    for B, S, T, H, HKV, D, causal, chunk in cases:
-        for dt in (torch.float32, torch.bfloat16):
-            q = torch.randn(B, S, H, D, device=DEVICE, generator=g).to(dt)
-            k = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
-            v = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
-            a = flash_attention(q, k, v, causal=causal, chunk=chunk)
-            b = flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
-            torch.cuda.synchronize()
-            assert a.dtype == dt and a.shape == q.shape
-            diff = float((a.float() - b.float()).abs().max())
-            if dt == torch.bfloat16:
-                assert diff <= tol[dt], (B, S, T, H, HKV, D, chunk, diff)
-                err["bf16 vs plain"] = max(err["bf16 vs plain"], diff)
-                continue
-            exact = flash_attention_ref(q.double(), k.double(), v.double(),
-                                        causal=causal, chunk=chunk)
-            e_k = float((a.double() - exact).abs().max())
-            e_p = float((b.double() - exact).abs().max())
-            assert e_k <= tol[dt] and diff <= 2 * tol[dt], \
-                (B, S, T, H, HKV, D, chunk, e_k, diff, e_p)
-            for key, e in (("f32 vs f64", e_k), ("f32 vs plain", diff),
-                           ("plain f32 vs f64", e_p)):
-                err[key] = max(err[key], e)
-            del exact
+    runs = [(c, dt) for c in cases for dt in (torch.float32, torch.bfloat16)]
+    runs += [(c, torch.bfloat16) for c in bf16_cases]
+    for (B, S, T, H, HKV, D, causal, chunk), dt in runs:
+        q = torch.randn(B, S, H, D, device=DEVICE, generator=g).to(dt)
+        k = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
+        v = torch.randn(B, T, HKV, D, device=DEVICE, generator=g).to(dt)
+        a = flash_attention(q, k, v, causal=causal, chunk=chunk)
+        b = flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
+        torch.cuda.synchronize()
+        assert a.dtype == dt and a.shape == q.shape
+        diff = float((a.float() - b.float()).abs().max())
+        if dt == torch.bfloat16:
+            assert diff <= tol[dt], (B, S, T, H, HKV, D, chunk, diff)
+            err["bf16 vs plain"] = max(err["bf16 vs plain"], diff)
+            continue
+        exact = flash_attention_ref(q.double(), k.double(), v.double(),
+                                    causal=causal, chunk=chunk)
+        e_k = float((a.double() - exact).abs().max())
+        e_p = float((b.double() - exact).abs().max())
+        assert e_k <= tol[dt] and diff <= 2 * tol[dt], \
+            (B, S, T, H, HKV, D, chunk, e_k, diff, e_p)
+        for key, e in (("f32 vs f64", e_k), ("f32 vs plain", diff),
+                       ("plain f32 vs f64", e_p)):
+            err[key] = max(err[key], e)
+        del exact
     log(f"[attention kernels] flash_attention on (B, S, T, H, Hkv, D, causal,"
-        f" chunk) = {cases} x f32/bf16: f32 within atol 2e-6 of the plain "
-        f"version in float64 and 4e-6 of it in float32, bf16 within 2e-2 of "
-        f"the plain version; max abs err "
+        f" chunk) = {cases} x f32/bf16 and {bf16_cases} x bf16: f32 (CUDA-"
+        f"core kernel) within atol 2e-6 of the plain version in float64 and "
+        f"4e-6 of it in float32, bf16 (wgmma kernel) within 2e-2 of the "
+        f"plain version; max abs err "
         f"{ {k: float(f'{e:.3e}') for k, e in err.items()} }")
 
-    # G1's prefill attention: one layer of one chunk of 16 prompts
+    # the wgmma kernel's registers and spills, and its dynamic shared
+    # memory (two q tiles, a 2-stage ring of K and V tiles, the mbarriers)
+    sm90 = {n: r for n, r in ptxas_report(_build.build_log()).items()
+            if "flash_attention_kernel_sm90" in n}
+    assert len(sm90) == 2, list(sm90)
+    for name, rep in sm90.items():
+        d = int(re.search(r"sm90(?:<|ILi)(\d+)", name).group(1))
+        smem = _build.library().repro_flash_attention_sm90_smem(d)
+        log(f"[attention kernels] ptxas {name}: {rep}; dynamic shared "
+            f"memory {smem} bytes")
+        assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, rep
+
+    # G1's prefill attention: one layer of one chunk of 16 prompts, timed
+    # in turns (plain, kernel, library, kernel)
     B, S, H, HKV, D = CHUNK, G1_PROMPT, cfg.n_q, cfg.n_kv, cfg.d_head
     dt = torch.bfloat16
     q = torch.randn(B, S, H, D, device=DEVICE, generator=g).to(dt)
     k = torch.randn(B, S, HKV, D, device=DEVICE, generator=g).to(dt)
     v = torch.randn(B, S, HKV, D, device=DEVICE, generator=g).to(dt)
-    ms = time_ms(lambda: flash_attention(q, k, v, causal=True))
-    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
     qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    plain = time_ms(lambda: flash_attention_ref(q, k, v, causal=True))
+    ms_a = time_ms(lambda: flash_attention(q, k, v, causal=True))
     lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
         qt, kt, vt, is_causal=True, enable_gqa=True))
+    ms_b = time_ms(lambda: flash_attention(q, k, v, causal=True))
+    ms = (ms_a + ms_b) / 2
     ops = 4 * B * H * D * S * (S + 1) / 2
     nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
     b_ops = 1e3 * ops / BF16_TC_OPS_PER_S
     b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
     log(f"[attention kernels] flash_attention G1 q {tuple(q.shape)} k/v "
-        f"{tuple(k.shape)} bf16 causal: kernel {ms:.4f} ms, plain {plain:.4f} "
-        f"ms, library (scaled_dot_product_attention) {lib:.4f} ms; bound "
-        f"{b_ops:.4f} ms (operations: {ops / 1e9:.2f} GFLOP at the bf16 "
-        f"tensor-core rate; {1e3 * ops / FP32_OPS_PER_S:.4f} ms at the fp32 "
-        f"rate; bytes {nbytes / 1e6:.1f} MB, {b_bytes:.4f} ms); achieved "
-        f"{ops / ms / 1e9:.2f} TFLOP/s")
+        f"{tuple(k.shape)} bf16 causal: kernel {ms_a:.4f} / {ms_b:.4f} ms "
+        f"(mean {ms:.4f}), plain {plain:.4f} ms, library "
+        f"(scaled_dot_product_attention) {lib:.4f} ms, kernel / library "
+        f"{ms / lib:.3f}; bound {b_ops:.4f} ms (operations: "
+        f"{ops / 1e9:.2f} GFLOP at the bf16 tensor-core rate; bytes "
+        f"{nbytes / 1e6:.1f} MB, {b_bytes:.4f} ms); achieved "
+        f"{ops / ms / 1e9:.2f} TFLOP/s, {max(b_ops, b_bytes) / ms:.3f} of the"
+        f" bound")
     return {"flash_attention": {
         "ms": ms, "plain_ms": plain, "library_ms": lib,
         "bound_ms": max(b_ops, b_bytes),
@@ -682,6 +745,42 @@ def phase_attention_kernels() -> dict:
         "max_abs_err": err["bf16 vs plain"],
         "shape": f"q [{B}, {S}, {H}, {D}] k/v [{B}, {S}, {HKV}, {D}] bf16 "
                  f"causal"}}
+
+
+def phase_attention_shapes() -> None:
+    """The bf16 flash kernel beside the library call at shapes around G1's:
+    its own S 1,024 without the causal mask, long rows (S 8,192, where a
+    CTA's set-up and epilogue are amortised over 32 kv tiles on average),
+    and d_head 64; each held against the plain version at 2e-2.  Where
+    the kernel trails the library at G1's short rows but not at long ones,
+    the gap is per work tile, not in the kv loop."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=DEVICE).manual_seed(1)
+    # (B, S, H, Hkv, D, causal)
+    for B, S, H, HKV, D, causal in [(16, 1024, 12, 2, 128, False),
+                                    (2, 8192, 12, 2, 128, True),
+                                    (2, 8192, 12, 2, 128, False),
+                                    (16, 1024, 12, 2, 64, True)]:
+        q, k, v = (torch.randn(B, S, h, D, device=DEVICE, generator=g)
+                   .to(torch.bfloat16) for h in (H, HKV, HKV))
+        a = flash_attention(q, k, v, causal=causal)
+        b = flash_attention_ref(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        diff = float((a.float() - b.float()).abs().max())
+        assert diff <= 2e-2, (B, S, H, HKV, D, causal, diff)
+        del a, b
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+        lib = time_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+        ops = 4 * B * H * D * (S * (S + 1) / 2 if causal else S * S)
+        log(f"[attention shapes] q [{B}, {S}, {H}, {D}] k/v [{B}, {S}, {HKV}, "
+            f"{D}] bf16 causal={causal}: kernel {ms:.4f} ms "
+            f"({ops / ms / 1e9:.1f} TFLOP/s), library {lib:.4f} ms "
+            f"({ops / lib / 1e9:.1f} TFLOP/s), kernel / library "
+            f"{ms / lib:.3f}; max abs err vs plain {diff:.4f}")
 
 
 def phase_generate(index, forms, state) -> dict:
@@ -946,6 +1045,7 @@ def main() -> int:
     launches.update(dense)
 
     rows.update(phase_attention_kernels())
+    phase_attention_shapes()
     # the RAG main path (cell G1): its counts are set to zero and read
     # inside phase_generate, around its Experiment
     g1 = phase_generate(index, forms, state)
@@ -967,7 +1067,8 @@ def main() -> int:
                "pq_topk": ("pq_topk D4", "src/repro_torch/csrc/pq_topk.cu",
                            TPU_KERNELS[3][2]),
                "flash_attention": ("flash_attention",
-                                   "src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro_torch/csrc/"
+                                   "flash_attention_sm90.cu",
                                    TPU_KERNELS[4][2])}
     kernels = []
     for name, (row, src, rep) in sources.items():

@@ -1,4 +1,6 @@
-// Causal grouped-query flash attention (the LM prefill) on Hopper.
+// Causal grouped-query flash attention (the LM prefill) on Hopper: the fp32
+// kernel on the CUDA cores, and the C entry of both paths (bf16 inputs go to
+// the tensor-core kernel of csrc/flash_attention_sm90.cu).
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::
 // flash_attention_pallas, the TPU kernel whose grid (batch, q head, q block,
@@ -40,18 +42,26 @@
 // Bound on this card: the causal operations, 4 * B * H * D * S(S+1)/2 (two
 // products per visible (query, key) pair), against the tensor cores' bf16
 // rate; the bytes (q, k, v read once, the output written once) are far
-// below it.  This first kernel computes in fp32 on the CUDA cores, every
-// product an explicit fmaf (the global --fmad=false of kernels/_build.py
-// would otherwise split each into a multiply and an add), so it sits far
-// above that bound; wgmma on bf16 tiles fed by TMA is the redesign.
+// below it.  This kernel computes in fp32 on the CUDA cores, every product
+// an explicit fmaf (the global --fmad=false of kernels/_build.py would
+// otherwise split each into a multiply and an add), so it sits far above
+// that bound; it serves fp32 inputs, whose contract (2e-6 of the exact
+// function) no bf16 or TF32 tensor-core product can meet.
 //
 // Contract: q [B, S, H, D], k and v [B, T, Hkv, D], contiguous, all fp32 or
-// all bf16; H % Hkv == 0; D in {64, 128}; out [B, S, H, D] in q's type.
-// Positions count from 0 for both q and k (the prefill at offset 0).
+// (the sm90 kernel) all bf16; H % Hkv == 0; D in {64, 128}; out [B, S, H, D]
+// in q's type.  Positions count from 0 for both q and k (the prefill at
+// offset 0).
 #include <cstdint>
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+
+// csrc/flash_attention_sm90.cu: the bf16 path (wgmma fed by TMA)
+cudaError_t flash_attention_bf16_sm90(const void* q, const void* k,
+                                      const void* v, void* out, int B, int S,
+                                      int T_len, int H, int Hkv, int D,
+                                      int causal, int chunk, float scale,
+                                      cudaStream_t st);
 
 namespace {
 
@@ -61,15 +71,6 @@ constexpr int THREADS = 256;  // 16 x 16
 constexpr int LDP = BKV + 1;  // padded: two row groups of a warp, two banks
 constexpr float NEG = -1e30f;
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-__device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
-
 template <int D>
 constexpr int smem_floats() {
   // Qs [BQ][D + 1], Ks [BKV][D + 1], Vs [BKV][D], Ps [BQ][LDP]
@@ -78,15 +79,15 @@ constexpr int smem_floats() {
 
 // Rows [row0, row0 + 64) of a matrix whose row r starts at src + r * stride
 // into dst [64][ld] as fp32 times mul; rows at or past n_rows are zeros.
-template <typename T, int D>
+template <int D>
 __device__ __forceinline__ void load_tile(float* dst, int ld,
-                                          const T* __restrict__ src,
+                                          const float* __restrict__ src,
                                           int64_t stride, int row0,
                                           int n_rows, float mul) {
   for (int i = threadIdx.x; i < 64 * D; i += THREADS) {
     const int r = i / D, c = i % D, row = row0 + r;
     dst[r * ld + c] =
-        row < n_rows ? to_f32(src[(int64_t)row * stride + c]) * mul : 0.f;
+        row < n_rows ? src[(int64_t)row * stride + c] * mul : 0.f;
   }
 }
 
@@ -104,10 +105,12 @@ __device__ __forceinline__ float half_warp_sum(float x) {
 }
 
 // grid (ceil(S / 64), H, B); dynamic shared memory smem_floats<D>() floats.
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(THREADS, 2)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ out, int S,
+flash_attention_kernel(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v, float* __restrict__ out,
+                       int S,
                        int T_len, int H, int Hkv, int causal, int chunk,
                        float scale) {
   constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, DC = D / 16;
@@ -123,11 +126,11 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int q0 = qt * BQ;
   const int64_t q_stride = (int64_t)H * D, kv_stride = (int64_t)Hkv * D;
-  const T* qb = q + ((int64_t)b * S * H + h) * D;
-  const T* kb = k + ((int64_t)b * T_len * Hkv + hk) * D;
-  const T* vb = v + ((int64_t)b * T_len * Hkv + hk) * D;
+  const float* qb = q + ((int64_t)b * S * H + h) * D;
+  const float* kb = k + ((int64_t)b * T_len * Hkv + hk) * D;
+  const float* vb = v + ((int64_t)b * T_len * Hkv + hk) * D;
 
-  load_tile<T, D>(Qs, LDQ, qb, q_stride, q0, S, scale);
+  load_tile<D>(Qs, LDQ, qb, q_stride, q0, S, scale);
 
   const int q_last = min(S, q0 + BQ) - 1;
   int kt_lo = 0, kt_hi = (T_len + BKV - 1) / BKV - 1;
@@ -151,8 +154,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt <= kt_hi; ++kt) {
     const int k0 = kt * BKV;
     __syncthreads();  // the last tile's Ks, Vs and Ps are consumed
-    load_tile<T, D>(Ks, LDK, kb, kv_stride, k0, T_len, 1.f);
-    load_tile<T, D>(Vs, LDV, vb, kv_stride, k0, T_len, 1.f);
+    load_tile<D>(Ks, LDK, kb, kv_stride, k0, T_len, 1.f);
+    load_tile<D>(Vs, LDV, vb, kv_stride, k0, T_len, 1.f);
     __syncthreads();
 
     // scores: the two halves of d in two chains, added at the end
@@ -245,33 +248,34 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int row = q0 + ty * 4 + i;
     if (row >= S) continue;
     const float den = fmaxf(l[i], 1e-20f);
-    T* o = out + ((int64_t)b * S + row) * q_stride + (int64_t)h * D;
+    float* o = out + ((int64_t)b * S + row) * q_stride + (int64_t)h * D;
 #pragma unroll
-    for (int j = 0; j < DC; ++j) store(o + tx + 16 * j, acc[i][j] / den);
+    for (int j = 0; j < DC; ++j) o[tx + 16 * j] = acc[i][j] / den;
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* out,
                    int B, int S, int T_len, int H, int Hkv, int causal,
                    int chunk, float scale, cudaStream_t st) {
   const int smem = smem_floats<D>() * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_attention_kernel<T, D>,
+      flash_attention_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned int)((S + BQ - 1) / BQ), (unsigned int)H,
                   (unsigned int)B);
-  flash_attention_kernel<T, D><<<grid, THREADS, (size_t)smem, st>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)out, S, T_len, H, Hkv,
-      causal, chunk, scale);
+  flash_attention_kernel<D><<<grid, THREADS, (size_t)smem, st>>>(
+      (const float*)q, (const float*)k, (const float*)v, (float*)out, S,
+      T_len, H, Hkv, causal, chunk, scale);
   return cudaGetLastError();
 }
 
 }  // namespace
 
 // q [B, S, H, D], k/v [B, T, Hkv, D] -> out [B, S, H, D]; is_bf16 selects
-// bf16 for all four, else fp32; causal 0/1; chunk 0 = no chunked-local mask.
+// bf16 for all four (the sm90 kernel; q, k, v 16-byte aligned), else fp32;
+// causal 0/1; chunk 0 = no chunked-local mask.
 extern "C" int repro_flash_attention(const void* q, const void* k,
                                      const void* v, void* out, int B, int S,
                                      int T_len, int H, int Hkv, int D,
@@ -282,14 +286,10 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
-    return (int)(D == 64
-                     ? launch<__nv_bfloat16, 64>(q, k, v, out, B, S, T_len, H,
-                                                 Hkv, causal, chunk, scale, st)
-                     : launch<__nv_bfloat16, 128>(q, k, v, out, B, S, T_len,
-                                                  H, Hkv, causal, chunk,
-                                                  scale, st));
-  return (int)(D == 64 ? launch<float, 64>(q, k, v, out, B, S, T_len, H, Hkv,
-                                           causal, chunk, scale, st)
-                       : launch<float, 128>(q, k, v, out, B, S, T_len, H,
-                                            Hkv, causal, chunk, scale, st));
+    return (int)flash_attention_bf16_sm90(q, k, v, out, B, S, T_len, H, Hkv,
+                                          D, causal, chunk, scale, st);
+  return (int)(D == 64 ? launch<64>(q, k, v, out, B, S, T_len, H, Hkv,
+                                     causal, chunk, scale, st)
+                       : launch<128>(q, k, v, out, B, S, T_len, H, Hkv,
+                                     causal, chunk, scale, st));
 }

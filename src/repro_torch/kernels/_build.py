@@ -55,6 +55,8 @@ SIGNATURES = {
     # stream
     "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I32, _I32, _F32, _P),
+    # D -> dynamic shared memory bytes of the bf16 (sm90) flash kernel
+    "repro_flash_attention_sm90_smem": (_I32,),
 }
 
 

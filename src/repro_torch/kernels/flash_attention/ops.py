@@ -1,9 +1,13 @@
-"""Wrapper of the flash-attention kernel (``csrc/flash_attention.cu``).
+"""Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``,
+``csrc/flash_attention_sm90.cu``).
 
-For a CUDA tensor it launches the kernel, which takes fp32 or bf16 inputs
-of d_head 64 or 128 and raises on anything else; for a CPU tensor it takes
-the plain version.  There is no fallback from a failed launch: it raises.
-``flash_attention.launches`` counts kernel launches, and only those.
+For a CUDA tensor it launches a kernel of d_head 64 or 128: fp32 inputs go
+to the fp32 kernel on the CUDA cores, bf16 inputs to the bf16 kernel on the
+tensor cores (wgmma fed by TMA, which asks each of q, k, v to start on a
+16-byte boundary); anything else raises.  For a CPU tensor it takes the
+plain version.  There is no fallback from a failed launch: it raises.
+``flash_attention.launches`` counts kernel launches of both, and only
+those.
 The JAX package's layout, q [B, S, H, D] and k/v [B, T, Hkv, D], stays at
 this function.
 """
@@ -16,6 +20,8 @@ from repro_torch.kernels.flash_attention.ref import flash_attention_ref
 
 KERNEL_D_HEADS = (64, 128)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: bytes to which the bf16 kernel's TMA tensor maps need q, k, v aligned
+TMA_ALIGN = 16
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -47,6 +53,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN
+                                         for t in (q, k, v)):
+        raise ValueError(f"the bf16 flash-attention kernel reads q, k, v "
+                         f"through TMA, which needs each to start on a "
+                         f"{TMA_ALIGN}-byte boundary: got data_ptr offsets "
+                         f"{[t.data_ptr() % TMA_ALIGN for t in (q, k, v)]}")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
         return out

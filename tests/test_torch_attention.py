@@ -105,6 +105,23 @@ def test_wrapper_raises_on_card_for_what_the_kernel_does_not_take(D, dtype,
     assert flash_attention.launches == 0
 
 
+@pytest.mark.parametrize("which", ["q", "k", "v"])
+def test_wrapper_raises_on_card_for_misaligned_bf16(which):
+    """The bf16 kernel reads q, k, v through TMA tensor maps, which need
+    each base pointer on a 16-byte boundary: a contiguous view that starts
+    one element into its storage raises before any launch."""
+    shapes = {"q": (1, 8, 2, 64), "k": (1, 8, 1, 64), "v": (1, 8, 1, 64)}
+    t = {}
+    for name, shape in shapes.items():
+        off = int(name == which)
+        flat = torch.zeros(off + int(np.prod(shape)), dtype=torch.bfloat16)
+        t[name] = flat[off:].view(shape).as_subclass(_OnCard)
+    assert t[which].data_ptr() % 16 == 2
+    with pytest.raises(ValueError, match="16-byte boundary"):
+        flash_attention(t["q"], t["k"], t["v"])
+    assert flash_attention.launches == 0
+
+
 def test_wrapper_rejects_bad_shapes():
     q, k = torch.zeros((1, 8, 3, 64)), torch.zeros((1, 8, 2, 64))
     with pytest.raises(ValueError, match="H % Hkv"):
