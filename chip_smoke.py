@@ -48,6 +48,9 @@ BF16_TC_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 #: transcendental calls each count one)
 MODEL_OPS = {"BM25": 12, "TF_IDF": 8, "QL": 12, "DPH": 23, "Coord": 1}
 RQ2_MODELS = ("BM25", "QL", "TF_IDF")
+#: k of the top-k sweeps: both sides of the warp select's bound (k <= 32)
+#: and of the radix select's (k <= 128)
+TOPK_KS = (1, 8, 10, 31, 32, 33, 80, 128)
 #: cell G1, the RAG answer stage: prompt and decode lengths, documents per
 #: prompt, the reranked depth the prompt reads
 G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
@@ -60,6 +63,11 @@ G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
 #: the H100 with the earlier fp32-probability kernel (PERF.md, G1); 0.95
 #: leaves room for another card's sums
 G1_FIRST_TOKEN_MIN = 0.95
+
+#: clock cycles that time_ms's spin holds the card, ~5 ms on an H100:
+#: longer than the host's stalls seen while enqueueing a timed call (2.8 ms
+#: on the H100, PERF.md), so that they do not reach the timed interval
+SPIN_CYCLES = 10_000_000
 
 #: every TPU kernel of the JAX package: function -> (status, file:line)
 TPU_KERNELS = [
@@ -81,27 +89,52 @@ def log(*args) -> None:
 
 
 def time_ms(fn, iters: int = 10) -> float:
-    """Mean device milliseconds of one ``fn()`` over ``iters`` calls, after
-    two warm-up calls, each timed alone by CUDA events with a cold L2:
-    before each call a 64 MiB write evicts the 50 MB L2, so the inputs come
-    from HBM as the bound assumes, and a spin on the card ahead of it
-    keeps the host's enqueue time out of the interval."""
+    """Mean device milliseconds of one ``fn()`` over ``iters`` calls, each
+    timed alone by CUDA events with a cold L2: before each call a 64 MiB
+    write evicts the 50 MB L2, so the inputs come from HBM as the bound
+    assumes, and a spin on the card ahead of it (SPIN_CYCLES) keeps the
+    host's enqueue time out of the interval.  Two untimed rounds of the
+    same steps come first, so that no first use (a kernel loaded lazily, an
+    event created) holds the host up inside a timed one.  A call that the
+    host finished enqueueing only after the card had finished the spin and
+    the write may hold host time; such calls are logged, and counted in the
+    mean all the same."""
     import torch
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
-    for _ in range(2):
-        fn()
-    total = 0.0
-    for _ in range(iters):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda._sleep(2_000_000)
+    times, late = [], []
+    for i in range(2 + iters):
+        before, start, end = (torch.cuda.Event(enable_timing=True)
+                              for _ in range(3))
+        t0 = time.perf_counter()
+        before.record()
+        torch.cuda._sleep(SPIN_CYCLES)
         flush.zero_()
         start.record()
         fn()
         end.record()
+        host = 1e3 * (time.perf_counter() - t0)
         end.synchronize()
-        total += start.elapsed_time(end)
-    return total / iters
+        if i >= 2:
+            ms, spin = start.elapsed_time(end), before.elapsed_time(start)
+            times.append(ms)
+            if host > spin:
+                late.append((round(ms, 4), round(host, 4), round(spin, 4)))
+    if late:
+        log(f"[timing] {len(late)} of {iters} calls were enqueued after the "
+            f"card's spin and write ended, so they may hold host time "
+            f"(device ms, host ms, spin + write ms): {late}")
+    return sum(times) / iters
+
+
+def time_in_turns(kernel, plain, library):
+    """``time_ms`` of a kernel, its plain version and its library call, in
+    turns (kernel, plain, library, kernel): the kernel's two readings and
+    the others'.  A kernel's row reports the mean of its two readings and
+    logs both, as the flash row does."""
+    ms_a = time_ms(kernel)
+    plain_ms = time_ms(plain)
+    lib_ms = time_ms(library)
+    return (ms_a, time_ms(kernel)), plain_ms, lib_ms
 
 
 def topk_overlap(a, b, k: int) -> float:
@@ -176,8 +209,19 @@ def phase_toolchain():
     _build.library()
     build_s = time.perf_counter() - t0
     log(f"[toolchain] kernels built in {build_s:.2f} s")
-    for name, rep in ptxas_report(_build.build_log()).items():
+    reports = ptxas_report(_build.build_log())
+    for name, rep in reports.items():
         log(f"[toolchain] ptxas: {name}: {rep}")
+    # every instantiation of the top-k and dense-scoring kernels spill-free
+    select = {n: r for n, r in reports.items()
+              if any(f in n for f in ("topk_segments_kernel",
+                                      "topk_merge_kernel",
+                                      "dense_segments_kernel"))}
+    assert len(select) == 8, list(select)
+    for name, rep in select.items():
+        assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, \
+            (name, rep)
+    log(f"[toolchain] 0 spill bytes in {sorted(select)}")
     return smi
 
 
@@ -347,7 +391,7 @@ def phase_kernels(index, forms) -> dict:
                                    generator=g).float()}
     err = 0.0
     for name, s in cases.items():
-        for k in (10, 128):
+        for k in TOPK_KS:
             v1, i1 = streaming_topk(s, k=k)
             v2, i2 = streaming_topk_ref(s, k=k)
             torch.cuda.synchronize()
@@ -355,36 +399,60 @@ def phase_kernels(index, forms) -> dict:
             assert torch.equal(i1, i2), ("topk indices", name, k)
             err = max(err, float((v1 - v2).abs().max()))
     log("[kernels] topk equals its plain version (values and indices) on "
-        f"[{CHUNK}, {n}] bm25/random/tied rows at k=10 and k=128")
+        f"[{CHUNK}, {n}] bm25/random/tied rows at k in {TOPK_KS} (the warp "
+        f"select for k <= 32, the radix select above)")
     # edges: one row, rows shorter than a segment, many rows, and rows of
     # ties, zeros or mostly -inf
-    shapes = ((1, n), (3, 1000), (5, 5000), (2, 130), (250, 70001))
+    shapes = ((1, n), (3, 1000), (5, 5000), (2, 130), (250, 70001), (4, 20))
     for nq, m in shapes:
         u = torch.rand(nq, m, device=DEVICE, generator=g)
+        # ascending rows: every element beats the warp select's k-th key
+        up = torch.arange(m, device=DEVICE, dtype=torch.float32).expand(nq, m)
         for name, s in (("random", torch.randn(nq, m, device=DEVICE,
                                                generator=g)),
                         ("tied", (u * 50).floor()),
                         ("zeros", torch.zeros(nq, m, device=DEVICE)),
-                        ("neginf", torch.where(u < 0.999, -torch.inf, u))):
-            for k in (1, 10, 128):
+                        ("neginf", torch.where(u < 0.999, -torch.inf, u)),
+                        ("ascending", up.contiguous())):
+            for k in TOPK_KS:
+                if k > m:
+                    continue
                 v1, i1 = streaming_topk(s, k=k)
                 v2, i2 = streaming_topk_ref(s, k=k)
                 assert torch.equal(v1, v2) and torch.equal(i1, i2), \
                     ("topk edge", nq, m, name, k)
     log("[kernels] topk equals its plain version on the edge sweep "
-        f"{shapes} x random/tied/zeros/-inf rows x k in (1, 10, 128)")
+        f"{shapes} x random/tied/zeros/-inf/ascending rows x k in {TOPK_KS}")
     k = 10
-    ms = time_ms(lambda: streaming_topk(real, k=k))
-    plain = time_ms(lambda: streaming_topk_ref(real, k=k))
-    lib = time_ms(lambda: torch.topk(real, k))
+    (ms_a, ms_b), plain, lib = time_in_turns(
+        lambda: streaming_topk(real, k=k),
+        lambda: streaming_topk_ref(real, k=k), lambda: torch.topk(real, k))
+    ms = (ms_a + ms_b) / 2
     nbytes = real.numel() * 4 + CHUNK * k * 8
     rows["topk"] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
                     "bound_ms": 1e3 * nbytes / HBM_BYTES_PER_S,
                     "bound_by": "bytes", "max_abs_err": err,
                     "shape": f"[{CHUNK}, {n}] k={k}"}
-    log(f"[kernels] topk [{CHUNK}, {n}] k={k}: kernel {ms:.4f} ms, plain "
-        f"{plain:.4f} ms, torch.topk {lib:.4f} ms, bound "
-        f"{rows['topk']['bound_ms']:.4f} ms (bytes)")
+    log(f"[kernels] topk [{CHUNK}, {n}] k={k}: kernel {ms_a:.4f} / "
+        f"{ms_b:.4f} ms (mean {ms:.4f}), plain {plain:.4f} ms, torch.topk "
+        f"{lib:.4f} ms, bound {rows['topk']['bound_ms']:.4f} ms (bytes)")
+    # rows that keep the warp select's bar low, so that many elements take
+    # its slow path, timed at the same shape beside the random rows (not in
+    # the kernels line): all equal, small-integer ties, mostly -inf, and
+    # ascending rows, where every element beats the bar
+    u = torch.rand(CHUNK, n, device=DEVICE, generator=g)
+    slow = {"random": cases["random"],
+            "zeros": torch.zeros(CHUNK, n, device=DEVICE),
+            "tied": cases["tied"],
+            "neginf": torch.where(u < 0.999, -torch.inf, u),
+            "ascending": torch.arange(n, device=DEVICE, dtype=torch.float32)
+            .expand(CHUNK, n).contiguous()}
+    slow_ms = {}
+    for name, s in slow.items():
+        a = time_ms(lambda s=s: streaming_topk(s, k=k))
+        slow_ms[name] = (a, time_ms(lambda s=s: streaming_topk(s, k=k)))
+    log(f"[kernels] topk [{CHUNK}, {n}] k={k} by row kind, kernel ms (two "
+        f"readings): " + json.dumps(slow_ms))
 
     # -- fused scoring: the chunk's gathered postings, passed as
     # retrieve_fat_fused passes them (df and cf once per posting list)
@@ -485,6 +553,11 @@ def phase_dense_kernels(index, forms, state) -> dict:
                                k=200, max_postings=be.max_postings)
     emb_r = emb[docs.clamp(min=0).long()]
     base_r = torch.where(docs >= 0, 0.3 * bm25, DN.NEG)
+    # G1: BM25's 1,000 candidates, DenseRerank() (alpha 0) to depth 8
+    docs_g = retrieve_topk(index, Q["terms"], Q["weights"], model="BM25",
+                           k=1000, max_postings=be.max_postings)[0]
+    emb_g = emb[docs_g.clamp(min=0).long()]
+    base_g = torch.where(docs_g >= 0, 0.0, DN.NEG)
     codes_c, table, base_p, _, r = DN._pq_candidates(
         pqi, qv, k=10, nprobe=NPROBE, refine=PQ_REFINE, shortlist=None)
     g = torch.Generator(device=DEVICE).manual_seed(0)
@@ -496,12 +569,19 @@ def phase_dense_kernels(index, forms, state) -> dict:
     # dim 62: scalar loads, for shared rows in groups of 8 and of 3
     # queries and for gathered rows
     e62, q62 = emb[:, :62].contiguous(), qv[:, :62].contiguous()
+    # small-integer embeddings and queries: integer scores, exact in any
+    # order, with many ties at every rank
+    e_int = torch.randint(-2, 3, emb.shape, device=DEVICE, generator=g).float()
+    q_int = torch.randint(-2, 3, qv.shape, device=DEVICE, generator=g).float()
     cases = {"D2 shared": (emb, qv, None),
              "D2 shared +base": (emb, qv, masked),
+             "D2 tied (integer scores)": (e_int, q_int, None),
+             "D2 shared, 12 queries": (emb, qv[:12], None),
              "D2 duplicate rows": (dup, qv, None),
              "D3 gathered": (emb_c, qv, base_c),
              "D3 no base": (emb_c, qv, None),
              "D1 rerank": (emb_r, qv, base_r),
+             "G1 rerank": (emb_g, qv, base_g),
              "shorter than a segment": (short, qv, None),
              "[16, 100, 64] rows": (emb_r[:, :100], qv, None),
              "dim 62 shared": (e62, q62, masked),
@@ -509,41 +589,51 @@ def phase_dense_kernels(index, forms, state) -> dict:
              "dim 62 gathered": (emb_r[..., :62].contiguous(), q62, base_r)}
     err, n_ties = 0.0, 0
     for name, (e, q, b) in cases.items():
-        for k in (1, 10, 80, 128):
+        for k in TOPK_KS:
             if k > e.shape[-2]:
                 continue
             v1, i1 = streaming_dense_topk(e, q, b, k=k)
             v2, i2 = dense_topk_ref(e, q, b, k=k)
             torch.cuda.synchronize()
+            if e is e_int:
+                assert torch.equal(v1, v2) and torch.equal(i1, i2), (name, k)
             torch.testing.assert_close(v1, v2, rtol=1e-5, atol=1e-5)
             n_ties += _check_docids(i2, v2, i1, rtol=1e-5, atol=1e-5)
             err = max(err, float((v1 - v2).abs().max()))
     log(f"[dense kernels] dense_topk within rtol/atol 1e-5 of its plain "
-        f"version on {list(cases)} x k in (1, 10, 80, 128): max abs err "
-        f"{err:.3e}, docids equal except {n_ties} rank(s) inside a tie; "
-        f"D3 rows {tuple(emb_c.shape)}, D1 rows {tuple(emb_r.shape)}")
+        f"version on {list(cases)} x k in {TOPK_KS}: max abs err "
+        f"{err:.3e}, docids equal except {n_ties} rank(s) inside a tie "
+        f"(integer scores: values and docids equal); D3 rows "
+        f"{tuple(emb_c.shape)}, D1 rows {tuple(emb_r.shape)}, G1 rows "
+        f"{tuple(emb_g.shape)}")
     rows = {}
-    shapes = {"D2": (emb, None), "D3": (emb_c, base_c), "D1": (emb_r, base_r)}
-    for name, (e, b) in shapes.items():
-        k = 10
+    shapes = {"D2": (emb, None, 10), "D3": (emb_c, base_c, 10),
+              "D1": (emb_r, base_r, 10), "G1": (emb_g, base_g, G1_DEPTH)}
+    for name, (e, b, k) in shapes.items():
         nq, c = CHUNK, e.shape[-2]
         nbytes = e.numel() * 4 + qv.numel() * 4 + nq * k * 8 + \
             (0 if b is None else b.numel() * 4)
         bms, by = bound(nbytes, 2 * nq * c * dim)
-        ms = time_ms(lambda: streaming_dense_topk(e, qv, b, k=k))
-        plain = time_ms(lambda: dense_topk_ref(e, qv, b, k=k))
         if e.dim() == 2:
-            lib = time_ms(lambda: torch.topk(qv @ e.T, k))
+            def library():
+                return torch.topk(qv @ e.T, k)
         else:
-            lib = time_ms(lambda: torch.topk(torch.baddbmm(
-                b[..., None], e, qv[..., None])[..., 0], k))
+            def library():
+                return torch.topk(torch.baddbmm(
+                    b[..., None], e, qv[..., None])[..., 0], k)
+        (ms_a, ms_b), plain, lib = time_in_turns(
+            lambda: streaming_dense_topk(e, qv, b, k=k),
+            lambda: dense_topk_ref(e, qv, b, k=k), library)
+        ms = (ms_a + ms_b) / 2
         rows[f"dense_topk {name}"] = {
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
             "bound_by": by, "max_abs_err": err,
             "shape": f"{'x'.join(map(str, e.shape))} x {nq} queries k={k}"}
         log(f"[dense kernels] dense_topk {name} {tuple(e.shape)} k={k}: "
-            f"kernel {ms:.4f} ms, plain {plain:.4f} ms, library (two calls: "
-            f"matmul + torch.topk) {lib:.4f} ms, bound {bms:.4f} ms ({by})")
+            f"kernel {ms_a:.4f} / {ms_b:.4f} ms (mean {ms:.4f}), plain "
+            f"{plain:.4f} ms, "
+            f"library (two calls: matmul + torch.topk) {lib:.4f} ms, bound "
+            f"{bms:.4f} ms ({by})")
 
     ucodes = torch.randint(0, 2, codes_c.shape, device=DEVICE, generator=g,
                            dtype=torch.uint8)
@@ -596,15 +686,18 @@ def phase_dense(forms, state) -> None:
                "fused_dense_retrieve"),
         "D4": (rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10,
                state["be_pq"], "fused_dense_retrieve")}
-    res = {}
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    res, per_cell = {}, {}
     for name, (pipe, be, kind) in pipes.items():
         got = rt.compile_pipeline(pipe, be).kind
         assert got == kind, (name, got)
         out = {}
+        before = streaming_dense_topk.launches
         for setting, opt in (("unoptimised", False), ("optimised", True)):
             r = rt.Experiment([pipe], Q, topics.qrels, ["map", "ndcg_cut_10"],
                               backend=be, optimize=opt, measure_time=True)
             out[setting] = (r["table"][0], r["results"][0])
+        per_cell[name] = streaming_dense_topk.launches - before
         (ru, Ru), (ro, Ro) = out["unoptimised"], out["optimised"]
         assert Ro["docids"].shape == (len(topics.qids), 10)
         assert bool(Ro["scores"].isfinite().all())
@@ -618,6 +711,7 @@ def phase_dense(forms, state) -> None:
     for name in ("D3", "D4"):
         log(f"[dense] recall@10 of {name} against D2 (brute force): "
             f"{topk_overlap(res[name]['docids'], res['D2']['docids'], 10):.4f}")
+    log(f"[dense] dense_topk launches by cell: {per_cell}")
 
 
 def phase_attention_kernels() -> dict:

@@ -11,13 +11,19 @@
 // 528,155 f32 = 33.8 MB on the RQ1 path, about 10 us at 3.35 TB/s).
 // A chunk holds only 16 rows, so one block per row would leave 116 of the
 // 132 SMs idle and each SM latency-bound on its 2 MB row.  The design cuts
-// every row into segments so that about two blocks per SM run: stage 1
-// takes each segment's top-k (repro::block_topk_row: a 4-pass radix select
-// plus a collection pass, four loads in flight per thread); stage 2 merges
-// the segments' sorted candidate lists of each row with the same routine.
-// The segment's passes after the first read it from the 50 MB L2.  The
-// merge stage is exported (repro::launch_topk_merge) for the dense- and
-// PQ-scoring kernels, which merge their segments the same way.
+// every row into segments, one wave of two 512-thread blocks an SM (16
+// segments a row at RQ1's shape), and takes the top-k in two stages:
+//
+//   1. For k <= 32 each segment is read once, by the warp select of
+//      topk_block.cuh: each warp streams its 32-wide tiles, two batches of
+//      eight loads a lane in flight, holds each batch against the bar its
+//      block shares and does more only where an element reaches it; the
+//      block's 16 warp queues then merge in shared memory.  For
+//      32 < k <= 128 a block runs the radix select (four passes over the
+//      segment, the later ones from the 50 MB L2, then a collection pass).
+//   2. repro::launch_topk_merge merges each row's candidate lists with the
+//      same select.  It is exported for the dense- and PQ-scoring kernels,
+//      which merge their segments the same way.
 //
 // Contract: values sorted descending, ties to the lowest index (the
 // lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.  The wrapper
@@ -35,9 +41,11 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int MERGE_THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
+// two blocks an SM: at most 64 registers a thread
+__global__ void __launch_bounds__(THREADS, 2)
 topk_segments_kernel(const float* __restrict__ scores, int64_t n,
-                     int64_t seg_len, int k, float* __restrict__ out_vals,
+                     int64_t row_stride, int64_t seg_len, int k,
+                     float* __restrict__ out_vals,
                      int* __restrict__ out_idxs) {
   __shared__ repro::TopKSmem<THREADS> sm;
   const int64_t q = blockIdx.y;
@@ -45,8 +53,8 @@ topk_segments_kernel(const float* __restrict__ scores, int64_t n,
   const int64_t lo = s * seg_len;
   const int64_t len = n - lo < seg_len ? n - lo : seg_len;
   const int64_t out = (q * gridDim.x + s) * k;
-  repro::segment_topk<THREADS>(scores + q * n + lo, len, k, lo,
-                               out_vals + out, out_idxs + out, sm);
+  repro::segment_topk<THREADS, true>(scores + q * row_stride + lo, len, k,
+                                     lo, out_vals + out, out_idxs + out, sm);
 }
 
 __global__ void __launch_bounds__(MERGE_THREADS)
@@ -55,9 +63,18 @@ topk_merge_kernel(const float* __restrict__ cand_vals,
                   float* __restrict__ vals, int* __restrict__ idxs) {
   __shared__ repro::TopKSmem<MERGE_THREADS> sm;
   const int64_t q = blockIdx.x;
-  repro::block_topk_row<MERGE_THREADS>(cand_vals + q * m, m, k,
-                                       cand_idxs + q * m, 0, vals + q * k,
-                                       idxs + q * k, sm);
+  const float* cv = cand_vals + q * m;
+  const int* ci = cand_idxs + q * m;
+  if (k <= repro::WARP_K) {
+    // a candidate's index does not grow with its position
+    repro::block_warp_topk<MERGE_THREADS, false>(
+        m, k, [=](int64_t i) { return __ldg(cv + i); },
+        [=](int64_t i) { return __ldg(ci + i); }, vals + q * k, idxs + q * k,
+        sm);
+  } else {
+    repro::block_topk_row<MERGE_THREADS>(cv, m, k, ci, 0, vals + q * k,
+                                         idxs + q * k, sm.radix);
+  }
 }
 
 }  // namespace
@@ -74,14 +91,16 @@ cudaError_t repro::launch_topk_merge(const float* cand_vals,
   return cudaGetLastError();
 }
 
-// scores [nq, n] -> vals/idxs [nq, k], in n_seg segments of seg_len.
+// scores [nq, n] (rows row_stride floats apart) -> vals/idxs [nq, k], in
+// n_seg segments of seg_len.
 // n_seg > 1 needs cand_vals and cand_idxs of nq * n_seg * k elements each.
 extern "C" int repro_topk_f32(const float* scores, int64_t nq, int64_t n,
-                              int k, int n_seg, int64_t seg_len,
+                              int64_t row_stride, int k, int n_seg,
+                              int64_t seg_len,
                               float* cand_vals, int* cand_idxs, float* vals,
                               int* idxs, void* stream) {
   if (k < 1 || k > repro::TOPK_MAX_K || n < k || n > INT_MAX || nq < 1 ||
-      nq > 65535 || n_seg < 1 || seg_len < 1 ||
+      nq > 65535 || row_stride < n || n_seg < 1 || seg_len < 1 ||
       (int64_t)(n_seg - 1) * seg_len >= n || (int64_t)n_seg * seg_len < n ||
       (n_seg > 1 && seg_len < k))
     return (int)cudaErrorInvalidValue;
@@ -89,9 +108,11 @@ extern "C" int repro_topk_f32(const float* scores, int64_t nq, int64_t n,
   float* ov = n_seg == 1 ? vals : cand_vals;
   int* oi = n_seg == 1 ? idxs : cand_idxs;
   topk_segments_kernel<<<dim3((unsigned int)n_seg, (unsigned int)nq), THREADS,
-                         0, st>>>(scores, n, seg_len, k, ov, oi);
+                         0, st>>>(scores, n, row_stride, seg_len, k, ov, oi);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 1) return (int)err;
   return (int)repro::launch_topk_merge(cand_vals, cand_idxs, nq,
                                       (int64_t)n_seg * k, k, vals, idxs, st);
 }
+
+

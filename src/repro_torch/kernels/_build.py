@@ -36,17 +36,18 @@ _I32 = ctypes.c_int
 _F32 = ctypes.c_float
 #: C signature of every exported function: (argtypes), all return int
 SIGNATURES = {
-    # scores, nq, n, k, n_seg, seg_len, cand_vals, cand_idxs, vals, idxs,
-    # stream
-    "repro_topk_f32": (_P, _I64, _I64, _I32, _I32, _I64, _P, _P, _P, _P, _P),
+    # scores, nq, n, row_stride, k, n_seg, seg_len, cand_vals, cand_idxs,
+    # vals, idxs, stream
+    "repro_topk_f32": (_P, _I64, _I64, _I64, _I32, _I32, _I64, _P, _P, _P,
+                       _P, _P),
     # tf, dl, df, cf, n, group, model_code, n_models, n_docs, avg_dl,
     # total_terms, avg_len, out, stream
     "repro_fused_scoring": (_P, _P, _P, _P, _I64, _I64, _I32, _I32, _F32,
                             _F32, _F32, _F32, _P, _P),
     # emb, emb_qstride, q, base, nq, n, dim, k, group, n_seg, seg_len,
-    # cand_vals, cand_idxs, vals, idxs, stream
+    # tile, cand_vals, cand_idxs, vals, idxs, stream
     "repro_dense_topk": (_P, _I64, _P, _P, _I64, _I64, _I32, _I32, _I32,
-                         _I32, _I64, _P, _P, _P, _P, _P),
+                         _I32, _I64, _I64, _P, _P, _P, _P, _P),
     # codes, table, base, nq, n, m, n_codes, k, n_seg, seg_len, cand_vals,
     # cand_idxs, vals, idxs, stream
     "repro_pq_topk": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I64,

@@ -16,14 +16,33 @@ from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
 from repro_torch.kernels.segments import plan_segments
 
 MAX_KERNEL_K = 128
+#: the largest k of the kernel's warp select (``WARP_K`` in
+#: ``csrc/topk_block.cuh``), which scores a segment of any length in tiles
+WARP_K = 32
 #: queries one block scores together over shared embeddings, and the
 #: scores a block keeps in shared memory (64 KB), shared by its group: a
-#: group of 8 over 2,048-row segments, three blocks to an SM, took the
-#: brute-force chunk ([528155, 64] x 16 queries) fastest on the H100
+#: tile of SCORE_SLOTS // group rows (the whole segment on the radix path,
+#: k > WARP_K, which caps the segment so)
 MAX_GROUP = 8
 SCORE_SLOTS = 16384
 #: shortest row segment worth a block of its own
 MIN_SEGMENT = 1024
+
+
+def plan(nq: int, n: int, k: int, group: int,
+         n_sm: int) -> tuple[int, int, int]:
+    """(segments per row set, segment length, tile length) of the kernel's
+    first stage: for k <= WARP_K one wave of two blocks an SM over
+    segments of any length, scored in tiles that fit the shared score
+    buffer; else segments that fit it whole, each one tile."""
+    if k <= WARP_K:
+        n_seg, seg_len = plan_segments(cdiv(nq, group), n, k, n_sm,
+                                       min_len=MIN_SEGMENT, one_wave=True)
+        return n_seg, seg_len, min(seg_len, SCORE_SLOTS // group)
+    n_seg, seg_len = plan_segments(cdiv(nq, group), n, k, n_sm,
+                                   min_len=MIN_SEGMENT,
+                                   cap=SCORE_SLOTS // group)
+    return n_seg, seg_len, seg_len
 
 
 def kernel_native(k: int) -> bool:
@@ -74,15 +93,13 @@ def streaming_dense_topk(emb: torch.Tensor, qvec: torch.Tensor,
     shared = emb.dim() == 2
     group = min(nq, MAX_GROUP) if shared else 1
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_seg, seg_len = plan_segments(cdiv(nq, group), n, k, n_sm,
-                                   min_len=MIN_SEGMENT,
-                                   cap=SCORE_SLOTS // group)
+    n_seg, seg_len, tile = plan(nq, n, k, group, n_sm)
     cand_vals = torch.empty((nq, n_seg, k), dtype=torch.float32, device=dev)
     cand_idxs = torch.empty((nq, n_seg, k), dtype=torch.int32, device=dev)
     err = _build.library().repro_dense_topk(
         emb.data_ptr(), 0 if shared else n * dim, q.data_ptr(),
         None if base is None else base.data_ptr(), nq, n, dim, k, group,
-        n_seg, seg_len, cand_vals.data_ptr(), cand_idxs.data_ptr(),
+        n_seg, seg_len, tile, cand_vals.data_ptr(), cand_idxs.data_ptr(),
         vals.data_ptr(), idxs.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "repro_dense_topk")

@@ -12,12 +12,16 @@ from repro_torch.common import cdiv
 
 
 def plan_segments(n_row_sets: int, n: int, k: int, n_sm: int, *,
-                  min_len: int, cap: int | None = None) -> tuple[int, int]:
+                  min_len: int, cap: int | None = None,
+                  one_wave: bool = False) -> tuple[int, int]:
     """(segments per row, segment length) for a kernel that gives each of
     ``n_row_sets`` row sets of ``n`` rows its own blocks: about two blocks
-    per SM, each segment at least ``max(k, min_len)`` rows long and at most
-    ``cap`` (only the last may be shorter)."""
-    n_seg = max(1, min(cdiv(2 * n_sm, n_row_sets), n // max(k, min_len)))
+    per SM (with ``one_wave``, at most two, so that the grid runs in one
+    wave of two blocks an SM), each segment at least ``max(k, min_len)``
+    rows long and at most ``cap`` (only the last may be shorter)."""
+    per_set = (2 * n_sm // n_row_sets if one_wave
+               else cdiv(2 * n_sm, n_row_sets))
+    n_seg = max(1, min(per_set, n // max(k, min_len)))
     seg_len = cdiv(n, n_seg)
     if cap is not None:
         seg_len = min(seg_len, cap)

@@ -19,6 +19,12 @@ MAX_KERNEL_K = 128
 MIN_SEGMENT = 4096
 
 
+def plan(nq: int, n: int, k: int, n_sm: int) -> tuple[int, int]:
+    """(segments per row, segment length) of the kernel's first stage: one
+    wave of two blocks an SM."""
+    return plan_segments(nq, n, k, n_sm, min_len=MIN_SEGMENT, one_wave=True)
+
+
 def kernel_native(k: int) -> bool:
     """Whether the kernel serves this ``k``.  The IR fusion pass
     (core/passes.py) records this."""
@@ -39,21 +45,26 @@ def streaming_topk(scores: torch.Tensor, *, k: int):
     if not kernel_native(k):
         raise ValueError(f"k={k} > {MAX_KERNEL_K}: the top-k kernel serves "
                          f"k <= {MAX_KERNEL_K}")
-    rows = scores.reshape(-1, n).to(torch.float32).contiguous()
+    # rows may lie apart, as a slice of wider score rows does: the kernel
+    # takes their stride, so only rows that are not laid out so are copied
+    rows = scores.reshape(-1, n).to(torch.float32)
     nq = rows.shape[0]
+    if rows.stride(-1) != 1 or (nq > 1 and rows.stride(0) < n):
+        rows = rows.contiguous()
+    row_stride = rows.stride(0) if nq > 1 else n
     dev = rows.device
     vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq:
         n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-        n_seg, seg_len = plan_segments(nq, n, k, n_sm, min_len=MIN_SEGMENT)
+        n_seg, seg_len = plan(nq, n, k, n_sm)
         cand_vals = torch.empty((nq, n_seg, k), dtype=torch.float32,
                                 device=dev)
         cand_idxs = torch.empty((nq, n_seg, k), dtype=torch.int32, device=dev)
         err = _build.library().repro_topk_f32(
-            rows.data_ptr(), nq, n, k, n_seg, seg_len, cand_vals.data_ptr(),
-            cand_idxs.data_ptr(), vals.data_ptr(), idxs.data_ptr(),
-            torch.cuda.current_stream(dev).cuda_stream)
+            rows.data_ptr(), nq, n, row_stride, k, n_seg, seg_len,
+            cand_vals.data_ptr(), cand_idxs.data_ptr(), vals.data_ptr(),
+            idxs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "repro_topk_f32")
         streaming_topk.launches += 1
     return vals.reshape(*scores.shape[:-1], k), idxs.reshape(*scores.shape[:-1], k)

@@ -24,7 +24,7 @@ import dataclasses
 import torch
 from torch import nn
 
-from repro_torch.common import DEFAULT_DTYPE
+from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention
 
 NEG_INF = -1e30
@@ -177,13 +177,13 @@ class AttnDims:
 class Attention(nn.Module):
     """The attention projections: wq/wk/wv [d_model, heads, d_head], wo
     [n_q, d_head, d_model], and bq/bk/bv [heads, d_head] with
-    ``qkv_bias``."""
+    ``qkv_bias``; on ``device`` (``None`` = the card)."""
 
     def __init__(self, dims: AttnDims, dtype=DEFAULT_DTYPE, device=None):
         super().__init__()
         self.dims = dims
         d, h = dims.d_model, dims.d_head
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.wq = _param(d, dims.n_q, h, **kw)
         self.wk = _param(d, dims.n_kv, h, **kw)
         self.wv = _param(d, dims.n_kv, h, **kw)
@@ -291,12 +291,13 @@ def attn_apply(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 class MLP(nn.Module):
-    """w_gate, w_up [d_model, d_ff]; w_down [d_ff, d_model]."""
+    """w_gate, w_up [d_model, d_ff]; w_down [d_ff, d_model]; on ``device``
+    (``None`` = the card)."""
 
     def __init__(self, d_model: int, d_ff: int, dtype=DEFAULT_DTYPE,
                  device=None):
         super().__init__()
-        kw = dict(dtype=dtype, device=device)
+        kw = dict(dtype=dtype, device=resolve_device(device))
         self.w_gate = _param(d_model, d_ff, **kw)
         self.w_up = _param(d_model, d_ff, **kw)
         self.w_down = _param(d_ff, d_model, **kw)

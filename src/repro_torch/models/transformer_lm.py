@@ -84,10 +84,12 @@ def check_supported(cfg: LMConfig) -> None:
 # ---------------------------------------------------------------------------
 
 class Block(nn.Module):
-    """One transformer layer's parameters."""
+    """One transformer layer's parameters, on ``device`` (``None`` = the
+    card)."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
+        device = resolve_device(device)
         self.attn = L.Attention(cfg.attn_dims(), cfg.dtype, device)
         self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
         self.ln_attn = nn.Parameter(
@@ -101,12 +103,14 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """The LM's parameters: ``embed`` [vocab, d_model], one :class:`Block`
     per layer, ``ln_final`` and, without tied embeddings, ``unembed``
-    [d_model, vocab].  Made uninitialised; :func:`init_params` draws them
-    and :func:`lm_from_arrays` copies them in."""
+    [d_model, vocab], on ``device`` (``None`` = the card).  Made
+    uninitialised; :func:`init_params` draws them and
+    :func:`lm_from_arrays` copies them in."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
         check_supported(cfg)
+        device = resolve_device(device)
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
                         device=device), requires_grad=False)

@@ -22,6 +22,7 @@ from repro.core.stages import greedy_generate_fn as jgreedy
 from repro.models import transformer_lm as JT
 from repro_torch.configs import qwen2_1_5b as tqwen
 from repro_torch.core.stages import greedy_generate_fn
+from repro_torch.models import layers as TL
 from repro_torch.models import transformer_lm as TT
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -115,6 +116,25 @@ def test_qwen2_configs_match_reference():
     assert _port_cfg(jqwen.reduced()[0]) == tqwen.reduced()[0]
     np.testing.assert_array_equal(tqwen.reduced()[1]()["tokens"],
                                   jqwen.reduced()[1]()["tokens"])
+
+
+def test_lm_modules_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
+    """``device=None`` means the card, as at every entry point: without
+    CUDA the LM's modules raise ``resolve_device``'s error, and build on
+    the CPU when asked to."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = TT.LMConfig(name="t", n_layers=1, d_model=8, n_q=2, n_kv=1,
+                      d_head=4, d_ff=8, vocab=16)
+    makers = [lambda d: TT.TransformerLM(cfg, device=d),
+              lambda d: TT.Block(cfg, d),
+              lambda d: TL.Attention(cfg.attn_dims(), cfg.dtype, d),
+              lambda d: TL.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, d)]
+    for make in makers:
+        with pytest.raises(RuntimeError, match="pass device='cpu'"):
+            make(None)
+        assert all(p.device.type == "cpu" for p in make("cpu").parameters())
+    with pytest.raises(RuntimeError, match="pass device='cpu'"):
+        TT.TransformerLM(cfg)
 
 
 def test_unported_configs_raise():

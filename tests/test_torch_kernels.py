@@ -133,12 +133,12 @@ def test_segment_plan_covers_rows_and_merges_to_topk(nq, n, k):
     padded to k with (-inf, INT_MAX), then a top-k of the segments' lists
     taken by position — gives the row's top-k with the lowest-index tie
     rule; here with the plain top-k standing in for both stages."""
-    from repro_torch.kernels.segments import plan_segments
-    from repro_torch.kernels.topk.ops import MIN_SEGMENT
-    s, seg = plan_segments(nq, n, k, 132, min_len=MIN_SEGMENT)
+    from repro_torch.kernels.topk.ops import MIN_SEGMENT, plan
+    s, seg = plan(nq, n, k, 132)
     assert 1 <= s and (s - 1) * seg < n <= s * seg
     assert s == 1 or seg >= max(k, MIN_SEGMENT)
     assert s == 1 or nq * s >= 132 or n // s < 2 * MIN_SEGMENT
+    assert nq * s <= max(nq, 2 * 132)         # one wave of two blocks an SM
     rng = np.random.default_rng(n)
     row = torch.from_numpy(rng.integers(0, 40, n).astype(np.float32))
     cand_v, cand_i = [], []

@@ -1,0 +1,545 @@
+"""The warp select of ``csrc/topk_block.cuh`` (k <= 32), which the top-k
+and dense-scoring kernels take their top-k with, against the JAX package on
+the CPU.
+
+The kernels run only on the card, where ``chip_smoke.py`` holds them
+against their plain versions.  Here a numpy model, kept in this file and
+off the main path, follows the CUDA code step by step: the 64-bit key
+(order_key(value) << 32 | ~index), the 32 lanes of a warp, each lane's
+thread queue of THREAD_Q keys (newest first), the batches of WARP_UNROLL
+loads held against the warp's k-th value, the slow path that offers a
+batch's elements one at a time, the queue-full vote, the bitonic sort of
+each thread-queue slot across the lanes and its bitonic merge into the warp
+queue, the k-th key broadcast, the pairwise merge of the block's warp
+queues through shared memory, the (-inf, INT_MAX) pads of a short segment,
+and the second stage, which merges the segments' candidate lists through
+their indices.  The segments are planned by the wrappers' own planners for
+an H100's 132 SMs.  The model must equal ``streaming_topk_ref`` and
+``lax.top_k`` in values and indices; the dense kernel's model, which also
+repeats its fp32 dot products (multiply, then add, d = 0..dim-1, then
++ base), must agree with both packages' plain versions."""
+import re
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
+
+from repro.kernels.dense_scoring.ref import dense_topk_ref as jax_dense_ref
+from repro_torch.common import cdiv
+from repro_torch.kernels.dense_scoring import ops as dense_ops
+from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+from repro_torch.kernels.topk import ops as topk_ops
+from repro_torch.kernels.topk.ref import streaming_topk_ref
+
+N_SM = 132              # an H100's SMs, as the wrappers read them
+WARP_K = 32             # topk_block.cuh: WARP_K, THREAD_Q, WARP_UNROLL
+THREAD_Q = 2
+WARP_UNROLL = 8
+TOPK_THREADS = 512      # topk.cu: THREADS, MERGE_THREADS
+MERGE_THREADS = 256
+DENSE_THREADS = 512     # dense_topk.cu: THREADS
+PAD_KEY = np.uint64(0x007FFFFF80000000)
+LANES = np.arange(32)
+NEG = np.float32(-3.0e38)
+
+
+# -- the key ---------------------------------------------------------------
+
+def order_key(v):
+    """float32 -> uint32, larger float to larger key, -0.0 to +0.0's."""
+    v = np.asarray(v, np.float32)
+    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    return np.where(u & np.uint32(0x80000000), ~u,
+                    u | np.uint32(0x80000000)).astype(np.uint32)
+
+
+def make_key(v, idx):
+    low = (~np.asarray(idx, np.int32)).view(np.uint32)
+    return (order_key(v).astype(np.uint64) << np.uint64(32)) | \
+        low.astype(np.uint64)
+
+
+def key_value(key):
+    hi = (np.asarray(key, np.uint64) >> np.uint64(32)).astype(np.uint32)
+    u = np.where(hi & np.uint32(0x80000000), hi ^ np.uint32(0x80000000), ~hi)
+    return u.astype(np.uint32).view(np.float32)
+
+
+def key_index(key):
+    low = (np.asarray(key, np.uint64) & np.uint64(0xFFFFFFFF))
+    return (~low.astype(np.uint32)).view(np.int32)
+
+
+# -- one warp: lanes are the last axis, a shuffle is an index by lane ------
+
+def warp_sort_ascending(x):
+    for size in (2, 4, 8, 16, 32):
+        stride = size // 2
+        while stride:
+            y = x[LANES ^ stride]
+            take_min = ((LANES & stride) == 0) == ((LANES & size) == 0)
+            x = np.where(take_min, np.minimum(x, y), np.maximum(x, y))
+            stride //= 2
+    return x
+
+
+def warp_merge_descending(x):
+    for stride in (16, 8, 4, 2, 1):
+        y = x[LANES ^ stride]
+        x = np.where((LANES & stride) == 0, np.maximum(x, y),
+                     np.minimum(x, y))
+    return x
+
+
+class WarpSelect:
+    """One warp: its warp queue, thread queues, bar and counts of what it
+    did.  ``run`` is the one-slot list standing for the bar in shared
+    memory of the block's warps that work on one row."""
+
+    def __init__(self, k, run):
+        self.k, self.run = k, run
+        self.wq = np.full(32, PAD_KEY)
+        self.tq = np.full((THREAD_Q, 32), PAD_KEY)
+        self.bar = PAD_KEY
+        self.bar_value = np.float32(-np.inf)
+        self.n_tq = np.zeros(32, np.int64)
+        self.merges = self.slow_batches = 0
+
+    def raise_bar(self, key):
+        if key > self.bar:
+            self.bar, self.bar_value = key, key_value(key)
+
+    def publish(self):
+        kth = self.wq[self.k - 1]                      # __shfl_sync
+        self.raise_bar(kth)
+        if kth != PAD_KEY:                             # atomicMax
+            self.run[0] = max(self.run[0], kth)
+
+    def merge(self):
+        for t in range(THREAD_Q):
+            if (self.tq[t] != PAD_KEY).any():          # __any_sync
+                self.wq = warp_merge_descending(
+                    np.maximum(self.wq, warp_sort_ascending(self.tq[t])))
+                self.tq[t] = PAD_KEY
+        self.n_tq[:] = 0
+        self.publish()
+        self.merges += 1
+
+    def offer(self, admit, key):
+        take = admit & (key > self.bar)
+        self.tq[1:, take] = self.tq[:-1, take]         # newest first
+        self.tq[0, take] = key[take]
+        self.n_tq += take
+        if (self.n_tq == THREAD_Q).any():              # the queue-full vote
+            self.merge()
+
+
+def load_batch(n, base, stride, value):
+    """A warp's batch at ``base``: WARP_UNROLL 32-wide tiles ``stride``
+    apart, (u, lane) -> (index i, whether i < n, value)."""
+    i = base + np.arange(WARP_UNROLL)[:, None] * stride + LANES
+    valid = i < n
+    return i, valid, np.where(valid, value(np.minimum(i, n - 1)),
+                              np.float32(0))
+
+
+def offer_batch(ws, n, i, valid, v, first, value, index, ascending):
+    """The bar test of a batch, then the slow path where a lane hits."""
+    ws.raise_bar(ws.run[0])
+    strict = ascending and key_index(ws.bar) < index(np.asarray(i[0, 0]))
+    hit = (v > ws.bar_value) | ((not strict) & (v == ws.bar_value))
+    hits = valid & (np.arange(WARP_UNROLL)[:, None] != first) & hit
+    if hits.any():                                     # the slow path
+        ws.slow_batches += 1
+        for u in np.flatnonzero(hits.any(axis=1)):     # __reduce_or_sync
+            j = np.minimum(i[u], n - 1)
+            key = np.where(hits[u], make_key(value(j), index(j)), PAD_KEY)
+            ws.offer(hits[u], key)
+
+
+def warp_stream(ws, n, part, parts, start, value, index, ascending,
+                seeded=None):
+    """The warp's batches from ``start`` on, passing over each lane's
+    ``seeded`` element: a generator that stops after each batch, so that
+    the warps of a block can take turns."""
+    stride = parts * 32
+    step = stride * WARP_UNROLL
+    seeded = np.full(32, -1) if seeded is None else seeded
+    for base in range(start, n, step):
+        mine = (seeded >= base) & (seeded < base + step)
+        first = np.where(mine, (seeded - base) // stride, -1)
+        offer_batch(ws, n, *load_batch(n, base, stride, value), first, value,
+                    index, ascending)
+        yield
+
+
+def take_turns(streams):
+    """Run the warps' streams a batch each in turn (the card interleaves
+    them in some order; the result does not depend on it)."""
+    streams = list(streams)
+    while streams:
+        streams = [st for st in streams if next(st, StopIteration)
+                   is not StopIteration]
+
+
+def block_stream(sels, run, rows, seed_batches):
+    """block_stream: ``rows[w]`` = (n, value, index, ascending) of warp w,
+    part ``w % run`` of its run.  Every lane's largest value among its
+    first ``seed_batches`` batches (the first on ties) enters its warp's
+    queue; the k-th of each run's merged seeds is the run's bar (a
+    barrier); then the warps stream from their first batch on, in turns,
+    passing over the seeded elements."""
+    seededs = []
+    for w, ws in enumerate(sels):
+        n, value, index, _ = rows[w]
+        part = w % run
+        seeded = np.full(32, -1)
+        top = np.zeros(32, np.float32)
+        for b in range(seed_batches):
+            base = part * 32 + b * run * 32 * WARP_UNROLL
+            if base >= n:
+                break
+            i, valid, v = load_batch(n, base, run * 32, value)
+            for u in range(WARP_UNROLL):
+                take = valid[u] & ((seeded < 0) | (v[u] > top))
+                top = np.where(take, v[u], top)
+                seeded = np.where(take, i[u], seeded)
+        at = np.clip(seeded, 0, max(n - 1, 0))
+        seed = np.where(seeded >= 0, make_key(top, index(at)), PAD_KEY)
+        ws.wq = warp_merge_descending(
+            np.maximum(ws.wq, warp_sort_ascending(seed)))
+        seededs.append(seeded)
+    merged = block_merge_queues(np.stack([ws.wq for ws in sels]), run)
+    for w in range(0, len(sels), run):
+        kth = merged[w][sels[w].k - 1]
+        if kth != PAD_KEY:
+            sels[w].run[0] = kth
+    take_turns(warp_stream(ws, rows[w][0], w % run, run, w % run * 32,
+                           *rows[w][1:], seeded=seededs[w])
+               for w, ws in enumerate(sels))
+
+
+def ascending_from(offset):
+    return lambda j: (offset + np.asarray(j)).astype(np.int32)
+
+
+def block_merge_queues(queues, run):
+    """queues [warps, 32] -> the merged queue of each run of ``run`` warps,
+    in the run's first warp."""
+    q = queues.copy()
+    span = 1
+    while span < run:
+        sq = q.copy()                                  # shared memory
+        for w in range(len(q)):
+            if w & (2 * span - 1) == 0:
+                q[w] = warp_merge_descending(
+                    np.maximum(q[w], sq[w + span][::-1]))
+        span *= 2
+    return q
+
+
+def block_warp_topk(n, k, value, index, threads, ascending):
+    warps = threads // 32
+    bar = [PAD_KEY]
+    sels = [WarpSelect(k, bar) for _ in range(warps)]
+    block_stream(sels, warps, [(n, value, index, ascending)] * warps,
+                 seed_batches=1)
+    for ws in sels:
+        ws.merge()
+    top = block_merge_queues(np.stack([ws.wq for ws in sels]), warps)[0]
+    return key_value(top[:k]), key_index(top[:k]), sels
+
+
+def merge_stage(cand_v, cand_i, k):
+    """topk.cu's merge kernel: each row's candidate lists by warp select,
+    each candidate's index read through src_idx (not ascending)."""
+    out = [block_warp_topk(c.shape[0], k, lambda i, c=c: c[i],
+                           lambda i, d=d: d[i], MERGE_THREADS, False)[:2]
+           for c, d in zip(cand_v, cand_i)]
+    return np.stack([o[0] for o in out]), np.stack([o[1] for o in out])
+
+
+def topk_model(scores, k):
+    """csrc/topk.cu for k <= 32: scores [nq, n] f32 -> (vals, idxs)."""
+    nq, n = scores.shape
+    n_seg, seg_len = topk_ops.plan(nq, n, k, N_SM)
+    cand_v = np.zeros((nq, n_seg * k), np.float32)
+    cand_i = np.zeros((nq, n_seg * k), np.int32)
+    for q in range(nq):
+        for s in range(n_seg):
+            lo = s * seg_len
+            row = scores[q, lo:lo + seg_len]
+            v, i, _ = block_warp_topk(row.shape[0], k, lambda j: row[j],
+                                      ascending_from(lo), TOPK_THREADS,
+                                      True)
+            cand_v[q, s * k:(s + 1) * k] = v
+            cand_i[q, s * k:(s + 1) * k] = i
+    if n_seg == 1:
+        return cand_v, cand_i
+    return merge_stage(cand_v, cand_i, k)
+
+
+def dense_scores_model(emb, qvec, base):
+    """The kernel's fp32 dot products: multiply, then add, d = 0..dim-1,
+    then + base; emb [n, dim] or [nq, n, dim] -> [nq, n]."""
+    e = np.broadcast_to(emb, (qvec.shape[0],) + emb.shape[-2:])
+    acc = np.zeros(e.shape[:2], np.float32)
+    for d in range(e.shape[2]):
+        acc = acc + e[:, :, d] * qvec[:, d:d + 1]
+    return acc if base is None else acc + base
+
+
+def dense_model(emb, qvec, base, k, n_sm=N_SM):
+    """csrc/dense_topk.cu for k <= 32 on a card of ``n_sm`` SMs: the
+    group's warps split the score rows of each tile, 16 / G a query, with
+    queues kept across tiles."""
+    nq = qvec.shape[0]
+    n = emb.shape[-2]
+    shared = emb.ndim == 2
+    group = min(nq, dense_ops.MAX_GROUP) if shared else 1
+    G = 1 if group == 1 else 4 if group <= 4 else 8
+    run = DENSE_THREADS // 32 // G
+    n_seg, seg_len, tile = dense_ops.plan(nq, n, k, group, n_sm)
+    scores = dense_scores_model(emb, qvec, base)
+    n_groups = cdiv(nq, group)
+    cand_v = np.zeros((nq, n_seg * k), np.float32)
+    cand_i = np.zeros((nq, n_seg * k), np.int32)
+    for s in range(n_seg):
+        lo = s * seg_len
+        length = min(seg_len, n - lo)
+        for grp in range(n_groups):
+            q0 = grp * group
+            g_n = min(group, nq - q0)
+            bars = [[PAD_KEY] for _ in range(G)]
+            sels = [WarpSelect(k, bars[w // run])
+                    for w in range(DENSE_THREADS // 32)]
+            for t0 in range(0, length, tile):            # __syncthreads
+                t_len = min(tile, length - t0)
+                rows = [(t_len if w // run < g_n else 0,
+                         lambda i, r=scores[min(q0 + w // run, nq - 1),
+                                            lo + t0:]: r[i],
+                         ascending_from(lo + t0), True)
+                        for w in range(len(sels))]
+                if t0 == 0:      # the first tile seeds, all of it
+                    block_stream(sels, run, rows, seed_batches=1 << 20)
+                else:
+                    take_turns(warp_stream(ws, *rows[w][:1], w % run, run,
+                                           w % run * 32, *rows[w][1:])
+                               for w, ws in enumerate(sels))
+                for ws in sels:          # flushed at the end of each tile
+                    ws.merge()
+            top = block_merge_queues(np.stack([ws.wq for ws in sels]), run)
+            for g in range(g_n):
+                out = top[g * run][:k]
+                cand_v[q0 + g, s * k:(s + 1) * k] = key_value(out)
+                cand_i[q0 + g, s * k:(s + 1) * k] = key_index(out)
+    if n_seg == 1:
+        return cand_v, cand_i
+    return merge_stage(cand_v, cand_i, k)
+
+
+# -- the rows --------------------------------------------------------------
+
+def make_row(kind, nq, n, k, rng):
+    if kind == "equal":
+        return np.full((nq, n), 1.5, np.float32)
+    if kind == "pm_zero":
+        return np.where(rng.random((nq, n)) < 0.5, np.float32(-0.0),
+                        np.float32(0.0)).astype(np.float32)
+    if kind == "neginf_fewer_than_k":
+        s = np.full((nq, n), -np.inf, np.float32)
+        for q in range(nq):
+            at = rng.choice(n, size=max(0, min(n, k) - 1), replace=False)
+            s[q, at] = rng.standard_normal(len(at))
+        return s
+    if kind == "ascending":
+        return np.broadcast_to(np.arange(n, dtype=np.float32),
+                               (nq, n)).copy()
+    if kind == "descending":
+        return np.broadcast_to(-np.arange(n, dtype=np.float32),
+                               (nq, n)).copy()
+    if kind == "small_ints":
+        return rng.integers(0, 5, (nq, n)).astype(np.float32)
+    return rng.standard_normal((nq, n)).astype(np.float32)
+
+
+def lax_top_k(scores, k):
+    v, i = jax.vmap(lambda r: jax.lax.top_k(r, k))(jnp.asarray(scores))
+    return np.asarray(v), np.asarray(i)
+
+
+KINDS = ["equal", "pm_zero", "neginf_fewer_than_k", "ascending",
+         "descending", "small_ints", "random"]
+
+
+# (rows, length): shorter than 32; shorter than a segment and not a
+# multiple of 32; several segments of a length that is not a multiple of 32
+# or 512 (2 x 20001 -> 4 segments of 5001); k up to the length
+SHAPES_K = [(nq, n, k) for nq, n in [(2, 20), (3, 1000), (2, 20001)]
+            for k in (1, 8, 10, 31, 32) if k <= n]
+
+
+@pytest.mark.parametrize("nq,n,k", SHAPES_K)
+@pytest.mark.parametrize("kind", KINDS)
+def test_topk_model_equals_plain_and_lax(nq, n, k, kind):
+    rng = np.random.default_rng(n * 64 + k)
+    s = make_row(kind, nq, n, k, rng)
+    v, i = topk_model(s, k)
+    pv, pi = streaming_topk_ref(torch.from_numpy(s), k=k)
+    lv, li = lax_top_k(s, k)
+    np.testing.assert_array_equal(i, pi.numpy())
+    np.testing.assert_array_equal(v, pv.numpy())
+    np.testing.assert_array_equal(v, lv)
+    if kind == "pm_zero":
+        # the port (kernel and plain version alike) ties -0.0 with +0.0,
+        # as a float comparison does; lax.top_k ranks -0.0 just below
+        # +0.0, as the model does once -0.0 is the largest negative float
+        s = np.where((s == 0) & np.signbit(s), np.float32(-1e-45), s)
+        i = topk_model(s, k)[1]
+    np.testing.assert_array_equal(i, li)
+
+
+def test_topk_model_takes_the_paths_it_should():
+    """An ascending row sends every batch after the seeded first one down
+    the slow path and merges as it goes; a row of ties takes the slow path
+    once (the warp whose first batch holds the bar's element: the test is
+    strict everywhere else) and merges only at the end; on random rows the
+    bar seeded from the block's 512 lane maxima keeps most batches on the
+    fast path.  The second stage runs over
+    16 segments a row at RQ1's chunk of 16 rows."""
+    assert topk_ops.plan(16, 528155, 10, N_SM) == (16, 33010)
+    n = 4 * TOPK_THREADS * WARP_UNROLL       # four batches a warp
+    rng = np.random.default_rng(0)
+    rows = {"ascending": np.arange(n, dtype=np.float32),
+            "equal": np.full(n, 2.0, np.float32),
+            "random": rng.standard_normal(n).astype(np.float32)}
+    counts = {}
+    for name, row in rows.items():
+        _, idx, sels = block_warp_topk(n, 10, lambda j, r=row: r[j],
+                                       ascending_from(0), TOPK_THREADS,
+                                       True)
+        counts[name] = (sum(ws.merges for ws in sels),
+                        sum(ws.slow_batches for ws in sels))
+        np.testing.assert_array_equal(
+            idx, np.argsort(-row, kind="stable")[:10])
+    warps = TOPK_THREADS // 32
+    assert counts["ascending"][1] == warps * 3
+    assert counts["ascending"][0] > 2 * warps
+    assert counts["equal"] == (warps, 1)
+    assert counts["random"][1] < warps * 3 * 2 // 3
+
+
+# the last two: two SMs, so that a block's segment (5,000 rows) runs in
+# three tiles of at most 2,048 rows and its queues wait between them
+@pytest.mark.parametrize("nq,n,dim,shared,kind,k,n_sm",
+                         [(3, 3000, 16, True, "random", 10, N_SM),
+                          (12, 5000, 8, True, "random", 8, N_SM),
+                          (8, 2500, 16, True, "small_ints", 10, N_SM),
+                          (4, 1000, 16, False, "random", 8, N_SM),
+                          (2, 700, 12, False, "small_ints", 32, N_SM),
+                          (5, 40, 8, False, "random", 31, N_SM),
+                          (8, 20000, 8, True, "random", 10, 2),
+                          (8, 20000, 8, True, "small_ints", 32, 2)])
+def test_dense_model_agrees_with_plain_and_jax(nq, n, dim, shared, kind, k,
+                                               n_sm):
+    rng = np.random.default_rng(nq * n + dim)
+    lead = (n,) if shared else (nq, n)
+    if kind == "small_ints":           # integer scores, many ties
+        emb = rng.integers(-2, 3, lead + (dim,)).astype(np.float32)
+        q = rng.integers(-2, 3, (nq, dim)).astype(np.float32)
+        base = rng.integers(0, 3, (nq, n)).astype(np.float32)
+    else:
+        emb = rng.standard_normal(lead + (dim,)).astype(np.float32)
+        q = rng.standard_normal((nq, dim)).astype(np.float32)
+        base = rng.standard_normal((nq, n)).astype(np.float32)
+    base = np.where(rng.random((nq, n)) < 0.2, NEG, base).astype(np.float32)
+    if n_sm != N_SM:
+        _, seg_len, tile = dense_ops.plan(nq, n, k, min(nq, 8), n_sm)
+        assert seg_len > tile * 2                  # three tiles a segment
+    v, i = dense_model(emb, q, base, k, n_sm)
+    pv, pi = dense_topk_ref(torch.from_numpy(emb), torch.from_numpy(q),
+                            torch.from_numpy(base), k=k)
+    ej = emb if shared else None
+    jv, ji = zip(*(jax_dense_ref(jnp.asarray(ej if shared else emb[r]),
+                                 jnp.asarray(q[r]), jnp.asarray(base[r]),
+                                 k=k) for r in range(nq)))
+    jv, ji = np.stack(jv), np.stack(ji)
+    if kind == "small_ints":            # integer scores: every order exact
+        np.testing.assert_array_equal(v, pv.numpy())
+        np.testing.assert_array_equal(i, pi.numpy())
+        np.testing.assert_array_equal(v, jv)
+        np.testing.assert_array_equal(i, ji)
+        return
+    np.testing.assert_allclose(v, pv.numpy(), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+    # equal docids, except where the reference's neighbours tie within the
+    # tolerance (the dot products round in other orders)
+    for ref_v, ref_i in ((pv.numpy(), pi.numpy()), (jv, ji)):
+        for r, c in zip(*np.nonzero(i != ref_i)):
+            near = [abs(ref_v[r, j] - ref_v[r, c]) <= 1e-5 + 1e-5 * abs(
+                ref_v[r, c]) for j in (c - 1, c + 1) if 0 <= j < k]
+            assert c == k - 1 or any(near), (r, c)
+    # the selection itself is exact: the model's own scores, plain top-k
+    mv, mi = streaming_topk_ref(torch.from_numpy(
+        dense_scores_model(emb, q, base)), k=k)
+    np.testing.assert_array_equal(v, mv.numpy())
+    np.testing.assert_array_equal(i, mi.numpy())
+
+
+def test_dense_plan_and_tiles():
+    """D2's chunk (16 queries over the shared store, k=10) runs one wave of
+    2 groups x 132 segments, each scored in two tiles of at most 2,048 rows;
+    the radix path (k > 32) keeps its segments within the score buffer."""
+    assert dense_ops.plan(16, 528155, 10, 8, N_SM) == (132, 4002, 2048)
+    n_seg, seg_len, tile = dense_ops.plan(16, 528155, 80, 8, N_SM)
+    assert seg_len <= dense_ops.SCORE_SLOTS // 8 and tile == seg_len
+
+
+CSRC = Path(dense_ops.__file__).resolve().parents[2] / "csrc"
+
+
+@pytest.mark.parametrize("source, name, value", [
+    ("topk_block.cuh", "WARP_K", WARP_K),
+    ("topk_block.cuh", "WARP_K", dense_ops.WARP_K),
+    ("topk_block.cuh", "THREAD_Q", THREAD_Q),
+    ("topk_block.cuh", "WARP_UNROLL", WARP_UNROLL),
+    ("topk.cu", "THREADS", TOPK_THREADS),
+    ("topk.cu", "MERGE_THREADS", MERGE_THREADS),
+    ("dense_topk.cu", "THREADS", DENSE_THREADS),
+    ("dense_topk.cu", "MAX_GROUP", dense_ops.MAX_GROUP),
+])
+def test_constants_match_the_cuda_sources(source, name, value):
+    """The model and the dense wrapper's planner use the kernels' own
+    constants: the wrapper plans the warp select's segments and tiles, and
+    the C entry rejects a plan that breaks its bounds."""
+    text = (CSRC / source).read_text()
+    found = re.findall(rf"constexpr int {name} = (\d+);", text)
+    assert found == [str(value)], (source, name, found)
+
+
+finite32 = st.floats(allow_nan=False, width=32)
+index = st.integers(0, 2**31 - 2)
+
+
+@settings(max_examples=300, deadline=None)
+@given(finite32, index, finite32, index)
+def test_key_orders_pairs_as_lax_top_k(a, i, b, j):
+    """(a, i) ranks before (b, j) under lax.top_k's rule — larger value, or
+    an equal value at a lower index, -0.0 equal to +0.0 — exactly when its
+    key is larger; the pad key lies below a real -inf's."""
+    a, b = np.float32(a), np.float32(b)
+    ka, kb = make_key(a, i), make_key(b, j)
+    first = a > b or (a == b and i < j)
+    assert (ka > kb) == first
+    assert (ka == kb) == (a == b and i == j)
+    assert key_index(ka) == i
+    assert key_value(ka) == a
+    assert make_key(np.float32(-np.inf), i) > PAD_KEY
+    assert make_key(np.float32(-np.inf), 2**31 - 1) == PAD_KEY
+    assert key_index(PAD_KEY) == 2**31 - 1
+    assert key_value(PAD_KEY) == -np.inf
