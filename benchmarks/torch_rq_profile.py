@@ -29,7 +29,7 @@ TOP = 12
 #: device names of the port's hand-written kernels (csrc/*.cu)
 PORT_KERNELS = ("topk_segments_kernel", "topk_merge_kernel",
                 "fused_scoring_kernel", "dense_segments_kernel",
-                "pq_segments_kernel", "flash_attention_kernel")
+                "pq_cluster_kernel", "flash_attention_kernel")
 #: cell G1: prompt length, greedy tokens, documents per prompt
 G1_PROMPT, G1_NEW, G1_DOCS = 1024, 32, 4
 

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""The top-k and dense-scoring kernels of several source trees of the port,
-timed in turns on one card.
+"""The top-k, dense-scoring and PQ-scoring kernels of several source trees
+of the port, timed in turns on one card.
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -8,11 +8,11 @@ Run from the repository root on a machine with one NVIDIA H100:
 
 Each TREE holds a ``src/repro_torch`` package: ``.`` for this checkout, or
 a copy of another commit's (``git archive <commit> src/repro_torch | tar -x
--C TREE``) or of a variant.  The trees' ``csrc/topk.cu`` and
-``csrc/dense_topk.cu`` are built at once, each into the tree's
-``build/topk_ab/``; then one process per entry of ``--order`` (indices
-into the trees, default each tree once) times, with that tree's own
-wrappers and ``chip_smoke.time_ms``, two readings each of
+-C TREE``) or of a variant.  The trees' ``csrc/topk.cu``,
+``csrc/dense_topk.cu`` and ``csrc/pq_topk.cu`` are built at once, each
+into the tree's ``build/topk_ab/``; then one process per entry of
+``--order`` (indices into the trees, default each tree once) times, with
+that tree's own wrappers and ``chip_smoke.time_ms``, two readings each of
 
 - ``streaming_topk`` at RQ1's shape ``[16, 528155]`` f32, k=10, on random
   rows and on rows that keep a warp select's bar low (all zeros, integers
@@ -20,6 +20,9 @@ wrappers and ``chip_smoke.time_ms``, two readings each of
 - ``streaming_dense_topk`` at D2 (``[528155, 64]`` shared by 16 queries,
   k=10), D3 (``[16, 6848, 64]`` gathered, 10 % NEG bases, k=10), D1
   (``[16, 200, 64]``, k=10) and G1 (``[16, 1000, 64]``, k=8);
+- ``streaming_pq_topk`` at D4 (``[16, 6888, 16]`` uint8 codes, tables
+  ``[16, 16, 256]``, contiguous and laid out ``[m, nq, n_codes]`` in memory
+  as the ADC einsum leaves them, 10 % NEG bases, k=80);
 
 each held against its plain version first.  Before those, each process
 times its first call the way ``chip_smoke.time_ms`` did before it warmed
@@ -27,11 +30,12 @@ up its own steps (only the function warmed up) when its position in the
 order is even, and with ``time_ms`` when it is odd, and reports that first
 timing call by call: device ms, and the host's ms from the start event to
 the return of ``end.record()``.  One JSON line per process; the ptxas
-lines of each build that report spills.  Inputs are made from seed 0.
+lines of each build that report a stack frame or spills.  Inputs are made from seed 0.
 """
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -40,17 +44,20 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parents[1]
 NQ, N, DIM = 16, 528155, 64
 NEG = -3.0e38
-EXPORTS = ("repro_topk_f32", "repro_dense_topk")
+EXPORTS = ("repro_topk_f32", "repro_dense_topk", "repro_pq_topk")
+#: D4: candidate rows a query (8 probed lists) and PQ subspaces
+D4_ROWS, D4_M = 6888, 16
 
 
 def _load(tree: Path):
-    """The tree's ``_build`` module, cut to the two kernels' sources and
+    """The tree's ``_build`` module, cut to the three kernels' sources and
     building apart from the tree's full library."""
     sys.path.insert(0, str(tree / "src"))
     from repro_torch.kernels import _build
     _build.BUILD_ROOT = _build.BUILD_ROOT.parent / "topk_ab"
     _build.sources = lambda: [_build.CSRC / "topk.cu",
-                              _build.CSRC / "dense_topk.cu"]
+                              _build.CSRC / "dense_topk.cu",
+                              _build.CSRC / "pq_topk.cu"]
     _build.SIGNATURES = {k: v for k, v in _build.SIGNATURES.items()
                          if k in EXPORTS}
     return _build
@@ -90,6 +97,8 @@ def worker(tree: Path, old_first: bool) -> dict:
     import chip_smoke
     from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
     from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+    from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
+    from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
     from repro_torch.kernels.topk.ops import streaming_topk
     from repro_torch.kernels.topk.ref import streaming_topk_ref
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -132,9 +141,26 @@ def worker(tree: Path, old_first: bool) -> dict:
         out[f"dense_topk {name}"] = [chip_smoke.time_ms(
             lambda e=e, b=b, k=k: streaming_dense_topk(e, qv, b, k=k))
             for _ in range(2)]
-    out["spills"] = [ln.strip() for ln in _build.build_log().splitlines()
-                     if "bytes spill" in ln and
-                     " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    codes = torch.randint(0, 256, (NQ, D4_ROWS, D4_M), device=dev,
+                          generator=g, dtype=torch.uint8)
+    table = torch.randn(NQ, D4_M, 256, device=dev, generator=g)
+    base = torch.where(torch.rand(NQ, D4_ROWS, device=dev, generator=g) < 0.1,
+                       NEG, torch.randn(NQ, D4_ROWS, device=dev, generator=g))
+    v1, i1 = streaming_pq_topk(codes, table, base, k=80)
+    v2, i2 = pq_topk_ref(codes, table, base, k=80)
+    assert torch.equal(v1, v2) and torch.equal(i1, i2), "pq_topk D4"
+    out["pq_topk D4"] = [chip_smoke.time_ms(
+        lambda: streaming_pq_topk(codes, table, base, k=80))
+        for _ in range(2)]
+    # the table laid out [m, nq, n_codes], as the ADC einsum leaves it
+    strided = table.transpose(0, 1).contiguous().transpose(0, 1)
+    out["pq_topk D4, einsum's table"] = [chip_smoke.time_ms(
+        lambda: streaming_pq_topk(codes, strided, base, k=80))
+        for _ in range(2)]
+    frame = re.compile(r"\s*(\d+) bytes stack frame, (\d+) bytes spill "
+                       r"stores, (\d+) bytes spill loads")
+    out["frames"] = [ln.strip() for ln in _build.build_log().splitlines()
+                     if (m := frame.match(ln)) and any(map(int, m.groups()))]
     return out
 
 

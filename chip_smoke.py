@@ -5,14 +5,16 @@ Run from the repository root on a machine with one NVIDIA H100:
 
     python3 chip_smoke.py
 
-It builds the CUDA kernels from ``src/repro_torch/csrc``, builds the TREC
+It builds the CUDA kernels from ``src/repro_torch/csrc``, times an empty
+launch (the floor printed beside each kernel's time), builds the TREC
 Robust04-scale index (528,155 documents) on the card, holds each kernel
 against its plain PyTorch version at the main path's shapes, runs the
 paper's RQ1 (``Retrieve("BM25") % 10``) and RQ2 (``Retrieve >> (Extract **
 Extract) % 1000``) Experiments for the T/TD/TDN topic formulations, then
 builds the dense second stage (embeddings, IVF-flat, IVF-PQ) and runs its
 four pipelines — BM25 >> DenseRerank, brute-force, IVF-flat and IVF-PQ
-DenseRetrieve, each % 10 — unoptimised and optimised on the T topics, then
+DenseRetrieve, each % 10 — unoptimised and optimised on the T topics (and
+D4 once more on the host, whose ranking the card's must equal), then
 holds the flash-attention kernels against their plain version (and times
 the bf16 one beside the library call at shapes around G1's) and runs the
 RAG answer stage at full width (cell G1: ``Retrieve("BM25") >>
@@ -48,9 +50,11 @@ BF16_TC_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
 #: transcendental calls each count one)
 MODEL_OPS = {"BM25": 12, "TF_IDF": 8, "QL": 12, "DPH": 23, "Coord": 1}
 RQ2_MODELS = ("BM25", "QL", "TF_IDF")
-#: k of the top-k sweeps: both sides of the warp select's bound (k <= 32)
-#: and of the radix select's (k <= 128)
-TOPK_KS = (1, 8, 10, 31, 32, 33, 80, 128)
+#: k of the top-k sweeps: both sides of each size of the warp select's
+#: queue (32, 64 or 128 keys a warp) and its largest k
+TOPK_KS = (1, 8, 10, 31, 32, 33, 64, 65, 80, 128)
+#: k of the PQ-scoring sweep (D4's shortlist is 80)
+PQ_KS = (1, 10, 32, 33, 80, 128)
 #: cell G1, the RAG answer stage: prompt and decode lengths, documents per
 #: prompt, the reranked depth the prompt reads
 G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
@@ -179,6 +183,21 @@ def ptxas_report(log: str) -> dict:
             .removeprefix("void "): r for n, r in zip(names, out.values())}
 
 
+def same_bits(a, b) -> bool:
+    """Equal tensors, bit for bit: -0.0 and +0.0 differ."""
+    import torch
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return torch.equal(a, b)
+
+
+def signed_zeros(shape, p_pos, g):
+    """-0.0 everywhere but a share p_pos of +0.0."""
+    import torch
+    return torch.where(torch.rand(shape, device=DEVICE, generator=g) < p_pos,
+                       0.0, -0.0)
+
+
 def _check_docids(ref_d, ref_s, d, rtol=2e-5, atol=1e-5) -> int:
     """Docids equal except at ranks where the reference's neighbouring
     scores tie within the tolerance (or at the last rank, whose neighbour
@@ -212,17 +231,43 @@ def phase_toolchain():
     reports = ptxas_report(_build.build_log())
     for name, rep in reports.items():
         log(f"[toolchain] ptxas: {name}: {rep}")
-    # every instantiation of the top-k and dense-scoring kernels spill-free
+    # every instantiation of the kernels that take the warp select (3 queue
+    # sizes: topk's segments and merge, dense_topk's 2 x 3 row kinds, and
+    # pq_topk's 2 code loads) spill-free
     select = {n: r for n, r in reports.items()
               if any(f in n for f in ("topk_segments_kernel",
                                       "topk_merge_kernel",
-                                      "dense_segments_kernel"))}
-    assert len(select) == 8, list(select)
+                                      "dense_segments_kernel",
+                                      "pq_cluster_kernel"))}
+    assert len(select) == 3 * (1 + 1 + 6 + 2), list(select)
     for name, rep in select.items():
         assert rep["spill_stores"] == 0 and rep["spill_loads"] == 0, \
             (name, rep)
     log(f"[toolchain] 0 spill bytes in {sorted(select)}")
     return smi
+
+
+def phase_floor() -> dict:
+    """The floor under every kernel's time: an empty launch timed by
+    ``time_ms`` as the kernels are, one block, and the grid of pq_topk at
+    D4 (8 x 16 CTAs of 256 threads in clusters of 8)."""
+    import torch
+    from repro_torch.kernels import _build
+    lib = _build.library()
+
+    def empty(bx, by, threads, cluster):
+        stream = torch.cuda.current_stream().cuda_stream
+        _build.check(lib.repro_empty_launch(bx, by, threads, cluster, stream),
+                     "repro_empty_launch")
+
+    floor = {"one block": (time_ms(lambda: empty(1, 1, 32, 1)),
+                           time_ms(lambda: empty(1, 1, 32, 1))),
+             "pq grid": (time_ms(lambda: empty(8, CHUNK, 256, 8)),
+                         time_ms(lambda: empty(8, CHUNK, 256, 8)))}
+    log(f"[floor] empty launch, ms (two readings): one block "
+        f"{floor['one block']}, pq_topk's D4 grid of clusters "
+        f"{floor['pq grid']}")
+    return {name: sum(ms) / 2 for name, ms in floor.items()}
 
 
 def phase_small_parity():
@@ -388,19 +433,22 @@ def phase_kernels(index, forms) -> dict:
     cases = {"bm25": real,
              "random": torch.randn(CHUNK, n, device=DEVICE, generator=g),
              "tied": torch.randint(0, 50, (CHUNK, n), device=DEVICE,
-                                   generator=g).float()}
+                                   generator=g).float(),
+             # -0.0 ranks just below +0.0 (lax.top_k's order)
+             "+-0": signed_zeros((CHUNK, n), 0.5, g),
+             "-0, a few +0": signed_zeros((CHUNK, n), 1e-4, g)}
     err = 0.0
     for name, s in cases.items():
         for k in TOPK_KS:
             v1, i1 = streaming_topk(s, k=k)
             v2, i2 = streaming_topk_ref(s, k=k)
             torch.cuda.synchronize()
-            assert torch.equal(v1, v2), ("topk values", name, k)
+            assert same_bits(v1, v2), ("topk values", name, k)
             assert torch.equal(i1, i2), ("topk indices", name, k)
             err = max(err, float((v1 - v2).abs().max()))
-    log("[kernels] topk equals its plain version (values and indices) on "
-        f"[{CHUNK}, {n}] bm25/random/tied rows at k in {TOPK_KS} (the warp "
-        f"select for k <= 32, the radix select above)")
+    log("[kernels] topk equals its plain version (values bit for bit and "
+        f"indices) on [{CHUNK}, {n}] {list(cases)} rows at k in {TOPK_KS} "
+        f"(warp queues of 32, 64 and 128 keys)")
     # edges: one row, rows shorter than a segment, many rows, and rows of
     # ties, zeros or mostly -inf
     shapes = ((1, n), (3, 1000), (5, 5000), (2, 130), (250, 70001), (4, 20))
@@ -412,6 +460,7 @@ def phase_kernels(index, forms) -> dict:
                                                generator=g)),
                         ("tied", (u * 50).floor()),
                         ("zeros", torch.zeros(nq, m, device=DEVICE)),
+                        ("+-0", signed_zeros((nq, m), 0.5, g)),
                         ("neginf", torch.where(u < 0.999, -torch.inf, u)),
                         ("ascending", up.contiguous())):
             for k in TOPK_KS:
@@ -419,10 +468,11 @@ def phase_kernels(index, forms) -> dict:
                     continue
                 v1, i1 = streaming_topk(s, k=k)
                 v2, i2 = streaming_topk_ref(s, k=k)
-                assert torch.equal(v1, v2) and torch.equal(i1, i2), \
+                assert same_bits(v1, v2) and torch.equal(i1, i2), \
                     ("topk edge", nq, m, name, k)
     log("[kernels] topk equals its plain version on the edge sweep "
-        f"{shapes} x random/tied/zeros/-inf/ascending rows x k in {TOPK_KS}")
+        f"{shapes} x random/tied/zeros/+-0/-inf/ascending rows x k in "
+        f"{TOPK_KS}")
     k = 10
     (ms_a, ms_b), plain, lib = time_in_turns(
         lambda: streaming_topk(real, k=k),
@@ -516,7 +566,7 @@ def phase_dense_build(index) -> dict:
         f"{ivf.max_list_len}; bytes per document: flat {flat:.2f}, PQ "
         f"{pq:.2f}, reduction {flat / pq:.2f}x")
     kw = dict(default_k=1000, query_chunk=CHUNK, device=DEVICE)
-    return {"dense": dense, "ivf": ivf, "ivfpq": ivfpq,
+    return {"index": index, "dense": dense, "ivf": ivf, "ivfpq": ivfpq,
             "be": rt.TorchBackend(index, dense, ivf=ivf, **kw),
             "be_pq": rt.TorchBackend(index, dense, ivfpq=ivfpq, pq_m=PQ_M,
                                      pq_refine=PQ_REFINE, **kw)}
@@ -586,7 +636,10 @@ def phase_dense_kernels(index, forms, state) -> dict:
              "[16, 100, 64] rows": (emb_r[:, :100], qv, None),
              "dim 62 shared": (e62, q62, masked),
              "dim 62 shared, 3 queries": (e62, q62[:3], None),
-             "dim 62 gathered": (emb_r[..., :62].contiguous(), q62, base_r)}
+             "dim 62 gathered": (emb_r[..., :62].contiguous(), q62, base_r),
+             # every score a signed zero: 0 . q, then + base of -0.0 or +0.0
+             "zero rows, +-0 base": (torch.zeros_like(emb_r), qv,
+                                     signed_zeros(base_r.shape, 0.5, g))}
     err, n_ties = 0.0, 0
     for name, (e, q, b) in cases.items():
         for k in TOPK_KS:
@@ -595,15 +648,15 @@ def phase_dense_kernels(index, forms, state) -> dict:
             v1, i1 = streaming_dense_topk(e, q, b, k=k)
             v2, i2 = dense_topk_ref(e, q, b, k=k)
             torch.cuda.synchronize()
-            if e is e_int:
-                assert torch.equal(v1, v2) and torch.equal(i1, i2), (name, k)
+            if e is e_int or name == "zero rows, +-0 base":
+                assert same_bits(v1, v2) and torch.equal(i1, i2), (name, k)
             torch.testing.assert_close(v1, v2, rtol=1e-5, atol=1e-5)
             n_ties += _check_docids(i2, v2, i1, rtol=1e-5, atol=1e-5)
             err = max(err, float((v1 - v2).abs().max()))
     log(f"[dense kernels] dense_topk within rtol/atol 1e-5 of its plain "
         f"version on {list(cases)} x k in {TOPK_KS}: max abs err "
         f"{err:.3e}, docids equal except {n_ties} rank(s) inside a tie "
-        f"(integer scores: values and docids equal); D3 rows "
+        f"(integer and signed-zero scores: values and docids equal); D3 rows "
         f"{tuple(emb_c.shape)}, D1 rows {tuple(emb_r.shape)}, G1 rows "
         f"{tuple(emb_g.shape)}")
     rows = {}
@@ -635,43 +688,97 @@ def phase_dense_kernels(index, forms, state) -> dict:
             f"library (two calls: matmul + torch.topk) {lib:.4f} ms, bound "
             f"{bms:.4f} ms ({by})")
 
-    ucodes = torch.randint(0, 2, codes_c.shape, device=DEVICE, generator=g,
-                           dtype=torch.uint8)
-    dcodes = codes_c.clone()
-    dcodes[:, 1::2] = dcodes[:, 0:codes_c.shape[1] - 1:2]
-    pcases = {"D4 gathered": (codes_c, base_p), "D4 no base": (codes_c, None),
-              "duplicate rows": (dcodes, base_p),
-              "codes in {0, 1}": (ucodes, None),
-              "[16, 100, 16] rows": (codes_c[:, :100], base_p[:, :100])}
-    for name, (c, b) in pcases.items():
-        for k in (1, 10, 80, 128):
-            if k > c.shape[1]:
-                continue
-            v1, i1 = streaming_pq_topk(c, table, b, k=k)
-            v2, i2 = pq_topk_ref(c, table, b, k=k)
-            torch.cuda.synchronize()
-            assert torch.equal(v1, v2) and torch.equal(i1, i2), \
-                ("pq_topk", name, k)
-    log(f"[dense kernels] pq_topk equals its plain version (values and "
-        f"indices) on {list(pcases)} x k in (1, 10, 80, 128); D4 codes "
-        f"{tuple(codes_c.shape)}, shortlist r={r}")
-    nq, c, m = codes_c.shape
-    nbytes = c * nq * (m + 4) + table.numel() * 4 + nq * r * 8
-    bms, by = bound(nbytes, nq * c * m)
-    ms = time_ms(lambda: streaming_pq_topk(codes_c, table, base_p, k=r))
+    # pq_topk: for nq in (1, 16, 40) queries (D4's chunk, cut or repeated)
+    # and m in (16, 8) subspaces (D4's codes and tables, or their first 8:
+    # the kernel's byte loads), D4's codes, random codes, duplicated code
+    # words, one value in the whole table, a table of -0.0 with a few +0.0,
+    # bases mostly NEG, rows fewer than a CTA's 16 x 8, codes in {0, 1}:
+    # values bit for bit and indices, one launch a call
+    nq0, c, m0 = codes_c.shape
+    n_calls = 0
+    for nq in (1, CHUNK, 40):
+        rep_q = torch.arange(nq, device=DEVICE) % nq0
+        for m in (m0, 8):
+            cc = codes_c[rep_q][..., :m].contiguous()
+            tab = table[rep_q][:, :m].contiguous()
+            bb = base_p[rep_q]
+            rnd = torch.randint(0, 256, cc.shape, device=DEVICE, generator=g,
+                                dtype=torch.uint8)
+            dup = cc.clone()
+            dup[:, 1::2] = dup[:, 0:c - 1:2]
+            neg = torch.where(torch.rand(bb.shape, device=DEVICE, generator=g)
+                              < 0.99, DN.NEG, bb)
+            pcases = {"D4 codes": (cc, tab, bb),
+                      "random codes, no base": (rnd, tab, None),
+                      "duplicated code words": (dup, tab, bb),
+                      "one value": (cc, torch.full_like(tab, 0.25), None),
+                      "-0 and a few +0": (cc, signed_zeros(tab.shape, 0.002,
+                                                           g), None),
+                      "bases mostly NEG": (rnd, tab, neg),
+                      "100 rows": (cc[:, :100], tab, bb[:, :100]),
+                      "codes in {0, 1}": (rnd % 2, tab, None),
+                      # the table laid out [m, nq, n_codes], as the ADC
+                      # einsum leaves it, and rows off 16 bytes (the
+                      # kernel's ordinary loads)
+                      "[m, nq, n_codes] table": (
+                          cc, tab.transpose(0, 1).contiguous().transpose(0, 1),
+                          bb),
+                      "table rows off 16 bytes": (
+                          cc, torch.zeros(nq, m, tab.shape[2] + 1,
+                                          device=DEVICE)[..., 1:].copy_(tab),
+                          bb)}
+            for name, (cx, tx, bx) in pcases.items():
+                for k in PQ_KS:
+                    if k > cx.shape[1]:
+                        continue
+                    before = streaming_pq_topk.launches
+                    v1, i1 = streaming_pq_topk(cx, tx, bx, k=k)
+                    assert streaming_pq_topk.launches == before + 1
+                    v2, i2 = pq_topk_ref(cx, tx, bx, k=k)
+                    torch.cuda.synchronize()
+                    assert same_bits(v1, v2) and torch.equal(i1, i2), \
+                        ("pq_topk", nq, m, name, k)
+                    n_calls += 1
+    log(f"[dense kernels] pq_topk equals its plain version (values bit for "
+        f"bit and indices) in {n_calls} calls, one launch each: nq in (1, "
+        f"{CHUNK}, 40) x m in ({m0}, 8) x {list(pcases)} x k in {PQ_KS}; "
+        f"D4 codes {tuple(codes_c.shape)}, shortlist r={r}")
+    nbytes = c * nq0 * (m0 + 4) + table.numel() * 4 + nq0 * r * 8
+    bms, by = bound(nbytes, nq0 * c * m0)
+    ms_a = time_ms(lambda: streaming_pq_topk(codes_c, table, base_p, k=r))
     plain = time_ms(lambda: pq_topk_ref(codes_c, table, base_p, k=r))
+    ms_b = time_ms(lambda: streaming_pq_topk(codes_c, table, base_p, k=r))
+    ms = (ms_a + ms_b) / 2
     rows["pq_topk D4"] = {"ms": ms, "plain_ms": plain, "library_ms": None,
                           "bound_ms": bms, "bound_by": by, "max_abs_err": 0.0,
-                          "shape": f"{nq}x{c}x{m} uint8 k={r}"}
-    log(f"[dense kernels] pq_topk D4 ({nq}, {c}, {m}) k={r}: kernel "
-        f"{ms:.4f} ms, plain {plain:.4f} ms, library none (no single call), "
+                          "shape": f"{nq0}x{c}x{m0} uint8 k={r}"}
+    log(f"[dense kernels] pq_topk D4 ({nq0}, {c}, {m0}) k={r}, table "
+        f"strides {table.stride()}: kernel {ms_a:.4f} / {ms_b:.4f} ms (mean "
+        f"{ms:.4f}), plain {plain:.4f} ms, library none (no single call), "
         f"bound {bms:.4f} ms ({by})")
     return rows
 
 
+def on_host(obj):
+    """A copy of an index dataclass with every tensor on the host (nested
+    dataclasses too)."""
+    import dataclasses
+    import torch
+
+    def move(v):
+        if isinstance(v, torch.Tensor):
+            return v.cpu()
+        return on_host(v) if dataclasses.is_dataclass(v) else v
+    return dataclasses.replace(obj, **{f.name: move(getattr(obj, f.name))
+                                       for f in dataclasses.fields(obj)})
+
+
 def phase_dense(forms, state) -> None:
     """D1-D4 on the 250 T topics, each unoptimised and optimised through
-    ``Experiment(measure_time=True)``."""
+    ``Experiment(measure_time=True)``; then D4 once more on the host (the
+    plain versions) from the same state, whose ranking the card's must
+    equal."""
+    import torch
     import repro_torch as rt
     from repro_torch.index.robust04 import NPROBE
     topics = forms["T"]
@@ -712,6 +819,24 @@ def phase_dense(forms, state) -> None:
         log(f"[dense] recall@10 of {name} against D2 (brute force): "
             f"{topk_overlap(res[name]['docids'], res['D2']['docids'], 10):.4f}")
     log(f"[dense] dense_topk launches by cell: {per_cell}")
+    from repro_torch.index.robust04 import PQ_M, PQ_REFINE
+    host = rt.TorchBackend(on_host(state["index"]), on_host(state["dense"]),
+                           ivfpq=on_host(state["ivfpq"]), pq_m=PQ_M,
+                           pq_refine=PQ_REFINE, default_k=1000,
+                           query_chunk=CHUNK, device="cpu")
+    Qh = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                         device="cpu")
+    Rh = rt.run_pipeline(pipes["D4"][0], Qh, backend=host)
+    card = {key: v.cpu() for key, v in res["D4"].items()}
+    torch.testing.assert_close(card["scores"], Rh["scores"], rtol=2e-5,
+                               atol=1e-5)
+    n_ties = _check_docids(Rh["docids"], Rh["scores"], card["docids"])
+    d2 = res["D2"]["docids"].cpu()
+    log(f"[dense] D4 on the host (plain versions) from the same state: "
+        f"scores within rtol 2e-5 / atol 1e-5 of the card's, docids equal "
+        f"except {n_ties} rank(s) inside a score tie; recall@10 against D2 "
+        f"card {topk_overlap(card['docids'], d2, 10):.4f}, host "
+        f"{topk_overlap(Rh['docids'], d2, 10):.4f}")
 
 
 def phase_attention_kernels() -> dict:
@@ -1100,6 +1225,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_toolchain()
     log(f"[toolchain] card: {smi}")
+    floor = phase_floor()
     phase_small_parity()
     index, forms = phase_index()
     rows = phase_kernels(index, forms)
@@ -1172,7 +1298,10 @@ def main() -> int:
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],
-                        "library_ms": r["library_ms"], "shape": r["shape"]})
+                        "library_ms": r["library_ms"], "shape": r["shape"],
+                        # an empty launch's time: the floor under "ms"
+                        "floor_ms": floor["one block" if name != "pq_topk"
+                                          else "pq grid"]})
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -69,11 +69,32 @@ def round_up(a: int, b: int) -> int:
     return cdiv(a, b) * b
 
 
+#: the integer type of each float type's bits
+_BITS = {torch.float16: torch.int16, torch.bfloat16: torch.int16,
+         torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """``x``'s floats as integers in the ``lax.top_k`` order: a larger
+    float gets a larger integer, and -0.0 lies just below +0.0 (a float
+    comparison ties them).  The kernels' ``order_key`` is the same map."""
+    bits = _BITS.get(x.dtype)
+    if bits is None:
+        return x
+    i = x.view(bits)
+    # a negative float's magnitude bits flipped: the larger its magnitude,
+    # the lower its integer
+    return i ^ ((i >> (8 * x.element_size() - 1)) &
+                torch.iinfo(bits).max)
+
+
 def topk(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     """Top-``k`` along the last axis with the ``lax.top_k`` rule: values
-    sorted descending, ties going to the lowest index.  ``torch.topk``
-    promises no tie order on CUDA, so this is a stable descending sort —
-    the plain version of the top-k kernel and the rule of every other top-k
-    on the sparse path.  Returns (values, int64 indices)."""
-    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
-    return vals[..., :k], idx[..., :k]
+    sorted descending, -0.0 below +0.0, ties going to the lowest index.
+    ``torch.topk`` promises no tie order on CUDA, so this is a stable
+    descending sort of ``order_key(x)`` — the plain version of the top-k
+    kernels and the rule of every other top-k on the sparse path.  Returns
+    (values, int64 indices)."""
+    _, idx = torch.sort(order_key(x), dim=-1, descending=True, stable=True)
+    idx = idx[..., :k]
+    return x.gather(-1, idx), idx

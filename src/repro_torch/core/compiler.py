@@ -396,24 +396,29 @@ class Context:
     #: strong refs to executed nodes — node keys embed id()s of non-scalar
     #: params (e.g. Generic fns), which stay unique only while alive
     _pins: dict = dataclasses.field(default_factory=dict)
-    #: id -> (weakref, digest): avoids re-hashing the same live tensors
+    #: id -> (weakref, version, digest): avoids re-hashing the same live,
+    #: unchanged tensors
     _leaf_tokens: dict = dataclasses.field(default_factory=dict)
 
     def pin(self, node) -> None:
         self._pins[id(node)] = node
 
     def _leaf_token(self, leaf) -> str:
+        # a tensor's version counter moves with every in-place edit, through
+        # any view of it too (views share their base's counter); a leaf that
+        # is not a tensor has none and keeps its first digest
+        version = getattr(leaf, "_version", None)
         ent = self._leaf_tokens.get(id(leaf))
-        if ent is not None and ent[0]() is leaf:
+        if ent is not None and ent[0]() is leaf and ent[1] == version:
             # identity check makes the id-keyed cache sound: a dead ref can
             # never vouch for a recycled id
-            return ent[1]
+            return ent[2]
         a = _host(leaf)
         h = hashlib.sha256(str((a.dtype, a.shape)).encode())
         h.update(a.tobytes())
         tok = h.hexdigest()
         try:
-            self._leaf_tokens[id(leaf)] = (weakref.ref(leaf), tok)
+            self._leaf_tokens[id(leaf)] = (weakref.ref(leaf), version, tok)
         except TypeError:
             pass                      # non-weakrefable leaf: just rehash
         return tok

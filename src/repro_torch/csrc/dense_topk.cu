@@ -13,15 +13,12 @@
 //   1. A block owns one segment of rows and a group of queries.  It scores
 //      the segment tile by tile for the group into shared memory (a thread
 //      per row and query group, fp32 dot products in the kernel's own
-//      body, summed over d = 0..dim-1, then + base).  For k <= 32 the
-//      block's warps split the group's score rows after each tile (16 / G
-//      warps a query) and feed them to the warp select of topk_block.cuh;
-//      a warp's queue waits in shared memory between tiles, so a segment
-//      may be any length, and the wrapper plans one wave of blocks.  The
-//      warp queues of a query then merge in shared memory into its
-//      candidate list.  For 32 < k <= 128 the whole segment is scored into
-//      shared memory and each query's top-k taken in turn by the block's
-//      radix select.
+//      body, summed over d = 0..dim-1, then + base).  The block's warps
+//      split the group's score rows after each tile (16 / G warps a query)
+//      and feed them to the warp select of topk_block.cuh; a warp's queue
+//      waits in shared memory between tiles, so a segment may be any
+//      length, and the wrapper plans one wave of blocks.  The warp queues
+//      of a query then merge in shared memory into its candidate list.
 //   2. repro::launch_topk_merge (topk.cu) merges each query's candidate
 //      lists, as the top-k kernel merges its segments.
 //
@@ -43,8 +40,8 @@
 // few blocks leave the card idle) go through shared memory with cp.async,
 // whole lines at a time.
 //
-// Contract: values sorted descending, ties to the lowest index (the
-// lax.top_k rule), 1 <= k <= 128, k <= n <= INT_MAX.  The wrapper
+// Contract: values sorted descending, -0.0 below +0.0, ties to the lowest
+// index (the lax.top_k rule), 1 <= k <= 128, k <= n <= INT_MAX.  The wrapper
 // (kernels/dense_scoring/ops.py) plans the segments and their tiles and
 // allocates the candidate scratch.
 #include <climits>
@@ -60,9 +57,8 @@ constexpr int WARPS = THREADS / 32;
 constexpr int MAX_GROUP = 8;
 // the seeding of the warp select reads the whole first tile
 constexpr int SEED_BATCHES = 1 << 20;
-// dynamic shared memory a block may ask for (the card allows 227 KB less
-// the block's static TopKSmem)
-constexpr int64_t MAX_DYN_SMEM = 220 * 1024;
+// shared memory a block may hold, its static TopKSmem included
+constexpr int64_t MAX_SMEM = 227 * 1024;
 // The staged scoring reads rows through shared memory: each warp copies a
 // group of 32 rows, STAGE_F4 16-byte pieces (32 dims) of each at a time,
 // with cp.async into one of its two slabs (rows of STAGE_F4 + 1 pieces, so
@@ -249,14 +245,14 @@ __device__ __forceinline__ void score_tile_staged(
 
 // A 1-D grid of n_seg * n_groups blocks, the groups of one segment
 // adjacent (so a segment of shared rows is read from HBM once and then
-// from L2).  G bounds the group (1, 4 or 8).  Dynamic shared memory: the
-// group's query vectors [group, dim], its scores [group, tile], and for
-// the warp select on 16-byte gathered rows the warps' slabs.  The radix
-// path (k > WARP_K) scores the whole segment in one tile.  Groups of more
-// than one query run two blocks an SM (at most 64 registers a thread); a
-// group of one, whose slabs and scores take 210 KB, one.
-template <bool VEC4, int G>
-__global__ void __launch_bounds__(THREADS, G == 1 ? 1 : 2)
+// from L2).  G bounds the group (1, 4 or 8); WQ is the warp queue's slots
+// a lane (warp_slots(k)).  Dynamic shared memory: the group's query
+// vectors [group, dim], its scores [group, tile], and for 16-byte gathered
+// rows the warps' slabs.  Groups of more than one query run two blocks an
+// SM (at most 64 registers a thread) for k <= 32; a group of one, whose
+// slabs and scores take 210 KB, and a larger warp queue, one.
+template <bool VEC4, int G, int WQ>
+__global__ void __launch_bounds__(THREADS, G == 1 || WQ > 1 ? 1 : 2)
 dense_segments_kernel(const float* __restrict__ emb, int64_t emb_qstride,
                       const float* __restrict__ q,
                       const float* __restrict__ base, int64_t nq, int64_t n,
@@ -264,7 +260,7 @@ dense_segments_kernel(const float* __restrict__ emb, int64_t emb_qstride,
                       int64_t n_groups, int k, float* __restrict__ out_vals,
                       int* __restrict__ out_idxs, int64_t out_qstride) {
   extern __shared__ __align__(16) float dyn[];
-  __shared__ repro::TopKSmem<THREADS> sm;
+  __shared__ repro::TopKSmem<THREADS, WQ> sm;
   // warps a query in the warp select, and this warp's query and part
   constexpr int RUN = WARPS / G;
   const int tid = threadIdx.x;
@@ -276,7 +272,6 @@ dense_segments_kernel(const float* __restrict__ emb, int64_t emb_qstride,
   const int g_n = nq - q0 < group ? (int)(nq - q0) : group;
   const int64_t lo = s * seg_len;
   const int64_t len = n - lo < seg_len ? n - lo : seg_len;
-  const bool warp_select = k <= repro::WARP_K;
   float* qs = dyn;
   float* scores = dyn + (int64_t)group * dim;
   float4* slabs =
@@ -293,61 +288,72 @@ dense_segments_kernel(const float* __restrict__ emb, int64_t emb_qstride,
     const int64_t t_len = len - t0 < tile ? len - t0 : tile;
     const float* t_base = base == nullptr ? nullptr : base + q0 * n + lo + t0;
     if constexpr (VEC4 && G == 1) {
-      if (warp_select)
-        score_tile_staged<G>(rows + t0 * dim, t_len, dim, qs, g_n, t_base, n,
-                             scores, tile, slabs);
-      else
-        score_tile_direct<true, G>(rows + t0 * dim, t_len, dim, qs, g_n,
-                                   t_base, n, scores, tile);
+      score_tile_staged<G>(rows + t0 * dim, t_len, dim, qs, g_n, t_base, n,
+                           scores, tile, slabs);
     } else {
       score_tile_direct<VEC4, G>(rows + t0 * dim, t_len, dim, qs, g_n,
                                  t_base, n, scores, tile);
     }
     __syncthreads();
-    if (warp_select) {
-      // the tile's scores of this warp's query to its warp queue (a warp
-      // of no query reads nothing); the first tile seeds the bar.  Between
-      // tiles the warp queue waits in shared memory (sm.queues, flushed of
-      // its thread queues) and the bar in run_bar, so that the scoring
-      // holds no select state in registers
-      repro::WarpSelect ws;
-      ws.init();
-      if (t0 > 0) ws.wq = sm.queues[tid];
-      repro::Key* run_bar = &sm.run_bar[my_g];
-      const int64_t n_mine = my_g < g_n ? t_len : 0;
-      const float* srow = scores + (int64_t)my_g * tile;
-      const int64_t idx0 = lo + t0;
-      const auto value = [=](int64_t i) { return srow[i]; };
-      const auto index = [=](int64_t i) { return (int)(idx0 + i); };
-      if (t0 == 0) {
-        repro::block_stream<THREADS, true>(ws, n_mine, part, RUN, k,
-                                           SEED_BATCHES, run_bar, sm.queues,
-                                           value, index);
-      } else {
-        repro::warp_stream<true>(ws, n_mine, part, RUN, (int64_t)part * 32,
-                                 k, run_bar, value, index);
-      }
-      ws.merge(k, tid & 31, run_bar);
-      sm.queues[tid] = ws.wq;
-      __syncthreads();  // before the next tile overwrites the scores
+    // the tile's scores of this warp's query to its warp queue (a warp of
+    // no query reads nothing); the first tile seeds the bar.  Between tiles
+    // the warp queue waits in shared memory (sm.queues, flushed of its
+    // thread queues) and the bar in run_bar, so that the scoring holds no
+    // select state in registers
+    repro::WarpSelect<WQ> ws;
+    ws.init();
+    if (t0 > 0) {
+#pragma unroll
+      for (int t = 0; t < WQ; ++t) ws.wq[t] = sm.queues[t * THREADS + tid];
     }
+    repro::Key* run_bar = &sm.run_bar[my_g];
+    const int64_t n_mine = my_g < g_n ? t_len : 0;
+    const float* srow = scores + (int64_t)my_g * tile;
+    const int64_t idx0 = lo + t0;
+    const auto value = [=](int64_t i) { return srow[i]; };
+    const auto index = [=](int64_t i) { return (int)(idx0 + i); };
+    if (t0 == 0) {
+      repro::block_stream<THREADS, true>(ws, n_mine, part, RUN, k,
+                                         SEED_BATCHES, run_bar, sm.queues,
+                                         value, index);
+    } else {
+      repro::warp_stream<true>(ws, n_mine, part, RUN, (int64_t)part * 32, k,
+                               run_bar, value, index);
+    }
+    ws.merge(k, tid & 31, run_bar);
+#pragma unroll
+    for (int t = 0; t < WQ; ++t) sm.queues[t * THREADS + tid] = ws.wq[t];
+    __syncthreads();  // before the next tile overwrites the scores
   }
 
-  if (warp_select) {
-    const repro::Key top = repro::block_merge_queues<THREADS>(
-        sm.queues[tid], RUN, sm.queues);
-    if (part == 0 && my_g < g_n) {
-      const int64_t out = (q0 + my_g) * out_qstride + s * k;
-      repro::write_queue(top, k, out_vals + out, out_idxs + out);
-    }
-    return;
+  repro::Key top[WQ];
+#pragma unroll
+  for (int t = 0; t < WQ; ++t) top[t] = sm.queues[t * THREADS + tid];
+  repro::block_merge_queues<THREADS, WQ>(top, RUN, sm.queues);
+  if (part == 0 && my_g < g_n) {
+    const int64_t out = (q0 + my_g) * out_qstride + s * k;
+    repro::write_queue<WQ>(top, k, out_vals + out, out_idxs + out);
   }
-  // radix path: the segment is one tile
-  for (int g = 0; g < g_n; ++g) {
-    const int64_t out = (q0 + g) * out_qstride + s * k;
-    repro::segment_topk<THREADS>(scores + (int64_t)g * tile, len, k, lo,
-                                 out_vals + out, out_idxs + out, sm);
-  }
+}
+
+template <bool VEC4, int G, int WQ>
+cudaError_t launch_segments(int64_t blocks, int64_t smem, cudaStream_t st,
+                            const float* emb, int64_t emb_qstride,
+                            const float* q, const float* base, int64_t nq,
+                            int64_t n, int dim, int64_t seg_len, int64_t tile,
+                            int group, int64_t n_groups, int k, float* ov,
+                            int* oi, int64_t out_qstride) {
+  if (smem + (int64_t)sizeof(repro::TopKSmem<THREADS, WQ>) > MAX_SMEM)
+    return cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      dense_segments_kernel<VEC4, G, WQ>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  dense_segments_kernel<VEC4, G, WQ><<<(unsigned int)blocks, THREADS,
+                                       (size_t)smem, st>>>(
+      emb, emb_qstride, q, base, nq, n, dim, seg_len, tile, group, n_groups,
+      k, ov, oi, out_qstride);
+  return cudaGetLastError();
 }
 
 template <bool VEC4, int G>
@@ -357,15 +363,23 @@ cudaError_t launch_segments(int64_t blocks, int64_t smem, cudaStream_t st,
                             int64_t n, int dim, int64_t seg_len, int64_t tile,
                             int group, int64_t n_groups, int k, float* ov,
                             int* oi, int64_t out_qstride) {
-  const cudaError_t err = cudaFuncSetAttribute(
-      dense_segments_kernel<VEC4, G>,
-      cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  dense_segments_kernel<VEC4, G><<<(unsigned int)blocks, THREADS,
-                                   (size_t)smem, st>>>(
-      emb, emb_qstride, q, base, nq, n, dim, seg_len, tile, group, n_groups,
-      k, ov, oi, out_qstride);
-  return cudaGetLastError();
+  switch (repro::warp_slots(k)) {
+    case 1:
+      return launch_segments<VEC4, G, 1>(blocks, smem, st, emb, emb_qstride,
+                                         q, base, nq, n, dim, seg_len, tile,
+                                         group, n_groups, k, ov, oi,
+                                         out_qstride);
+    case 2:
+      return launch_segments<VEC4, G, 2>(blocks, smem, st, emb, emb_qstride,
+                                         q, base, nq, n, dim, seg_len, tile,
+                                         group, n_groups, k, ov, oi,
+                                         out_qstride);
+    default:
+      return launch_segments<VEC4, G, 4>(blocks, smem, st, emb, emb_qstride,
+                                         q, base, nq, n, dim, seg_len, tile,
+                                         group, n_groups, k, ov, oi,
+                                         out_qstride);
+  }
 }
 
 template <bool VEC4>
@@ -393,8 +407,7 @@ cudaError_t launch_segments(int64_t blocks, int64_t smem, cudaStream_t st,
 
 // emb [n, dim] (emb_qstride 0) or [nq, n, dim] (emb_qstride n * dim, group
 // 1); q [nq, dim]; base [nq, n] or null -> vals/idxs [nq, k], in n_seg
-// segments of seg_len scored tile rows at a time (the radix select, k >
-// WARP_K, needs the whole segment: tile == seg_len).  n_seg > 1 needs
+// segments of seg_len scored tile rows at a time.  n_seg > 1 needs
 // cand_vals and cand_idxs of nq * n_seg * k elements each.
 extern "C" int repro_dense_topk(const float* emb, int64_t emb_qstride,
                                 const float* q, const float* base, int64_t nq,
@@ -406,18 +419,16 @@ extern "C" int repro_dense_topk(const float* emb, int64_t emb_qstride,
       dim < 1 || group < 1 || group > MAX_GROUP ||
       (emb_qstride != 0 && group != 1) || n_seg < 1 || seg_len < 1 ||
       (int64_t)(n_seg - 1) * seg_len >= n || (int64_t)n_seg * seg_len < n ||
-      (n_seg > 1 && seg_len < k) || tile < 1 || tile > seg_len ||
-      (k > repro::WARP_K && tile != seg_len))
+      (n_seg > 1 && seg_len < k) || tile < 1 || tile > seg_len)
     return (int)cudaErrorInvalidValue;
   const int64_t n_groups = (nq + group - 1) / group;
   const int64_t blocks = n_groups * n_seg;
-  // the warp select scores through the warps' slabs where the rows allow
-  // 16-byte loads
-  const bool warp_select = k <= repro::WARP_K;
+  // gathered rows go through the warps' slabs where they allow 16-byte
+  // loads
   const bool vec4 = dim % 4 == 0 && ((uintptr_t)emb & 15) == 0;
   const int64_t smem = ((int64_t)group * dim + round_up4(group * tile)) * 4 +
-                       (vec4 && warp_select && group == 1 ? SLAB_BYTES : 0);
-  if (blocks > INT_MAX || smem > MAX_DYN_SMEM)
+                       (vec4 && group == 1 ? SLAB_BYTES : 0);
+  if (blocks > INT_MAX)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   float* ov = n_seg == 1 ? vals : cand_vals;

@@ -14,22 +14,20 @@
 // every row into segments, one wave of two 512-thread blocks an SM (16
 // segments a row at RQ1's shape), and takes the top-k in two stages:
 //
-//   1. For k <= 32 each segment is read once, by the warp select of
-//      topk_block.cuh: each warp streams its 32-wide tiles, two batches of
-//      eight loads a lane in flight, holds each batch against the bar its
-//      block shares and does more only where an element reaches it; the
-//      block's 16 warp queues then merge in shared memory.  For
-//      32 < k <= 128 a block runs the radix select (four passes over the
-//      segment, the later ones from the 50 MB L2, then a collection pass).
+//   1. Each segment is read once, by the warp select of topk_block.cuh:
+//      each warp streams its 32-wide tiles, two batches of eight loads a
+//      lane in flight, holds each batch against the bar its block shares
+//      and does more only where an element reaches it; the block's 16 warp
+//      queues (32, 64 or 128 keys, by k) then merge in shared memory.
 //   2. repro::launch_topk_merge merges each row's candidate lists with the
-//      same select.  It is exported for the dense- and PQ-scoring kernels,
-//      which merge their segments the same way.
+//      same select.  It is exported for the dense-scoring kernel, which
+//      merges its segments the same way.
 //
-// Contract: values sorted descending, ties to the lowest index (the
-// lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.  The wrapper
-// plans the segments (kernels/segments.py; only the last may hold fewer
-// than k, and repro::segment_topk pads its list) and allocates the
-// candidate scratch.
+// Contract: values sorted descending, -0.0 below +0.0, ties to the lowest
+// index (the lax.top_k rule of the reference), 1 <= k <= 128 and k <= N.
+// The wrapper plans the segments (kernels/segments.py; only the last may
+// hold fewer than k, and repro::segment_topk pads its list) and allocates
+// the candidate scratch.
 #include <climits>
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -41,40 +39,55 @@ namespace {
 constexpr int THREADS = 512;
 constexpr int MERGE_THREADS = 256;
 
-// two blocks an SM: at most 64 registers a thread
-__global__ void __launch_bounds__(THREADS, 2)
+// k <= 32: two blocks an SM, at most 64 registers a thread; a larger warp
+// queue gets one block an SM
+template <int WQ>
+__global__ void __launch_bounds__(THREADS, WQ == 1 ? 2 : 1)
 topk_segments_kernel(const float* __restrict__ scores, int64_t n,
                      int64_t row_stride, int64_t seg_len, int k,
                      float* __restrict__ out_vals,
                      int* __restrict__ out_idxs) {
-  __shared__ repro::TopKSmem<THREADS> sm;
+  __shared__ repro::TopKSmem<THREADS, WQ> sm;
   const int64_t q = blockIdx.y;
   const int64_t s = blockIdx.x;
   const int64_t lo = s * seg_len;
   const int64_t len = n - lo < seg_len ? n - lo : seg_len;
   const int64_t out = (q * gridDim.x + s) * k;
-  repro::segment_topk<THREADS, true>(scores + q * row_stride + lo, len, k,
-                                     lo, out_vals + out, out_idxs + out, sm);
+  repro::segment_topk<THREADS, WQ, true>(scores + q * row_stride + lo, len,
+                                         k, lo, out_vals + out,
+                                         out_idxs + out, sm);
 }
 
+template <int WQ>
 __global__ void __launch_bounds__(MERGE_THREADS)
 topk_merge_kernel(const float* __restrict__ cand_vals,
                   const int* __restrict__ cand_idxs, int64_t m, int k,
                   float* __restrict__ vals, int* __restrict__ idxs) {
-  __shared__ repro::TopKSmem<MERGE_THREADS> sm;
+  __shared__ repro::TopKSmem<MERGE_THREADS, WQ> sm;
   const int64_t q = blockIdx.x;
   const float* cv = cand_vals + q * m;
   const int* ci = cand_idxs + q * m;
-  if (k <= repro::WARP_K) {
-    // a candidate's index does not grow with its position
-    repro::block_warp_topk<MERGE_THREADS, false>(
-        m, k, [=](int64_t i) { return __ldg(cv + i); },
-        [=](int64_t i) { return __ldg(ci + i); }, vals + q * k, idxs + q * k,
-        sm);
-  } else {
-    repro::block_topk_row<MERGE_THREADS>(cv, m, k, ci, 0, vals + q * k,
-                                         idxs + q * k, sm.radix);
-  }
+  // a candidate's index does not grow with its position
+  repro::block_warp_topk<MERGE_THREADS, false>(
+      m, k, [=](int64_t i) { return __ldg(cv + i); },
+      [=](int64_t i) { return __ldg(ci + i); }, vals + q * k, idxs + q * k,
+      sm);
+}
+
+template <int WQ>
+void launch_segments(const float* scores, int64_t nq, int64_t n,
+                     int64_t row_stride, int k, int n_seg, int64_t seg_len,
+                     float* ov, int* oi, cudaStream_t st) {
+  topk_segments_kernel<WQ><<<dim3((unsigned int)n_seg, (unsigned int)nq),
+                             THREADS, 0, st>>>(scores, n, row_stride, seg_len,
+                                               k, ov, oi);
+}
+
+template <int WQ>
+void launch_merge(const float* cand_vals, const int* cand_idxs, int64_t nq,
+                  int64_t m, int k, float* vals, int* idxs, cudaStream_t st) {
+  topk_merge_kernel<WQ><<<(unsigned int)nq, MERGE_THREADS, 0, st>>>(
+      cand_vals, cand_idxs, m, k, vals, idxs);
 }
 
 }  // namespace
@@ -86,8 +99,14 @@ cudaError_t repro::launch_topk_merge(const float* cand_vals,
   if (k < 1 || k > repro::TOPK_MAX_K || m < k || m > INT_MAX || nq < 1 ||
       nq > INT_MAX)
     return cudaErrorInvalidValue;
-  topk_merge_kernel<<<(unsigned int)nq, MERGE_THREADS, 0, stream>>>(
-      cand_vals, cand_idxs, m, k, vals, idxs);
+  switch (repro::warp_slots(k)) {
+    case 1: launch_merge<1>(cand_vals, cand_idxs, nq, m, k, vals, idxs,
+                            stream); break;
+    case 2: launch_merge<2>(cand_vals, cand_idxs, nq, m, k, vals, idxs,
+                            stream); break;
+    default: launch_merge<4>(cand_vals, cand_idxs, nq, m, k, vals, idxs,
+                             stream);
+  }
   return cudaGetLastError();
 }
 
@@ -107,12 +126,16 @@ extern "C" int repro_topk_f32(const float* scores, int64_t nq, int64_t n,
   cudaStream_t st = (cudaStream_t)stream;
   float* ov = n_seg == 1 ? vals : cand_vals;
   int* oi = n_seg == 1 ? idxs : cand_idxs;
-  topk_segments_kernel<<<dim3((unsigned int)n_seg, (unsigned int)nq), THREADS,
-                         0, st>>>(scores, n, row_stride, seg_len, k, ov, oi);
+  switch (repro::warp_slots(k)) {
+    case 1: launch_segments<1>(scores, nq, n, row_stride, k, n_seg, seg_len,
+                               ov, oi, st); break;
+    case 2: launch_segments<2>(scores, nq, n, row_stride, k, n_seg, seg_len,
+                               ov, oi, st); break;
+    default: launch_segments<4>(scores, nq, n, row_stride, k, n_seg, seg_len,
+                                ov, oi, st);
+  }
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || n_seg == 1) return (int)err;
   return (int)repro::launch_topk_merge(cand_vals, cand_idxs, nq,
                                       (int64_t)n_seg * k, k, vals, idxs, st);
 }
-
-

@@ -48,16 +48,18 @@ SIGNATURES = {
     # tile, cand_vals, cand_idxs, vals, idxs, stream
     "repro_dense_topk": (_P, _I64, _P, _P, _I64, _I64, _I32, _I32, _I32,
                          _I32, _I64, _I64, _P, _P, _P, _P, _P),
-    # codes, table, base, nq, n, m, n_codes, k, n_seg, seg_len, cand_vals,
-    # cand_idxs, vals, idxs, stream
-    "repro_pq_topk": (_P, _P, _P, _I64, _I64, _I32, _I32, _I32, _I32, _I64,
-                      _P, _P, _P, _P, _P),
+    # codes, table, table's query and subspace strides, base, nq, n, m,
+    # n_codes, k, cluster, seg_len, tile, vals, idxs, stream
+    "repro_pq_topk": (_P, _P, _I64, _I64, _P, _I64, _I64, _I32, _I32, _I32,
+                      _I32, _I64, _I64, _P, _P, _P),
     # q, k, v, out, B, S, T, H, Hkv, D, causal, chunk, is_bf16, scale,
     # stream
     "repro_flash_attention": (_P, _P, _P, _P, _I32, _I32, _I32, _I32, _I32,
                               _I32, _I32, _I32, _I32, _F32, _P),
     # D -> dynamic shared memory bytes of the bf16 (sm90) flash kernel
     "repro_flash_attention_sm90_smem": (_I32,),
+    # blocks_x, blocks_y, threads, cluster, stream: an empty launch
+    "repro_empty_launch": (_I32, _I32, _I32, _I32, _P),
 }
 
 

@@ -16,13 +16,9 @@ from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
 from repro_torch.kernels.segments import plan_segments
 
 MAX_KERNEL_K = 128
-#: the largest k of the kernel's warp select (``WARP_K`` in
-#: ``csrc/topk_block.cuh``), which scores a segment of any length in tiles
-WARP_K = 32
 #: queries one block scores together over shared embeddings, and the
 #: scores a block keeps in shared memory (64 KB), shared by its group: a
-#: tile of SCORE_SLOTS // group rows (the whole segment on the radix path,
-#: k > WARP_K, which caps the segment so)
+#: tile of SCORE_SLOTS // group rows
 MAX_GROUP = 8
 SCORE_SLOTS = 16384
 #: shortest row segment worth a block of its own
@@ -32,17 +28,12 @@ MIN_SEGMENT = 1024
 def plan(nq: int, n: int, k: int, group: int,
          n_sm: int) -> tuple[int, int, int]:
     """(segments per row set, segment length, tile length) of the kernel's
-    first stage: for k <= WARP_K one wave of two blocks an SM over
-    segments of any length, scored in tiles that fit the shared score
-    buffer; else segments that fit it whole, each one tile."""
-    if k <= WARP_K:
-        n_seg, seg_len = plan_segments(cdiv(nq, group), n, k, n_sm,
-                                       min_len=MIN_SEGMENT, one_wave=True)
-        return n_seg, seg_len, min(seg_len, SCORE_SLOTS // group)
+    first stage: one wave of two blocks an SM over segments of any length,
+    scored in tiles that fit the shared score buffer (the warp select keeps
+    its queues between tiles)."""
     n_seg, seg_len = plan_segments(cdiv(nq, group), n, k, n_sm,
-                                   min_len=MIN_SEGMENT,
-                                   cap=SCORE_SLOTS // group)
-    return n_seg, seg_len, seg_len
+                                   min_len=MIN_SEGMENT, one_wave=True)
+    return n_seg, seg_len, min(seg_len, SCORE_SLOTS // group)
 
 
 def kernel_native(k: int) -> bool:
@@ -54,8 +45,8 @@ def kernel_native(k: int) -> bool:
 def streaming_dense_topk(emb: torch.Tensor, qvec: torch.Tensor,
                          base: torch.Tensor | None = None, *, k: int):
     """Top-``k`` of ``emb @ q + base`` for each query: values sorted
-    descending (f32) and their int32 row indices, ties to the lowest index
-    (the ``lax.top_k`` rule).
+    descending (f32) and their int32 row indices, -0.0 below +0.0, ties to
+    the lowest index (the ``lax.top_k`` rule).
 
     ``emb`` is [N, dim], shared by the queries, or [NQ, N, dim], each
     query's own rows; ``qvec`` is [NQ, dim]; ``base`` [NQ, N] or None (0).

@@ -3,19 +3,41 @@
 For a CUDA tensor it launches the kernel, which serves ``k <=
 MAX_KERNEL_K`` and raises for a larger k (the IR fusion pass lowers onto
 the kernel only within that bound); for a CPU tensor it takes the plain
-version.  There is no fallback from a failed launch: it raises.
-``streaming_pq_topk.launches`` counts kernel launches, and only those.
+version.  There is no fallback from a failed launch, and none from a
+cluster that cannot be scheduled: it raises.  ``streaming_pq_topk.launches``
+counts kernel launches, and only those: one a call.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.common import cdiv, round_up
 from repro_torch.kernels import _build
-from repro_torch.kernels.dense_scoring.ops import MIN_SEGMENT, SCORE_SLOTS
 from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
-from repro_torch.kernels.segments import plan_segments
 
 MAX_KERNEL_K = 128
+#: CTAs a query (``MAX_CLUSTER`` in ``csrc/pq_topk.cu``: the portable
+#: maximum): 16 queries make 128 CTAs, one wave on an H100's 132 SMs
+CLUSTER = 8
+#: segments and tiles are cut at multiples of these rows, so that every
+#: bulk copy of codes (m % 16 == 0) and base rows is on 16 bytes
+ROW_ALIGN = 16
+#: dynamic shared memory a CTA may ask for: the table, two tiles of codes
+#: and base rows, a tile of scores
+DYN_SMEM_KB = 200
+
+
+def plan(n: int, m: int, n_codes: int) -> tuple[int, int, int]:
+    """(CTAs a query, rows a CTA, rows a tile): the query's rows cut into
+    CLUSTER segments, each streamed in tiles that fit the shared memory
+    beside the table (two tiles and the scores of one)."""
+    seg_len = round_up(cdiv(n, CLUSTER), ROW_ALIGN)
+    free = DYN_SMEM_KB * 1024 - round_up(m * n_codes * 4, 16)
+    fit = free // (2 * (m + 4) + 4) // ROW_ALIGN * ROW_ALIGN
+    if fit < ROW_ALIGN:
+        raise ValueError(f"a table of [{m}, {n_codes}] leaves no room in "
+                         f"shared memory for the PQ-scoring kernel's tiles")
+    return CLUSTER, seg_len, min(seg_len, fit)
 
 
 def kernel_native(k: int) -> bool:
@@ -28,8 +50,8 @@ def streaming_pq_topk(codes: torch.Tensor, table: torch.Tensor,
                       base: torch.Tensor | None = None, *, k: int):
     """Top-``k`` of the ADC scores ``table[0, c_0] + ... + table[m-1,
     c_{m-1}] + base`` of each query's rows: values sorted descending (f32)
-    and their int32 row indices, ties to the lowest index (the
-    ``lax.top_k`` rule; documents that share a code word tie).
+    and their int32 row indices, -0.0 below +0.0, ties to the lowest index
+    (the ``lax.top_k`` rule; documents that share a code word tie).
 
     ``codes`` [NQ, N, m] uint8 (each code < n_codes), ``table``
     [NQ, m, n_codes], ``base`` [NQ, N] or None (0)."""
@@ -54,23 +76,23 @@ def streaming_pq_topk(codes: torch.Tensor, table: torch.Tensor,
         raise ValueError("codes, table and base must lie on one device")
     dev = codes.device
     codes = codes.contiguous()
-    table = table.to(torch.float32).contiguous()
+    # the kernel takes the table's query and subspace strides (the ADC
+    # einsum leaves it [m, nq, n_codes] in memory), so only rows of codes
+    # that are not contiguous are copied
+    table = table.to(torch.float32)
+    if table.stride(2) != 1:
+        table = table.contiguous()
     if base is not None:
         base = base.to(torch.float32).contiguous()
     vals = torch.empty((nq, k), dtype=torch.float32, device=dev)
     idxs = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return vals, idxs
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    n_seg, seg_len = plan_segments(nq, n, k, n_sm, min_len=MIN_SEGMENT,
-                                   cap=SCORE_SLOTS)
-    cand_vals = torch.empty((nq, n_seg, k), dtype=torch.float32, device=dev)
-    cand_idxs = torch.empty((nq, n_seg, k), dtype=torch.int32, device=dev)
+    cluster, seg_len, tile = plan(n, m, n_codes)
     err = _build.library().repro_pq_topk(
-        codes.data_ptr(), table.data_ptr(),
+        codes.data_ptr(), table.data_ptr(), table.stride(0), table.stride(1),
         None if base is None else base.data_ptr(), nq, n, m, n_codes, k,
-        n_seg, seg_len, cand_vals.data_ptr(), cand_idxs.data_ptr(),
-        vals.data_ptr(), idxs.data_ptr(),
+        cluster, seg_len, tile, vals.data_ptr(), idxs.data_ptr(),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "repro_pq_topk")
     streaming_pq_topk.launches += 1

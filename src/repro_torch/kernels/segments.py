@@ -1,4 +1,4 @@
-"""How the top-k, dense- and PQ-scoring kernels cut their rows.
+"""How the top-k and dense-scoring kernels cut their rows.
 
 Each kernel gives every row segment a block of its own, takes the
 segment's top-k (``repro::segment_topk`` in ``csrc/topk_block.cuh``) and
@@ -12,17 +12,14 @@ from repro_torch.common import cdiv
 
 
 def plan_segments(n_row_sets: int, n: int, k: int, n_sm: int, *,
-                  min_len: int, cap: int | None = None,
-                  one_wave: bool = False) -> tuple[int, int]:
+                  min_len: int, one_wave: bool = False) -> tuple[int, int]:
     """(segments per row, segment length) for a kernel that gives each of
     ``n_row_sets`` row sets of ``n`` rows its own blocks: about two blocks
     per SM (with ``one_wave``, at most two, so that the grid runs in one
     wave of two blocks an SM), each segment at least ``max(k, min_len)``
-    rows long and at most ``cap`` (only the last may be shorter)."""
+    rows long (only the last may be shorter)."""
     per_set = (2 * n_sm // n_row_sets if one_wave
                else cdiv(2 * n_sm, n_row_sets))
     n_seg = max(1, min(per_set, n // max(k, min_len)))
     seg_len = cdiv(n, n_seg)
-    if cap is not None:
-        seg_len = min(seg_len, cap)
     return cdiv(n, seg_len), seg_len

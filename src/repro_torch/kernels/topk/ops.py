@@ -33,8 +33,8 @@ def kernel_native(k: int) -> bool:
 
 def streaming_topk(scores: torch.Tensor, *, k: int):
     """Top-``k`` of each row of ``scores`` [NQ, N] (or one row [N]): values
-    sorted descending (f32) and their int32 indices, ties to the lowest
-    index (the ``lax.top_k`` rule)."""
+    sorted descending (f32) and their int32 indices, -0.0 below +0.0, ties
+    to the lowest index (the ``lax.top_k`` rule)."""
     if scores.dim() not in (1, 2):
         raise ValueError(f"scores must be [N] or [NQ, N], got {tuple(scores.shape)}")
     n = scores.shape[-1]

@@ -13,9 +13,7 @@ from repro.kernels.dense_scoring.ref import dense_topk_ref as jax_dense_ref
 from repro.kernels.pq_scoring.ops import \
     streaming_pq_topk as jax_streaming_pq_topk
 from repro.kernels.pq_scoring.ref import pq_topk_ref as jax_pq_ref
-from repro_torch.common import cdiv
-from repro_torch.kernels.dense_scoring.ops import (MIN_SEGMENT,
-                                                   streaming_dense_topk)
+from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
 from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
 from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
 from repro_torch.kernels.pq_scoring.ref import adc_scores, pq_topk_ref
@@ -152,21 +150,21 @@ def test_plain_pq_adds_lookups_in_subspace_order_then_base():
     np.testing.assert_array_equal(got.numpy(), want)
 
 
-@pytest.mark.parametrize("n_row_sets,n,k,cap",
-                         [(1, 528155, 10, 2048), (1, 528155, 128, 2048),
-                          (16, 40000, 80, 32768), (16, 200, 10, 32768),
-                          (2, 3 * 2048 + 5, 128, 2048), (3, 130, 7, 32768)])
-def test_segment_plan_and_padded_merge_give_the_topk(n_row_sets, n, k, cap):
-    """The kernels' two-stage plan — each segment's top-min(k, len),
-    padded to k with (-inf, INT_MAX), then a top-k of the segments' lists
-    taken by position — gives the row's top-k with the lowest-index rule;
-    the plain top-k stands in for both stages."""
-    n_seg, seg_len = plan_segments(n_row_sets, n, k, 132,
-                                   min_len=MIN_SEGMENT, cap=cap)
-    assert seg_len <= cap and (n_seg - 1) * seg_len < n <= n_seg * seg_len
-    assert n_seg == 1 or seg_len >= max(k, min(cap, MIN_SEGMENT))
-    assert n_seg == 1 or n_row_sets * n_seg >= 132 or \
-        seg_len >= cdiv(n, n_seg)
+@pytest.mark.parametrize("n_row_sets,n,k,min_len",
+                         [(1, 528155, 10, 4096), (1, 528155, 128, 1024),
+                          (16, 40000, 80, 1024), (16, 200, 10, 1024),
+                          (2, 3 * 2048 + 5, 128, 1024), (3, 130, 7, 4096)])
+def test_segment_plan_and_padded_merge_give_the_topk(n_row_sets, n, k,
+                                                     min_len):
+    """The top-k and dense kernels' two-stage plan — each segment's
+    top-min(k, len), padded to k with (-inf, INT_MAX), then a top-k of the
+    segments' lists taken by position — gives the row's top-k with the
+    lowest-index rule; the plain top-k stands in for both stages."""
+    n_seg, seg_len = plan_segments(n_row_sets, n, k, 132, min_len=min_len,
+                                   one_wave=True)
+    assert (n_seg - 1) * seg_len < n <= n_seg * seg_len
+    assert n_seg == 1 or seg_len >= max(k, min_len)
+    assert n_row_sets * n_seg <= 2 * 132 or n_seg == 1
     rng = np.random.default_rng(n)
     row = torch.from_numpy(rng.integers(-30, 30, n).astype(np.float32))
     row[rng.random(n) < 0.01] = -torch.inf

@@ -2,6 +2,7 @@
 the JAX package, on the tests/conftest.py corpus."""
 import numpy as np
 import pytest
+import torch
 
 import repro.core as J
 import repro_torch.core as T
@@ -141,6 +142,34 @@ def test_combinators_agree_unoptimised(env, i):
                                       np.asarray(jR["scores"]))
     else:
         _assert_results_agree(jR, tR, f"pipeline {i}")
+
+
+@pytest.mark.parametrize("through", ["tensor", "view"])
+def test_shared_context_sees_in_place_edits(env, through):
+    """The memo keys a run by a digest of its source tensors; after an
+    in-place edit of a query tensor (or of a view of it, which shares its
+    version counter) a run with the same Context returns the new results,
+    equal to a fresh Context's and to the reference's on the edited
+    queries."""
+    jbe, tbe = _backends(env, None)
+    pipe = T.Retrieve("BM25") % 10
+    Q = {key: v.clone() for key, v in env["tQ"].items()}
+    ctx = T.Context(tbe)
+    before = T.run_pipeline(pipe, Q, backend=tbe, ctx=ctx)
+    # every query takes the next one's terms and weights
+    for key in ("terms", "weights"):
+        rolled = Q[key].roll(1, dims=0)
+        target = Q[key] if through == "tensor" else Q[key][:]
+        target.copy_(rolled)
+    after = T.run_pipeline(pipe, Q, backend=tbe, ctx=ctx)
+    fresh = T.run_pipeline(pipe, Q, backend=tbe, ctx=T.Context(tbe))
+    assert not torch.equal(after["docids"], before["docids"])
+    assert torch.equal(after["docids"], fresh["docids"])
+    assert torch.equal(after["scores"], fresh["scores"])
+    jQ = J.make_queries(Q["terms"].numpy(), Q["weights"].numpy(),
+                        Q["qid"].numpy())
+    jR = J.run_pipeline(_pipelines(J)[0], jQ, backend=jbe)
+    _assert_results_agree(jR, after, f"edited through a {through}")
 
 
 def test_experiment_table_equals_reference(env):

@@ -1,23 +1,27 @@
-"""The warp select of ``csrc/topk_block.cuh`` (k <= 32), which the top-k
-and dense-scoring kernels take their top-k with, against the JAX package on
-the CPU.
+"""The warp select of ``csrc/topk_block.cuh`` (k <= 128), which the top-k,
+dense-scoring and PQ-scoring kernels take their top-k with, against the JAX
+package on the CPU.
 
 The kernels run only on the card, where ``chip_smoke.py`` holds them
 against their plain versions.  Here a numpy model, kept in this file and
 off the main path, follows the CUDA code step by step: the 64-bit key
-(order_key(value) << 32 | ~index), the 32 lanes of a warp, each lane's
-thread queue of THREAD_Q keys (newest first), the batches of WARP_UNROLL
-loads held against the warp's k-th value, the slow path that offers a
-batch's elements one at a time, the queue-full vote, the bitonic sort of
-each thread-queue slot across the lanes and its bitonic merge into the warp
-queue, the k-th key broadcast, the pairwise merge of the block's warp
-queues through shared memory, the (-inf, INT_MAX) pads of a short segment,
-and the second stage, which merges the segments' candidate lists through
-their indices.  The segments are planned by the wrappers' own planners for
-an H100's 132 SMs.  The model must equal ``streaming_topk_ref`` and
-``lax.top_k`` in values and indices; the dense kernel's model, which also
-repeats its fp32 dot products (multiply, then add, d = 0..dim-1, then
-+ base), must agree with both packages' plain versions."""
+(order_key(value) << 32 | ~index, -0.0 just below +0.0), the 32 lanes of a
+warp, each lane's thread queue of THREAD_Q keys (newest first), the
+batches of WARP_UNROLL loads held against the warp's k-th value, the slow
+path that offers a batch's elements one at a time, the queue-full vote,
+the bitonic sort of each thread-queue slot across the lanes, its insertion
+into the warp queue of 32 * WQ keys (WQ = 1, 2 or 4 a lane: its last slot,
+then a bitonic merge across the slots and the lanes), the k-th key
+broadcast, the pairwise merge of the block's warp queues through shared
+memory, the (-inf, INT_MAX) pads of a short segment, and the second stage,
+which merges the segments' candidate lists through their indices.  The
+segments are planned by the wrappers' own planners for an H100's 132 SMs.
+The model must equal ``streaming_topk_ref`` and ``lax.top_k`` in values
+and indices; the dense kernel's model, which also repeats its fp32 dot
+products (multiply, then add, d = 0..dim-1, then + base), must agree with
+both packages' plain versions; the PQ kernel's model (its scoring order,
+each CTA's tiles and select, the first CTA's merge of the cluster's
+queues) must equal both packages' plain versions."""
 import re
 from pathlib import Path
 
@@ -30,30 +34,42 @@ from hypothesis import given, settings
 from hypothesis import strategies as st
 
 from repro.kernels.dense_scoring.ref import dense_topk_ref as jax_dense_ref
+from repro.kernels.pq_scoring.ref import pq_topk_ref as jax_pq_ref
 from repro_torch.common import cdiv
+from repro_torch.common import order_key as common_order_key
+from repro_torch.common import topk as common_topk
 from repro_torch.kernels.dense_scoring import ops as dense_ops
 from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+from repro_torch.kernels.pq_scoring import ops as pq_ops
+from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
 from repro_torch.kernels.topk import ops as topk_ops
 from repro_torch.kernels.topk.ref import streaming_topk_ref
 
 N_SM = 132              # an H100's SMs, as the wrappers read them
-WARP_K = 32             # topk_block.cuh: WARP_K, THREAD_Q, WARP_UNROLL
+MAX_WQ = 4              # topk_block.cuh: MAX_WQ, THREAD_Q, WARP_UNROLL
 THREAD_Q = 2
 WARP_UNROLL = 8
 TOPK_THREADS = 512      # topk.cu: THREADS, MERGE_THREADS
 MERGE_THREADS = 256
 DENSE_THREADS = 512     # dense_topk.cu: THREADS
+PQ_THREADS = 256        # pq_topk.cu: THREADS
 PAD_KEY = np.uint64(0x007FFFFF80000000)
+NEG_ZERO_KEY = np.uint32(0x7FFFFFFF)   # order_key(-0.0)
 LANES = np.arange(32)
 NEG = np.float32(-3.0e38)
+
+
+def warp_slots(k):
+    """The warp queue's keys a lane for k: 1, 2 or 4."""
+    return 1 if k <= 32 else 2 if k <= 64 else 4
 
 
 # -- the key ---------------------------------------------------------------
 
 def order_key(v):
-    """float32 -> uint32, larger float to larger key, -0.0 to +0.0's."""
-    v = np.asarray(v, np.float32)
-    u = np.where(v == 0, np.float32(0), v).astype(np.float32).view(np.uint32)
+    """float32 -> uint32, larger float to larger key, -0.0 just below
+    +0.0."""
+    u = np.asarray(v, np.float32).view(np.uint32)
     return np.where(u & np.uint32(0x80000000), ~u,
                     u | np.uint32(0x80000000)).astype(np.uint32)
 
@@ -96,6 +112,54 @@ def warp_merge_descending(x):
     return x
 
 
+def queue_merge_descending(q):
+    """A bitonic queue q [WQ, 32] (rank 32 t + l at q[t, l]) sorted
+    descending: compare-exchanges between a lane's slots, then shuffles
+    within each slot."""
+    q = q.copy()
+    s = len(q) // 2
+    while s:
+        for t in range(len(q)):
+            if t & s == 0:
+                a, b = q[t].copy(), q[t + s].copy()
+                q[t], q[t + s] = np.maximum(a, b), np.minimum(a, b)
+        s //= 2
+    return np.stack([warp_merge_descending(x) for x in q])
+
+
+def queue_insert(q, x):
+    """32 keys x into the descending queue q, which keeps its top 32 * WQ:
+    into its last slot, then (WQ > 1) that slot reversed and the queue
+    merged."""
+    q = q.copy()
+    q[-1] = warp_merge_descending(np.maximum(q[-1], warp_sort_ascending(x)))
+    if len(q) > 1:
+        q[-1] = q[-1][31 - LANES]                      # __shfl_sync
+        q = queue_merge_descending(q)
+    return q
+
+
+def queue_at(q, r):
+    return q[r >> 5][r & 31]
+
+
+def queue_sort_descending(q):
+    """32 * WQ keys in any order (WQ = 2 or 4) sorted into the queue's
+    order: slots sorted descending and ascending in turn, merged in pairs
+    (the second pair reversed to ascending), then merged whole."""
+    q = q.copy()
+    q[0] = ~warp_sort_ascending(~q[0])
+    q[1] = warp_sort_ascending(q[1])
+    if len(q) == 4:
+        q[2] = ~warp_sort_ascending(~q[2])
+        q[3] = warp_sort_ascending(q[3])
+        for a, b in ((0, 1), (2, 3)):
+            q[a], q[b] = np.maximum(q[a], q[b]), np.minimum(q[a], q[b])
+        q = np.stack([warp_merge_descending(x) for x in q])
+        q[2], q[3] = q[3][31 - LANES].copy(), q[2][31 - LANES].copy()
+    return queue_merge_descending(q)
+
+
 class WarpSelect:
     """One warp: its warp queue, thread queues, bar and counts of what it
     did.  ``run`` is the one-slot list standing for the bar in shared
@@ -103,7 +167,7 @@ class WarpSelect:
 
     def __init__(self, k, run):
         self.k, self.run = k, run
-        self.wq = np.full(32, PAD_KEY)
+        self.wq = np.full((warp_slots(k), 32), PAD_KEY)
         self.tq = np.full((THREAD_Q, 32), PAD_KEY)
         self.bar = PAD_KEY
         self.bar_value = np.float32(-np.inf)
@@ -115,7 +179,7 @@ class WarpSelect:
             self.bar, self.bar_value = key, key_value(key)
 
     def publish(self):
-        kth = self.wq[self.k - 1]                      # __shfl_sync
+        kth = queue_at(self.wq, self.k - 1)            # __shfl_sync
         self.raise_bar(kth)
         if kth != PAD_KEY:                             # atomicMax
             self.run[0] = max(self.run[0], kth)
@@ -123,8 +187,7 @@ class WarpSelect:
     def merge(self):
         for t in range(THREAD_Q):
             if (self.tq[t] != PAD_KEY).any():          # __any_sync
-                self.wq = warp_merge_descending(
-                    np.maximum(self.wq, warp_sort_ascending(self.tq[t])))
+                self.wq = queue_insert(self.wq, self.tq[t])
                 self.tq[t] = PAD_KEY
         self.n_tq[:] = 0
         self.publish()
@@ -151,7 +214,9 @@ def load_batch(n, base, stride, value):
 def offer_batch(ws, n, i, valid, v, first, value, index, ascending):
     """The bar test of a batch, then the slow path where a lane hits."""
     ws.raise_bar(ws.run[0])
-    strict = ascending and key_index(ws.bar) < index(np.asarray(i[0, 0]))
+    # strict where indices grow past the bar's, unless the bar is -0.0
+    strict = ascending and key_index(ws.bar) < index(np.asarray(i[0, 0])) \
+        and (ws.bar >> np.uint64(32)) != NEG_ZERO_KEY
     hit = (v > ws.bar_value) | ((not strict) & (v == ws.bar_value))
     hits = valid & (np.arange(WARP_UNROLL)[:, None] != first) & hit
     if hits.any():                                     # the slow path
@@ -193,7 +258,20 @@ def block_stream(sels, run, rows, seed_batches):
     first ``seed_batches`` batches (the first on ties) enters its warp's
     queue; the k-th of each run's merged seeds is the run's bar (a
     barrier); then the warps stream from their first batch on, in turns,
-    passing over the seeded elements."""
+    passing over the seeded elements.  With a queue of 2 or 4 slots and no
+    warp's row longer than that many of its tiles (a block-wide vote), each
+    warp's share is sorted into its queue whole instead."""
+    wq, stride = len(sels[0].wq), run * 32
+    if wq > 1 and all(r[0] <= stride * wq for r in rows):
+        for w, ws in enumerate(sels):
+            n, value, index, _ = rows[w]
+            i = w % run * 32 + np.arange(wq)[:, None] * stride + LANES
+            j = np.clip(i, 0, max(n - 1, 0))
+            ws.wq = queue_sort_descending(
+                np.where(i < n, make_key(value(j), index(j)), PAD_KEY)
+                if n else np.full((wq, 32), PAD_KEY))
+            ws.publish()
+        return
     seededs = []
     for w, ws in enumerate(sels):
         n, value, index, _ = rows[w]
@@ -211,12 +289,11 @@ def block_stream(sels, run, rows, seed_batches):
                 seeded = np.where(take, i[u], seeded)
         at = np.clip(seeded, 0, max(n - 1, 0))
         seed = np.where(seeded >= 0, make_key(top, index(at)), PAD_KEY)
-        ws.wq = warp_merge_descending(
-            np.maximum(ws.wq, warp_sort_ascending(seed)))
+        ws.wq = queue_insert(ws.wq, seed)
         seededs.append(seeded)
     merged = block_merge_queues(np.stack([ws.wq for ws in sels]), run)
     for w in range(0, len(sels), run):
-        kth = merged[w][sels[w].k - 1]
+        kth = queue_at(merged[w], sels[w].k - 1)
         if kth != PAD_KEY:
             sels[w].run[0] = kth
     take_turns(warp_stream(ws, rows[w][0], w % run, run, w % run * 32,
@@ -229,16 +306,17 @@ def ascending_from(offset):
 
 
 def block_merge_queues(queues, run):
-    """queues [warps, 32] -> the merged queue of each run of ``run`` warps,
-    in the run's first warp."""
+    """queues [warps, WQ, 32] -> the merged queue of each run of ``run``
+    warps, in the run's first warp: a queue against its partner's read
+    backwards (rank 32 t + l against 32 (WQ - 1 - t) + 31 - l)."""
     q = queues.copy()
     span = 1
     while span < run:
         sq = q.copy()                                  # shared memory
         for w in range(len(q)):
             if w & (2 * span - 1) == 0:
-                q[w] = warp_merge_descending(
-                    np.maximum(q[w], sq[w + span][::-1]))
+                q[w] = queue_merge_descending(
+                    np.maximum(q[w], sq[w + span][::-1, ::-1]))
         span *= 2
     return q
 
@@ -251,7 +329,8 @@ def block_warp_topk(n, k, value, index, threads, ascending):
                  seed_batches=1)
     for ws in sels:
         ws.merge()
-    top = block_merge_queues(np.stack([ws.wq for ws in sels]), warps)[0]
+    top = block_merge_queues(np.stack([ws.wq for ws in sels]),
+                             warps)[0].reshape(-1)
     return key_value(top[:k]), key_index(top[:k]), sels
 
 
@@ -265,7 +344,7 @@ def merge_stage(cand_v, cand_i, k):
 
 
 def topk_model(scores, k):
-    """csrc/topk.cu for k <= 32: scores [nq, n] f32 -> (vals, idxs)."""
+    """csrc/topk.cu: scores [nq, n] f32 -> (vals, idxs)."""
     nq, n = scores.shape
     n_seg, seg_len = topk_ops.plan(nq, n, k, N_SM)
     cand_v = np.zeros((nq, n_seg * k), np.float32)
@@ -295,9 +374,9 @@ def dense_scores_model(emb, qvec, base):
 
 
 def dense_model(emb, qvec, base, k, n_sm=N_SM):
-    """csrc/dense_topk.cu for k <= 32 on a card of ``n_sm`` SMs: the
-    group's warps split the score rows of each tile, 16 / G a query, with
-    queues kept across tiles."""
+    """csrc/dense_topk.cu on a card of ``n_sm`` SMs: the group's warps
+    split the score rows of each tile, 16 / G a query, with queues kept
+    across tiles."""
     nq = qvec.shape[0]
     n = emb.shape[-2]
     shared = emb.ndim == 2
@@ -335,7 +414,7 @@ def dense_model(emb, qvec, base, k, n_sm=N_SM):
                     ws.merge()
             top = block_merge_queues(np.stack([ws.wq for ws in sels]), run)
             for g in range(g_n):
-                out = top[g * run][:k]
+                out = top[g * run].reshape(-1)[:k]
                 cand_v[q0 + g, s * k:(s + 1) * k] = key_value(out)
                 cand_i[q0 + g, s * k:(s + 1) * k] = key_index(out)
     if n_seg == 1:
@@ -379,9 +458,11 @@ KINDS = ["equal", "pm_zero", "neginf_fewer_than_k", "ascending",
 
 # (rows, length): shorter than 32; shorter than a segment and not a
 # multiple of 32; several segments of a length that is not a multiple of 32
-# or 512 (2 x 20001 -> 4 segments of 5001); k up to the length
+# or 512 (2 x 20001 -> 4 segments of 5001); D4's shortlist rows (16 x 6888,
+# one segment); k up to the length, on both sides of each warp queue's size
 SHAPES_K = [(nq, n, k) for nq, n in [(2, 20), (3, 1000), (2, 20001)]
-            for k in (1, 8, 10, 31, 32) if k <= n]
+            for k in (1, 8, 10, 31, 32, 33, 64, 80, 128) if k <= n]
+SHAPES_K += [(16, 6888, k) for k in (10, 33, 80, 128)]
 
 
 @pytest.mark.parametrize("nq,n,k", SHAPES_K)
@@ -393,14 +474,8 @@ def test_topk_model_equals_plain_and_lax(nq, n, k, kind):
     pv, pi = streaming_topk_ref(torch.from_numpy(s), k=k)
     lv, li = lax_top_k(s, k)
     np.testing.assert_array_equal(i, pi.numpy())
-    np.testing.assert_array_equal(v, pv.numpy())
-    np.testing.assert_array_equal(v, lv)
-    if kind == "pm_zero":
-        # the port (kernel and plain version alike) ties -0.0 with +0.0,
-        # as a float comparison does; lax.top_k ranks -0.0 just below
-        # +0.0, as the model does once -0.0 is the largest negative float
-        s = np.where((s == 0) & np.signbit(s), np.float32(-1e-45), s)
-        i = topk_model(s, k)[1]
+    np.testing.assert_array_equal(v.view(np.uint32), pv.numpy().view(np.uint32))
+    np.testing.assert_array_equal(v.view(np.uint32), lv.view(np.uint32))
     np.testing.assert_array_equal(i, li)
 
 
@@ -444,7 +519,10 @@ def test_topk_model_takes_the_paths_it_should():
                           (2, 700, 12, False, "small_ints", 32, N_SM),
                           (5, 40, 8, False, "random", 31, N_SM),
                           (8, 20000, 8, True, "random", 10, 2),
-                          (8, 20000, 8, True, "small_ints", 32, 2)])
+                          (8, 20000, 8, True, "small_ints", 32, 2),
+                          (4, 1000, 16, False, "random", 80, N_SM),
+                          (8, 20000, 8, True, "small_ints", 64, 2),
+                          (3, 3000, 16, True, "small_ints", 128, N_SM)])
 def test_dense_model_agrees_with_plain_and_jax(nq, n, dim, shared, kind, k,
                                                n_sm):
     rng = np.random.default_rng(nq * n + dim)
@@ -491,32 +569,170 @@ def test_dense_model_agrees_with_plain_and_jax(nq, n, dim, shared, kind, k,
     np.testing.assert_array_equal(i, mi.numpy())
 
 
+# -- the PQ-scoring kernel -------------------------------------------------
+
+def pq_scores_model(codes, table, base):
+    """csrc/pq_topk.cu's scores: the m lookups added in subspace order, then
+    + base, each add rounded to f32; codes [nq, n, m] -> [nq, n]."""
+    q = np.arange(codes.shape[0])[:, None]
+    acc = table[q, 0, codes[..., 0]]
+    for s in range(1, codes.shape[2]):
+        acc = (acc + table[q, s, codes[..., s]]).astype(np.float32)
+    return acc if base is None else (acc + base).astype(np.float32)
+
+
+def pq_model(codes, table, base, k):
+    """csrc/pq_topk.cu: a cluster of C CTAs a query (the wrapper's plan),
+    each a segment of seg_len rows in tiles; a CTA's warps run the warp
+    select over each tile's scores (the first tile seeds the bar, the
+    queues stay across tiles), merge their thread queues at the end, and
+    the CTA's warp queues merge; then warp w of the first CTA takes CTA w's
+    queue, and the first C warps' queues merge into [k]."""
+    nq, n, m = codes.shape
+    cluster, seg_len, tile = pq_ops.plan(n, m, table.shape[2])
+    warps = PQ_THREADS // 32
+    scores = pq_scores_model(codes, table, base)
+    vals, idxs = [], []
+    for q in range(nq):
+        ctas = []
+        for rank in range(cluster):
+            lo = rank * seg_len
+            length = max(0, min(seg_len, n - lo))
+            bar = [PAD_KEY]
+            sels = [WarpSelect(k, bar) for _ in range(warps)]
+            for t0 in range(0, length, tile):
+                t_len = min(tile, length - t0)
+                row = scores[q, lo + t0:lo + t0 + t_len]
+                rows = [(t_len, lambda j, r=row: r[j],
+                         ascending_from(lo + t0), True)] * warps
+                if t0 == 0:
+                    block_stream(sels, warps, rows, seed_batches=1 << 20)
+                else:
+                    take_turns(warp_stream(ws, t_len, w, warps, w * 32,
+                                           *rows[w][1:])
+                               for w, ws in enumerate(sels))
+            for ws in sels:
+                ws.merge()
+            ctas.append(block_merge_queues(
+                np.stack([ws.wq for ws in sels]), warps)[0])
+        pads = [np.full_like(ctas[0], PAD_KEY)] * (warps - cluster)
+        top = block_merge_queues(np.stack(ctas + pads),
+                                 cluster)[0].reshape(-1)[:k]
+        vals.append(key_value(top))
+        idxs.append(key_index(top))
+    return np.stack(vals), np.stack(idxs)
+
+
+def make_pq(kind, nq, n, m, rng):
+    """(codes, table, base) of a PQ case: random tables with 10 % NEG
+    bases; small-integer tables and bases (exact sums in any order); code
+    words repeated (odd rows copy even ones: ties); one value in the whole
+    table; a table of -0.0 with a few +0.0 entries."""
+    codes = rng.integers(0, 256, (nq, n, m)).astype(np.uint8)
+    base = None
+    if kind in ("random", "dup_codes"):
+        table = rng.standard_normal((nq, m, 256)).astype(np.float32)
+        base = np.where(rng.random((nq, n)) < 0.1, NEG,
+                        rng.standard_normal((nq, n))).astype(np.float32)
+        if kind == "dup_codes":
+            codes[:, 1::2] = codes[:, 0:n - 1:2]
+    elif kind == "small_ints":
+        table = rng.integers(-3, 4, (nq, m, 256)).astype(np.float32)
+        base = rng.integers(0, 3, (nq, n)).astype(np.float32)
+    elif kind == "equal":
+        table = np.full((nq, m, 256), 0.25, np.float32)
+    else:                                                  # pm_zero
+        table = np.where(rng.random((nq, m, 256)) < 0.002, np.float32(0.0),
+                         np.float32(-0.0)).astype(np.float32)
+    return codes, table, base
+
+
+# (queries, rows, m, kind, k): D4's chunk and shortlist (one 864-row tile a
+# CTA), ties, one value, signed zeros, m = 8 (the kernel's byte loads),
+# rows fewer than a CTA's 16 (empty CTAs), rows past two tiles a CTA (the
+# ring of two slots, reused)
+PQ_CASES = [(16, 6888, 16, "random", 10), (16, 6888, 16, "random", 80),
+            (16, 6888, 16, "small_ints", 80), (4, 6888, 16, "dup_codes", 128),
+            (3, 2000, 8, "equal", 80), (3, 2000, 8, "pm_zero", 80),
+            (2, 100, 16, "random", 33), (5, 300, 8, "small_ints", 1),
+            (1, 40000, 16, "small_ints", 64)]
+
+
+@pytest.mark.parametrize("nq,n,m,kind,k", PQ_CASES)
+def test_pq_model_equals_plain_and_jax(nq, n, m, kind, k):
+    rng = np.random.default_rng(nq * n + m + k)
+    codes, table, base = make_pq(kind, nq, n, m, rng)
+    v, i = pq_model(codes, table, base, k)
+    tb = None if base is None else torch.from_numpy(base)
+    pv, pi = pq_topk_ref(torch.from_numpy(codes), torch.from_numpy(table),
+                         tb, k=k)
+    np.testing.assert_array_equal(i, pi.numpy())
+    np.testing.assert_array_equal(v.view(np.uint32), pv.numpy().view(np.uint32))
+    if kind == "pm_zero":
+        # a sum of zeros keeps -0.0 only in the kernel's order (jnp.sum may
+        # start from +0.0): held against lax.top_k of the same scores
+        lv, li = lax_top_k(pq_scores_model(codes, table, base), k)
+        np.testing.assert_array_equal(i, li)
+        np.testing.assert_array_equal(v.view(np.uint32), lv.view(np.uint32))
+        assert (np.signbit(v) & (v == 0)).any() and (~np.signbit(v)).any()
+        return
+    jv, ji = zip(*(jax_pq_ref(jnp.asarray(codes[r]), jnp.asarray(table[r]),
+                              None if base is None else jnp.asarray(base[r]),
+                              k=k) for r in range(nq)))
+    jv, ji = np.stack(jv), np.stack(ji)
+    if kind in ("small_ints", "equal"):          # exact sums: every order
+        np.testing.assert_array_equal(v, jv)
+        np.testing.assert_array_equal(i, ji)
+        return
+    np.testing.assert_allclose(v, jv, rtol=1e-5, atol=1e-5)
+    for r, c in zip(*np.nonzero(i != ji)):       # only inside a tie
+        near = [abs(jv[r, j] - jv[r, c]) <= 1e-5 + 1e-5 * abs(jv[r, c])
+                for j in (c - 1, c + 1) if 0 <= j < k]
+        assert c == k - 1 or any(near), (r, c)
+
+
+def test_pq_plan():
+    """D4's chunk: clusters of 8 CTAs a query, 864 rows a CTA in one tile
+    (16 x 8 = 128 CTAs); long rows stream through tiles that fit beside the
+    table; segments and tiles are multiples of 16 rows."""
+    assert pq_ops.plan(6888, 16, 256) == (8, 864, 864)
+    cluster, seg_len, tile = pq_ops.plan(40000, 16, 256)
+    assert (cluster, seg_len) == (8, 5008) and tile < seg_len
+    assert seg_len % 16 == 0 and tile % 16 == 0
+    table_b = 16 * 256 * 4
+    assert table_b + 2 * tile * 20 + 4 * tile <= pq_ops.DYN_SMEM_KB * 1024
+    with pytest.raises(ValueError, match="no room"):
+        pq_ops.plan(1000, 256, 256)
+
+
 def test_dense_plan_and_tiles():
     """D2's chunk (16 queries over the shared store, k=10) runs one wave of
     2 groups x 132 segments, each scored in two tiles of at most 2,048 rows;
-    the radix path (k > 32) keeps its segments within the score buffer."""
+    a k past 32 (a warp queue of 64 or 128) plans the same segments."""
     assert dense_ops.plan(16, 528155, 10, 8, N_SM) == (132, 4002, 2048)
-    n_seg, seg_len, tile = dense_ops.plan(16, 528155, 80, 8, N_SM)
-    assert seg_len <= dense_ops.SCORE_SLOTS // 8 and tile == seg_len
+    assert dense_ops.plan(16, 528155, 80, 8, N_SM) == (132, 4002, 2048)
 
 
 CSRC = Path(dense_ops.__file__).resolve().parents[2] / "csrc"
 
 
 @pytest.mark.parametrize("source, name, value", [
-    ("topk_block.cuh", "WARP_K", WARP_K),
-    ("topk_block.cuh", "WARP_K", dense_ops.WARP_K),
+    ("topk_block.cuh", "MAX_WQ", MAX_WQ),
     ("topk_block.cuh", "THREAD_Q", THREAD_Q),
     ("topk_block.cuh", "WARP_UNROLL", WARP_UNROLL),
     ("topk.cu", "THREADS", TOPK_THREADS),
     ("topk.cu", "MERGE_THREADS", MERGE_THREADS),
     ("dense_topk.cu", "THREADS", DENSE_THREADS),
     ("dense_topk.cu", "MAX_GROUP", dense_ops.MAX_GROUP),
+    ("pq_topk.cu", "THREADS", PQ_THREADS),
+    ("pq_topk.cu", "MAX_CLUSTER", pq_ops.CLUSTER),
+    ("pq_topk.cu", "ROW_ALIGN", pq_ops.ROW_ALIGN),
+    ("pq_topk.cu", "DYN_SMEM_KB", pq_ops.DYN_SMEM_KB),
 ])
 def test_constants_match_the_cuda_sources(source, name, value):
-    """The model and the dense wrapper's planner use the kernels' own
-    constants: the wrapper plans the warp select's segments and tiles, and
-    the C entry rejects a plan that breaks its bounds."""
+    """The models and the wrappers' planners use the kernels' own
+    constants: the wrappers plan the segments, tiles and clusters, and the
+    C entries reject a plan that breaks their bounds."""
     text = (CSRC / source).read_text()
     found = re.findall(rf"constexpr int {name} = (\d+);", text)
     assert found == [str(value)], (source, name, found)
@@ -529,17 +745,65 @@ index = st.integers(0, 2**31 - 2)
 @settings(max_examples=300, deadline=None)
 @given(finite32, index, finite32, index)
 def test_key_orders_pairs_as_lax_top_k(a, i, b, j):
-    """(a, i) ranks before (b, j) under lax.top_k's rule — larger value, or
-    an equal value at a lower index, -0.0 equal to +0.0 — exactly when its
-    key is larger; the pad key lies below a real -inf's."""
+    """(a, i) ranks before (b, j) under lax.top_k's rule — larger value,
+    +0.0 before -0.0, or an equal value at a lower index — exactly when its
+    key is larger, as the port's ``common.order_key`` orders them; the pad
+    key lies below a real -inf's."""
     a, b = np.float32(a), np.float32(b)
     ka, kb = make_key(a, i), make_key(b, j)
-    first = a > b or (a == b and i < j)
+    same = a.tobytes() == b.tobytes()
+    first = a > b or (a == b and not same and not np.signbit(a)) or \
+        (same and i < j)
     assert (ka > kb) == first
-    assert (ka == kb) == (a == b and i == j)
+    assert (ka == kb) == (same and i == j)
     assert key_index(ka) == i
-    assert key_value(ka) == a
+    assert key_value(ka).tobytes() == a.tobytes()
+    ta, tb = (common_order_key(torch.tensor([x])).item() for x in (a, b))
+    assert (ta > tb) == (a > b or (a == b and not same and
+                                    not np.signbit(a)))
+    assert (ta == tb) == same
     assert make_key(np.float32(-np.inf), i) > PAD_KEY
     assert make_key(np.float32(-np.inf), 2**31 - 1) == PAD_KEY
     assert key_index(PAD_KEY) == 2**31 - 1
     assert key_value(PAD_KEY) == -np.inf
+
+
+@pytest.mark.parametrize("wq", [1, 2, 4])
+def test_queue_networks_sort(wq):
+    """The queue's networks on random keys with repeats: an insertion keeps
+    the top 32 * WQ of the queue and the new keys, sorted; a whole sort
+    (WQ = 2, 4) and the pairwise merge of two queues give the sorted top."""
+    rng = np.random.default_rng(wq)
+    keys = lambda *shape: rng.integers(0, 200, shape).astype(np.uint64)
+    for _ in range(20):
+        q = np.sort(keys(32 * wq))[::-1].reshape(wq, 32)
+        x = keys(32)
+        want = np.sort(np.concatenate([q.ravel(), x]))[::-1][:32 * wq]
+        np.testing.assert_array_equal(queue_insert(q, x).ravel(), want)
+        if wq > 1:
+            y = keys(wq, 32)
+            np.testing.assert_array_equal(queue_sort_descending(y).ravel(),
+                                          np.sort(y.ravel())[::-1])
+        a = np.sort(keys(2, 32 * wq), axis=1)[:, ::-1].reshape(2, wq, 32)
+        want = np.sort(a.ravel())[::-1][:32 * wq]
+        np.testing.assert_array_equal(block_merge_queues(a, 2)[0].ravel(),
+                                      want)
+
+
+@pytest.mark.parametrize("kind", ["zeros", "ties"])
+def test_plain_topk_ranks_negative_zero_below_positive(kind):
+    """``common.topk`` (the plain version of all three kernels) gives
+    lax.top_k's order: -0.0 just below +0.0, the lowest index first among
+    equal values."""
+    rng = np.random.default_rng(3)
+    if kind == "zeros":
+        s = np.array([[-0.0, 0.0, -0.0, 0.0, 1.0]], np.float32)
+    else:
+        s = rng.choice(np.array([-0.0, 0.0, -1.0, 1.0], np.float32),
+                       (4, 300))
+    for k in (1, 3, s.shape[1]):
+        v, i = common_topk(torch.from_numpy(s), k)
+        lv, li = lax_top_k(s, k)
+        np.testing.assert_array_equal(i.numpy(), li)
+        np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                      lv.view(np.uint32))
