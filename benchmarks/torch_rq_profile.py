@@ -1,8 +1,10 @@
 #!/usr/bin/env python3
 """Where the time goes on the card: a ``torch.profiler`` breakdown of the
-port's RQ1/RQ2 paths, of its dense second stage (brute-force and IVF-PQ
-DenseRetrieve) at TREC Robust04 scale (528,155 documents), and of the RAG
-answer stage's LM (cell G1: Qwen2-1.5B, random weights from seed 0).
+port's RQ1/RQ2 paths, of cell L1's RM3, linear-fusion and
+learning-to-rank pipelines (and the LTR stage's fit), of its dense second stage (brute-force and
+IVF-PQ DenseRetrieve) at TREC Robust04 scale (528,155 documents), and of
+the RAG answer stage's LM (cell G1: Qwen2-1.5B, random weights from seed
+0).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -131,11 +133,22 @@ def main() -> int:
     d4 = rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10
     flat = dict(ivf=ivf)
     pq = dict(ivfpq=ivfpq, pq_m=PQ_M, pq_refine=PQ_REFINE)
+    bm25 = rt.Retrieve("BM25")
+    prf = bm25 >> rt.RM3Expand(fb_docs=10, fb_terms=10) >> rt.Retrieve("BM25")
+    ltr_stage = rt.LTRRerank(n_features=3, epochs=30)
+    ltr = ((rt.Retrieve("BM25") >> (rt.Extract("QL") ** rt.Extract("TF_IDF")
+                                    ** rt.Extract("DPH"))) % 1000
+           >> ltr_stage)
     runs = [("rq1 unoptimised", rq1, None, False, {}),
             ("rq1 kernels", rq1, kernels, True, {}),
             ("rq1 full (pruned)", rq1, None, True, {}),
             ("rq2 unoptimised", rq2, None, False, {}),
             ("rq2 optimised", rq2, None, True, {}),
+            ("L1 prf (bm25 >> RM3 >> bm25)", prf, None, True, {}),
+            ("L1 fusion (0.7 BM25 + 0.3 QL -> multi_retrieve)",
+             (0.7 * bm25 + 0.3 * rt.Retrieve("QL")) % 1000, None, True, {}),
+            ("L1 ltr (fused_fat_retrieve >> LTRRerank)", ltr, None, True,
+             {}),
             ("D2 brute force unoptimised", d2, None, False, flat),
             ("D2 brute force optimised", d2, None, True, flat),
             ("D4 IVF-PQ unoptimised", d4, None, False, pq),
@@ -146,6 +159,17 @@ def main() -> int:
         node = rt.compile_pipeline(pipe, be) if opt else pipe
         _profile(f"{name} ({FORM}, {len(topics.qids)} topics)",
                  lambda: rt.run_pipeline(node, Q, backend=be, optimize=False))
+    # the LTR stage's fit on the 125 training topics of cell L1 (the
+    # uncompiled feature pipeline, then 30 full-batch steps on the
+    # [125, 1000, 1000] pairs)
+    from repro_torch.core import tuning
+    train, _ = next(tuning.kfold_splits(topics.qids, 2, seed=0))
+    Qtr = tuning._subset(Q, train)
+    qrels_tr = tuning._subset_qrels(topics.qrels, Qtr)
+    be = rt.TorchBackend(index, default_k=1000, query_chunk=16,
+                         device="cuda")
+    _profile(f"L1 ltr fit ({len(train)} topics, 30 epochs)",
+             lambda: ltr.fit(Qtr, qrels_tr, backend=be))
     _profile_g1(index, dense, Q)
     print(card())
     return 0

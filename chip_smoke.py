@@ -34,6 +34,7 @@ exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -1139,7 +1140,7 @@ def phase_generate(index, forms, state) -> dict:
     return launches
 
 
-def phase_rq1(index, forms) -> None:
+def phase_rq1(index, forms) -> tuple:
     import repro_torch as rt
     from repro_torch.core import BackendDescriptor
     caps = {"unoptimised": None,
@@ -1154,6 +1155,7 @@ def phase_rq1(index, forms) -> None:
     for name, kind in want.items():
         got = rt.compile_pipeline(pipe, bes[name]).kind
         assert got == kind, (name, got)
+    runs = []
     for form, topics in forms.items():
         Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
                             device=DEVICE)
@@ -1169,9 +1171,26 @@ def phase_rq1(index, forms) -> None:
             ovl = topk_overlap(base["docids"], R["docids"], 10)
             if name == "kernels":
                 assert ovl >= 0.99, ovl
+            runs.append((form, name, be, Q, topics, row, R))
             log(f"[rq1] {form:3s} {name:11s} map {row['map']:.4f} ndcg_cut_10 "
                 f"{row['ndcg_cut_10']:.4f} mrt_ms {row['mrt_ms']:.4f} "
                 f"topk_overlap {ovl:.4f}")
+    return pipe, runs
+
+
+def phase_rq1_sequential(pipe, runs) -> None:
+    """RQ1's forms again under ``plan=False``, after the main path's counts
+    are read: the planned default's mrt_ms (a sum of synchronised stages)
+    beside the sequential path's (one synchronised run)."""
+    import torch
+    import repro_torch as rt
+    for form, name, be, Q, topics, row, R in runs:
+        seq = rt.Experiment([pipe], Q, topics.qrels, ["map"], backend=be,
+                            optimize=name != "unoptimised",
+                            measure_time=True, plan=False)
+        assert torch.equal(seq["results"][0]["docids"], R["docids"])
+        log(f"[rq1] {form:3s} {name:11s} mrt_ms plan=True {row['mrt_ms']:.4f}"
+            f" plan=False {seq['table'][0]['mrt_ms']:.4f}")
 
 
 def phase_rq2(index, forms) -> None:
@@ -1209,6 +1228,228 @@ def phase_rq2(index, forms) -> None:
             f"{diff:.3e}")
 
 
+def _l1_pipelines(rt, ltr=None):
+    """Cell L1's pipelines (Listing 1 at the paper's scale): four, and a
+    fifth with ``ltr`` as its learning-to-rank stage when one is given."""
+    bm25 = rt.Retrieve("BM25")
+    pipes = {
+        "bm25": bm25,
+        "prf": bm25 >> rt.RM3Expand(fb_docs=10, fb_terms=10)
+        >> rt.Retrieve("BM25"),
+        "sdm": rt.SDMRewrite() >> rt.StemRewrite() >> rt.Retrieve("BM25"),
+        "fusion": (0.7 * rt.Retrieve("BM25") + 0.3 * rt.Retrieve("QL"))
+        % 1000}
+    if ltr is not None:
+        feats = rt.Extract("QL") ** rt.Extract("TF_IDF") ** rt.Extract("DPH")
+        pipes["ltr"] = (rt.Retrieve("BM25") >> feats) % 1000 >> ltr
+    return pipes
+
+
+def _build_ltr(rt):
+    feats = rt.Extract("QL") ** rt.Extract("TF_IDF") ** rt.Extract("DPH")
+    return ((rt.Retrieve("BM25") >> feats) % 1000
+            >> rt.LTRRerank(n_features=3, epochs=30))
+
+
+def phase_l1(index, forms) -> dict:
+    """Cell L1: Listing 1 on the card.  The 250 T topics split by
+    ``kfold_splits(qids, 2, seed=0)`` into 125 training and 125 test
+    topics; the LTR pipeline is fitted on the first, then a planned
+    ``Experiment(measure_time=True)`` runs the five pipelines on the
+    second.  Reads fused_scoring's launches right after it; then holds
+    the first chunk's rankings against the host's run from the same state
+    and FusedFatRetrieve's features against FatRetrieve's."""
+    import copy
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import ir, tuning
+    from repro_torch.kernels.fused_scoring.ops import fused_scoring
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    train, test = next(tuning.kfold_splits(topics.qids, 2, seed=0))
+    Qtr, Qte = tuning._subset(Q, train), tuning._subset(Q, test)
+    qrels_tr = tuning._subset_qrels(topics.qrels, Qtr)
+    qrels_te = tuning._subset_qrels(topics.qrels, Qte)
+    be = rt.TorchBackend(index, default_k=1000, query_chunk=CHUNK,
+                         device=DEVICE)
+    ltr = rt.LTRRerank(n_features=3, epochs=30)
+    pipes = _l1_pipelines(rt, ltr)
+    t0 = time.perf_counter()
+    pipes["ltr"].fit(Qtr, qrels_tr, backend=be)
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    log(f"[l1] LTRRerank fitted on {len(train)} training topics (30 epochs, "
+        f"K 1000, the per-feature Extract path) in {fit_s:.2f} s; version "
+        f"{ltr.version}")
+    kinds = {name: rt.compile_pipeline(p, be) for name, p in pipes.items()}
+    fusion, lt = kinds["fusion"], kinds["ltr"]
+    assert fusion.kind == "cutoff" and \
+        fusion.inputs[0].kind == "multi_retrieve", fusion.label()
+    assert [o.kind for o in ir.chain(lt)] == ["fused_fat_retrieve", "ltr"]
+    assert lt.inputs[1].ref is ltr          # the fitted stage itself
+
+    fused_scoring.launches = 0
+    res = rt.Experiment(list(pipes.values()), Qte, qrels_te,
+                        ["map", "ndcg_cut_10"], backend=be,
+                        names=list(pipes), measure_time=True)
+    launches = fused_scoring.launches
+    plan = res["plan"]
+    log(f"[l1] plan: {plan.n_stage_executions} stage executions for "
+        f"{plan.n_stage_requests} requests; fused_scoring launches "
+        f"{launches}")
+    assert (plan.n_stage_executions, plan.n_stage_requests) == (9, 10)
+    assert launches > 0, "kernel fused_scoring was not launched on L1"
+    log(rt.format_table(res["table"]))
+    for r in res["stage_table"]:
+        log(f"[l1] stage {json.dumps(r)}")
+    for row, R in zip(res["table"], res["results"]):
+        assert all(math.isfinite(row[m]) for m in ("map", "ndcg_cut_10")), row
+        assert R["docids"].shape == (len(test), 1000), row["name"]
+
+    # the first chunk on the host, from the same index and fitted state
+    host_ltr = rt.LTRRerank(n_features=3, epochs=30)
+    host_ltr.state = copy.deepcopy(ltr.state).cpu()
+    host = rt.TorchBackend(on_host(index), default_k=1000, query_chunk=CHUNK,
+                           device="cpu")
+    Qh = {key: v[:CHUNK].cpu() for key, v in Qte.items()}
+    n_ties = {}
+    for (name, p), R in zip(_l1_pipelines(rt, host_ltr).items(),
+                            res["results"]):
+        Rh = rt.run_pipeline(p, Qh, backend=host)
+        card = {key: v[:CHUNK].cpu() for key, v in R.items()}
+        torch.testing.assert_close(card["scores"], Rh["scores"], rtol=2e-5,
+                                   atol=1e-5)
+        n_ties[name] = _check_docids(Rh["docids"], Rh["scores"],
+                                     card["docids"])
+    log(f"[l1] first chunk of {CHUNK} test topics: the card's rankings equal "
+        f"the host's (plain versions, same fitted state) except inside score"
+        f" ties, ranks by pipeline {n_ties}")
+    fat = rt.FatRetrieve(model="BM25", features=("QL", "TF_IDF", "DPH"),
+                         k=1000)
+    Ru = rt.run_pipeline(fat, Qte, backend=be, optimize=False)
+    Rf = rt.run_pipeline(lt.inputs[0], Qte, backend=be, optimize=False)
+    same = Ru["docids"] == Rf["docids"]
+    agree = float(same.float().mean())
+    assert agree >= 0.99, agree
+    torch.testing.assert_close(Rf["features"][same], Ru["features"][same],
+                               rtol=1e-4, atol=1e-4)
+    diff = float((Rf["features"] - Ru["features"]).abs()[same].max())
+    log(f"[l1] FusedFatRetrieve vs FatRetrieve on the test topics: docid "
+        f"agreement {agree:.5f}, feature_maxdiff {diff:.3e}")
+    return {"be": be, "Q": Q, "Qtr": Qtr, "Qte": Qte, "qrels_tr": qrels_tr,
+            "qrels_te": qrels_te, "fit_s": fit_s, "launches": launches}
+
+
+def phase_tuning(forms, l1) -> None:
+    """Cross-validation of the LTR pipeline (5 folds over the 250 T topics)
+    and a grid search of RM3's feedback depths on the 125 training topics,
+    whose shared Context must run the first-pass Retrieve once."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.transformer import Generic
+    be, topics = l1["be"], forms["T"]
+    t0 = time.perf_counter()
+    cv = rt.CrossValidate(lambda: _build_ltr(rt), l1["Q"], topics.qrels,
+                          k=5, metrics=("map", "ndcg_cut_10"), backend=be)
+    torch.cuda.synchronize()
+    cv_s = time.perf_counter() - t0
+    for m in ("map", "ndcg_cut_10"):
+        assert all(math.isfinite(f[m]) for f in cv["folds"]), cv
+    log(f"[cv] 5 folds of the LTR pipeline over 250 T topics in {cv_s:.2f} s:"
+        f" folds {json.dumps(cv['folds'])}; mean {json.dumps(cv['mean'])}")
+
+    # a counting probe after the first pass: the grid's shared Context
+    # runs it once (6 times without the memo)
+    calls = {"n": 0}
+
+    def counting(Q, R):
+        calls["n"] += 1
+        return Q, R
+
+    first = rt.Retrieve("BM25") >> Generic(fn=counting)
+    t0 = time.perf_counter()
+    grid = rt.GridSearch(
+        lambda fb_terms, fb_docs: first >> rt.RM3Expand(
+            fb_docs=fb_docs, fb_terms=fb_terms) >> rt.Retrieve("BM25"),
+        {"fb_terms": [5, 10, 20], "fb_docs": [5, 10]}, l1["Qtr"],
+        l1["qrels_tr"], metric="map", backend=be)
+    torch.cuda.synchronize()
+    grid_s = time.perf_counter() - t0
+    n_cand = len(grid["table"])
+    assert calls["n"] == 1, calls
+    log(f"[grid] {n_cand} RM3 candidates on {len(l1['Qtr']['qid'])} training"
+        f" topics in {grid_s:.2f} s; the first pass ran once for all of "
+        f"them; best {grid['best_params']} map {grid['best_score']:.4f}; "
+        f"table {json.dumps(grid['table'])}")
+
+
+def phase_planner(forms, l1) -> None:
+    """Cell P1 (the planner's amortisation, ``bench_planner``'s form): three
+    pipelines sharing ``Retrieve("BM25", k=1000)``, planned against
+    sequential with a fresh memo each, warmed, best of 3; then the artifact
+    cache over L1's first three pipelines, twice."""
+    import tempfile
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import Context
+    from repro_torch.core.plan import backend_digest
+    be, topics = l1["be"], forms["T"]
+    Q = l1["Q"]
+    nq = len(topics.qids)
+    pipes = [rt.Retrieve("BM25", k=1000) >> rt.Extract(m)
+             for m in ("QL", "TF_IDF", "DPH")]
+    plan = rt.ExperimentPlan(pipes, be, optimize=False)
+    plan.execute(Q, ctx=Context(be))                # warm-up
+    t_plan = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan.execute(Q, ctx=Context(be))
+        torch.cuda.synchronize()
+        t_plan.append(time.perf_counter() - t0)
+    # sequential: a warmed, synchronised run a pipeline, each with a fresh
+    # memo (no sharing); its mrt_ms summed over the three
+    seq_ms = []
+    for _ in range(3):
+        res = rt.Experiment(pipes, Q, topics.qrels, ["map"], backend=be,
+                            optimize=False, plan=False, share_cache=False,
+                            measure_time=True)
+        seq_ms.append(sum(r["mrt_ms"] for r in res["table"]))
+    assert (plan.n_stage_executions, plan.n_stage_requests) == (4, 6)
+    plan_ms = 1e3 * min(t_plan) / nq
+    log(f"[p1] {plan.n_stage_executions} stage executions for "
+        f"{plan.n_stage_requests} requests; planned mrt_ms {plan_ms:.4f}, "
+        f"sequential mrt_ms {min(seq_ms):.4f}, ratio "
+        f"{min(seq_ms) / plan_ms:.3f} (best of 3, 250 T topics, chunks of "
+        f"{CHUNK})")
+
+    fresh = rt.TorchBackend(be.index, default_k=1000, query_chunk=CHUNK,
+                            device=DEVICE)
+    t0 = time.perf_counter()
+    dig = backend_digest(fresh)
+    dig_s = time.perf_counter() - t0
+    three = list(_l1_pipelines(rt).values())[:3]
+    with tempfile.TemporaryDirectory() as d:
+        runs = []
+        for _ in range(2):
+            cache = rt.ArtifactCache(d)
+            t0 = time.perf_counter()
+            res = rt.Experiment(three, l1["Qte"], l1["qrels_te"], ["map"],
+                                backend=fresh, artifact_cache=cache)
+            runs.append((cache.hits, cache.misses,
+                         time.perf_counter() - t0, res["results"]))
+    (h1, m1, s1, r1), (h2, m2, s2, r2) = runs
+    assert h1 == 0 and h2 > 0, (h1, h2)
+    for a, b in zip(r1, r2):
+        assert torch.equal(a["docids"], b["docids"])
+        assert same_bits(a["scores"], b["scores"])
+    log(f"[cache] backend_digest {dig[:12]} in {dig_s:.2f} s (the index read "
+        f"from the card once); first run {h1} hits / {m1} misses in "
+        f"{s1:.2f} s, second {h2} hits / {m2} misses in {s2:.2f} s; "
+        f"rankings equal bit for bit")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1235,7 +1476,7 @@ def main() -> int:
     fused_scoring.launches = 0
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    phase_rq1(index, forms)
+    rq1 = phase_rq1(index, forms)
     topk_rq1, fs_rq1 = streaming_topk.launches, fused_scoring.launches
     phase_rq2(index, forms)
     launches = {"topk": streaming_topk.launches,
@@ -1246,6 +1487,22 @@ def main() -> int:
         f"{torch.cuda.max_memory_allocated()} bytes")
     for name, n in launches.items():
         assert n > 0, f"kernel {name} was not launched on the main path"
+
+    phase_rq1_sequential(*rq1)
+    del rq1
+
+    # the rest of the paper's Experiment surface (cells L1 and P1):
+    # fused_scoring counted from zero around L1's Experiment, in phase_l1
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    l1 = phase_l1(index, forms)
+    phase_tuning(forms, l1)
+    phase_planner(forms, l1)
+    log(f"[main] L1, CV, grid search, P1 and the artifact cache "
+        f"{time.perf_counter() - t0:.1f} s; fused_scoring launches in L1's "
+        f"Experiment {l1['launches']}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    del l1
 
     state = phase_dense_build(index)
     rows.update(phase_dense_kernels(index, forms, state))

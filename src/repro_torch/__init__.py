@@ -7,6 +7,7 @@ the reference.  Entry points run on the card unless the caller passes
 
     from repro_torch import Experiment, Retrieve, TorchBackend, build_index
     from repro_torch import DenseRerank, DenseRetrieve, Generate
+    from repro_torch import LTRRerank, RM3Expand, CrossValidate, GridSearch
 """
 from repro_torch.core.compiler import TorchBackend, run_pipeline
 from repro_torch.core.data import make_queries
@@ -14,9 +15,13 @@ from repro_torch.core.descriptor import BackendDescriptor
 from repro_torch.core.experiment import Experiment, format_table
 from repro_torch.core.ir import Schema, SchemaError, lower, raise_ir
 from repro_torch.core.passes import compile_pipeline, explain_pipeline
+from repro_torch.core.plan import ArtifactCache, ExperimentPlan
 from repro_torch.core.stages import (DenseRerank, DenseRetrieve, Extract,
                                      FatRetrieve, FusedDenseRerank,
-                                     FusedDenseRetrieve, Generate, Retrieve)
+                                     FusedDenseRetrieve, Generate, LTRRerank,
+                                     MultiRetrieve, Retrieve, RM3Expand,
+                                     SDMRewrite, StemRewrite)
+from repro_torch.core.tuning import CrossValidate, GridSearch
 from repro_torch.index import (build_index, expand_topics, index_from_arrays,
                                synthesize_corpus, synthesize_topics)
 
@@ -24,7 +29,10 @@ __all__ = [
     "TorchBackend", "BackendDescriptor", "compile_pipeline",
     "explain_pipeline", "run_pipeline", "lower", "raise_ir",
     "Schema", "SchemaError", "make_queries", "Experiment", "format_table",
-    "Retrieve", "FatRetrieve", "Extract", "DenseRetrieve", "DenseRerank",
-    "FusedDenseRetrieve", "FusedDenseRerank", "Generate", "build_index", "expand_topics",
-    "index_from_arrays", "synthesize_corpus", "synthesize_topics",
+    "ExperimentPlan", "ArtifactCache", "GridSearch", "CrossValidate",
+    "Retrieve", "MultiRetrieve", "FatRetrieve", "Extract", "DenseRetrieve",
+    "DenseRerank", "FusedDenseRetrieve", "FusedDenseRerank", "LTRRerank",
+    "RM3Expand", "SDMRewrite", "StemRewrite", "Generate", "build_index",
+    "expand_topics", "index_from_arrays", "synthesize_corpus",
+    "synthesize_topics",
 ]

@@ -1,5 +1,6 @@
-"""Declarative IR pipeline framework on PyTorch (the RQ1/RQ2 slice, the
-dense second stage and the RAG answer stage).
+"""Declarative IR pipeline framework on PyTorch: the paper's stage set,
+compiler, Experiment planner and tuning (grid search, cross-validation),
+the dense second stage and the RAG answer stage.
 
     from repro_torch.core import *
     be = TorchBackend(build_index(synthesize_corpus()))
@@ -12,9 +13,12 @@ from repro_torch.core.descriptor import BackendDescriptor  # noqa: F401
 from repro_torch.core.experiment import Experiment, format_table  # noqa: F401
 from repro_torch.core.ir import Op, Schema, SchemaError, lower, raise_ir  # noqa: F401
 from repro_torch.core.passes import compile_pipeline, explain_pipeline  # noqa: F401
+from repro_torch.core.plan import ArtifactCache, ExperimentPlan  # noqa: F401
 from repro_torch.core.stages import (DenseRerank, DenseRetrieve,  # noqa: F401
                                      Extract, FatRetrieve, FusedDenseRerank,
                                      FusedDenseRetrieve, FusedFatRetrieve,
-                                     FusedTopKRetrieve, Generate,
-                                     PrunedRetrieve, Retrieve)
+                                     FusedTopKRetrieve, Generate, LTRRerank,
+                                     MultiRetrieve, PrunedRetrieve, Retrieve,
+                                     RM3Expand, SDMRewrite, StemRewrite)
 from repro_torch.core.transformer import Transformer  # noqa: F401
+from repro_torch.core.tuning import CrossValidate, GridSearch  # noqa: F401

@@ -18,6 +18,7 @@ import dataclasses
 import hashlib
 import weakref
 
+import numpy as np
 import torch
 
 from repro_torch.common import resolve_device, topk
@@ -76,6 +77,10 @@ class TorchBackend:
         self._ivf = ivf
         self.ivf_lists = ivf_lists
         self._ivfpq = ivfpq
+        #: supplied dense state is digested by content, state built here
+        #: by the config it is built from (``plan.backend_digest``)
+        self._external = {"dense": dense is not None, "ivf": ivf is not None,
+                          "ivfpq": ivfpq is not None}
         self.pq_m = int(pq_m)
         self.pq_refine = int(pq_refine)
         #: name -> (LMConfig, TransformerLM): decoder LMs the generate stage
@@ -172,6 +177,19 @@ class TorchBackend:
         if isinstance(outs[0], tuple):
             return tuple(torch.cat(xs, 0) for xs in zip(*outs))
         return torch.cat(outs, 0)
+
+    def label_results(self, Q, R, qrels: dict[int, dict[int, int]]):
+        """Join a result list with qrels -> dense grade matrix [NQ, K]
+        (float32, on this backend's device)."""
+        qids = Q["qid"].cpu().numpy()
+        docids = R["docids"].cpu().numpy()
+        labels = np.zeros(docids.shape, np.float32)
+        for i, q in enumerate(qids):
+            g = qrels.get(int(q), {})
+            if g:
+                labels[i] = [g.get(int(d), 0) if d >= 0 else 0
+                             for d in docids[i]]
+        return torch.as_tensor(labels, device=self.device)
 
 
 # ---------------------------------------------------------------------------
@@ -467,3 +485,36 @@ def run_pipeline(node: Transformer | Op, Q, R=None, *, backend: TorchBackend,
     ctx = ctx or Context(backend)
     Q2, R2, _ = _execute(op, ctx, Q, R)
     return R2 if R2 is not None else Q2
+
+
+def fit_pipeline(root: Transformer, Q_train, qrels_train, Q_valid,
+                 qrels_valid, *, backend: TorchBackend):
+    """Depth-first fit: run the (uncompiled) pipeline; each stateful node
+    receives the (Q, R) flowing into it plus qrels (paper eq. 9 semantics)
+    and fits before it executes."""
+    ctx = Context(backend)
+
+    def walk(node, st, sv):
+        # st / sv: (Q, R, token) train / validation streams
+        if node.kind == "then":
+            for child in node.children:
+                st, sv = walk(child, st, sv)
+            return st, sv
+        # fit children first (they feed this node)
+        for child in node.children:
+            walk(child, st, sv)
+        return _execute_prefit(node, st), \
+            (_execute_prefit(node, sv) if sv is not None else None)
+
+    def _execute_prefit(node, state):
+        Q, R, tok = state
+        if node.stateful:
+            # must fit BEFORE executing (execute needs trained state)
+            node._fit_local(ctx, Q, R, qrels_train, None, None, qrels_valid)
+        return _execute(node, ctx, Q, R, tok)
+
+    sv0 = None
+    if Q_valid is not None:
+        sv0 = (Q_valid, None, ctx.source_token(Q_valid, None))
+    walk(root, (Q_train, None, ctx.source_token(Q_train, None)), sv0)
+    return root

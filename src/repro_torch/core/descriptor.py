@@ -20,11 +20,12 @@ from __future__ import annotations
 
 import dataclasses
 
-#: the full capability set of the torch backend: exactly what the port
-#: implements (block-max pruning, fat postings, and the kernel lowerings:
-#: sparse top-k, fused scoring, dense retrieval, dense rerank, IVF-PQ)
+#: the full capability set of the torch backend, the JAX backend's: block-max
+#: pruning, fat postings, single-pass multi-model retrieval (LinearFusion),
+#: and the kernel lowerings: sparse top-k, fused scoring, dense retrieval,
+#: dense rerank, IVF-PQ
 DEFAULT_CAPABILITIES = frozenset({
-    "pruned_topk", "fat", "fused_topk", "fused_scoring",
+    "pruned_topk", "fat", "multi_model", "fused_topk", "fused_scoring",
     "dense_topk", "fused_dense", "pq_topk",
 })
 

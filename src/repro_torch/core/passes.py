@@ -11,7 +11,8 @@ An explicit ordered pipeline of IR-to-IR passes:
                         to an R-producing expression; generate reads R and
                         its A stream is terminal)
   rewrite             — the equivalence rules (cutoff merge/into-then/
-                        scale-swap/pushdown, fat fusion, scale folding)
+                        scale-swap/pushdown, fat fusion, linear fusion,
+                        scale folding)
                         applied bottom-up to fixpoint against the backend
                         capability descriptor
   cse                 — hash-cons structurally identical subgraphs into
@@ -50,7 +51,7 @@ from repro_torch.obs.tracing import NOOP_TRACER, get_tracer
 # schema inference
 # ---------------------------------------------------------------------------
 
-_RETRIEVER_KINDS = frozenset({"retrieve", "pruned_retrieve",
+_RETRIEVER_KINDS = frozenset({"retrieve", "pruned_retrieve", "multi_retrieve",
                               "fused_topk_retrieve", "dense_retrieve",
                               "fused_dense_retrieve", "fused_dense_rerank"})
 _FAT_KINDS = frozenset({"fat_retrieve", "fused_fat_retrieve"})
@@ -89,6 +90,12 @@ def _stage_schema(op: Op, s_in: Schema | None, backend,
     elif kind == "extract":
         out = Schema("F", k_in, None if s_in is None else (w_in or 0) + 1,
                      True)
+    elif kind in ("sdm_rewrite", "stem_rewrite"):
+        out = Schema("Q", k_in, w_in, False)
+    elif kind == "rm3":
+        out = Schema("Q", k_in, w_in, True)
+    elif kind == "ltr":
+        out = Schema("F", k_in, w_in, True)
     elif kind == "dense_rerank":
         out = Schema("F" if s_in is not None and s_in.out == "F" else "R",
                      k_in, w_in, True)
@@ -193,13 +200,14 @@ class PassContext:
     trace, fusion-gate decisions, CSE table, per-pass IR snapshots and
     timings."""
 
-    def __init__(self, backend, *, keep_snapshots: bool = False):
+    def __init__(self, backend, *, trace: list | None = None,
+                 cse_table: dict | None = None, keep_snapshots: bool = False):
         self.backend = backend
         self.descriptor = as_descriptor(backend)
-        self.trace: list = []
-        #: CSE interning table (one compile; the planner will share one
-        #: across pipelines)
-        self.cse_table: dict = {}
+        self.trace: list = trace if trace is not None else []
+        #: CSE interning table (one compile, or shared by the planner across
+        #: the pipelines of an Experiment)
+        self.cse_table: dict = cse_table if cse_table is not None else {}
         self.decisions: list[dict] = []
         self.snapshots: list[tuple[str, Op]] = []
         self.keep_snapshots = keep_snapshots
@@ -413,6 +421,27 @@ def fat_fusion(op, pctx):
         new_kids = kids[:i] + [fat] + kids[i + 2:]
         return new_kids[0] if len(new_kids) == 1 else Op("then", {}, new_kids)
     return None
+
+
+@ir_rule("linear_fusion", requires="multi_model")
+def linear_fusion(op, pctx):
+    """Σ wᵢ·Retrieve(mᵢ, k) on one index -> MultiRetrieve (one postings
+    pass instead of N — beyond-paper rewrite enabled by score_all).  The
+    uniform-k guard is the equivalence boundary."""
+    if op.kind != "linear":
+        return None
+    ks = set()
+    models = []
+    for c in op.inputs:
+        if c.kind != "retrieve":
+            return None
+        ks.add(c.params["k"])
+        models.append(c.params["model"])
+    if len(ks) != 1 or len(models) < 2:
+        return None
+    return leaf(S.MultiRetrieve(models=tuple(models),
+                                weights=tuple(op.params["weights"]),
+                                k=ks.pop()))
 
 
 @ir_rule("scale_fold")
@@ -644,19 +673,25 @@ def default_passes(descriptor: BackendDescriptor) -> list[Pass]:
 
 
 def compile_pipeline(node: Transformer | Op, backend, *,
-                     optimize: bool = True, report: dict | None = None,
+                     optimize: bool = True, trace: list | None = None,
+                     cse_table: dict | None = None,
+                     report: dict | None = None,
                      pctx: PassContext | None = None) -> Op:
     """Lower a pipeline to IR and (optionally) run the pass pipeline.
 
-    ``optimize=False`` lowers only — the unoptimised semantics.  ``report``
-    (a dict, filled in place) receives per-pass timings and the fusion
-    gate's decisions; ``pctx`` supplies a context of one's own (``explain``
-    keeps its IR snapshots).
+    ``optimize=False`` lowers only — the unoptimised semantics.  ``trace``
+    (a list, appended in place) receives the rewrites as (rule, before,
+    after); ``cse_table`` may be shared across calls to intern ops across
+    pipelines; ``report`` (a dict, filled in place) receives per-pass
+    timings and the fusion gate's decisions; ``pctx`` supplies a context of
+    one's own (``explain`` keeps its IR snapshots) and then carries the
+    trace and CSE table itself — ``trace=`` and ``cse_table=`` keep
+    ``repro.core.passes.compile_pipeline``'s signature.
     """
     op = node if isinstance(node, Op) else lower(node)
     if not optimize:
         return op
-    pctx = pctx or PassContext(backend)
+    pctx = pctx or PassContext(backend, trace=trace, cse_table=cse_table)
     op = PassManager(default_passes(pctx.descriptor)).run(op, pctx)
     if report is not None:
         report["pass_timings_s"] = list(pctx.timings)

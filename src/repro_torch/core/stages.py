@@ -1,9 +1,11 @@
 """Concrete IR transformers (paper Table 1) over the torch backend: the
-sparse stages of the RQ1/RQ2 path, the dense second stage and the RAG
-answer stage.
+sparse stages of the RQ1/RQ2 path, the query rewrites, the learning-to-rank
+stage, the dense second stage and the RAG answer stage.
 
-Leaf stages close over *static* config only.  Execution is batched over the
-query axis and chunked by the backend (``backend.map_query_chunks``).
+Leaf stages close over *static* config only; array state (learned weights)
+lives in ``self.state`` and is trained through ``fit()``.  Execution is
+batched over the query axis and chunked by the backend
+(``backend.map_query_chunks``).
 """
 from __future__ import annotations
 
@@ -61,6 +63,32 @@ class PrunedRetrieve(Transformer):
             return RT.retrieve_pruned(be.index, terms, weights, model=model,
                                       k=k, n_blocks=budget,
                                       max_blocks_per_term=mbt)
+
+        docs, scores = be.map_query_chunks(run, Q)
+        return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
+
+
+class MultiRetrieve(Transformer):
+    """Single-pass weighted multi-model retrieval (created by the
+    LinearFusion rewrite — beyond-paper optimisation)."""
+    kind = "multi_retrieve"
+    reads_results = False
+
+    def __init__(self, models: tuple[str, ...], weights: tuple[float, ...],
+                 k: int | None = None):
+        super().__init__(models=tuple(models), weights=tuple(weights), k=k)
+
+    def execute(self, ctx, Q, R):
+        be = ctx.backend
+        k = min(self.params["k"] or be.default_k, be.index.n_docs)
+        models = self.params["models"]
+        mw = torch.tensor(self.params["weights"], dtype=torch.float32,
+                          device=be.device)
+
+        def run(terms, weights):
+            return RT.retrieve_multi(be.index, terms, weights, mw,
+                                     models=models, k=k,
+                                     max_postings=be.max_postings)
 
         docs, scores = be.map_query_chunks(run, Q)
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -249,6 +277,87 @@ class FusedDenseRerank(Transformer):
 
 
 # ---------------------------------------------------------------------------
+# query rewriting / expansion
+# ---------------------------------------------------------------------------
+
+class SDMRewrite(Transformer):
+    """Sequential-dependence-style rewrite (Q -> Q).
+
+    Positions are not stored in the index, so the proximity operators (#1,
+    #uw8) are adapted as weight redistribution over the original terms
+    (unigram 0.85 emphasis) plus duplicated high-weight lead terms — a
+    rank-affecting, semantics-documented analogue (DESIGN.md §2).
+    """
+    kind = "sdm_rewrite"
+    out_kind = "Q"
+    reads_results = False
+
+    def __init__(self, unigram: float = 0.85):
+        super().__init__(unigram=unigram)
+
+    def execute(self, ctx, Q, R):
+        w = Q["weights"]
+        u = self.params["unigram"]
+        n = (Q["terms"] >= 0).sum(1, keepdim=True).clamp(min=1)
+        lead = torch.arange(w.shape[1], device=w.device) < \
+            (n // 2).clamp(min=1)
+        w2 = w * (u + (1 - u) * 2 * lead)
+        return {**Q, "weights": w2}, R
+
+
+class StemRewrite(Transformer):
+    """Context-sensitive-stemming analogue: adds a same-frequency-band
+    variant term (synthetic stem class neighbour) at reduced weight."""
+    kind = "stem_rewrite"
+    out_kind = "Q"
+    reads_results = False
+
+    def __init__(self, weight: float = 0.4):
+        super().__init__(weight=weight)
+
+    def execute(self, ctx, Q, R):
+        t, w = Q["terms"], Q["weights"]
+        n = (t >= 0).sum(1, keepdim=True)
+        L = t.shape[1]
+        variant = torch.where(t >= 0, t ^ 1, -1)        # stem-class sibling
+        shifted = torch.arange(L, device=t.device) - n
+        take = (shifted >= 0) & (shifted < n)
+        sh = shifted.clamp(0, L - 1)
+        t2 = torch.where(t >= 0, t,
+                         torch.where(take, torch.gather(variant, 1, sh), -1))
+        w2 = torch.where(t >= 0, w,
+                         torch.where(take, torch.gather(w, 1, sh)
+                                     * self.params["weight"], 0.0))
+        return {**Q, "terms": t2, "weights": w2}, R
+
+
+class RM3Expand(Transformer):
+    """Pseudo-relevance-feedback expansion (Q × R -> Q'), paper eq. (5)."""
+    kind = "rm3"
+    out_kind = "Q"          # R passes through untouched
+    reads_results = True    # ... but fb_docs are read from it
+
+    def __init__(self, fb_terms: int = 10, fb_docs: int = 10,
+                 alpha: float = 0.5):
+        super().__init__(fb_terms=fb_terms, fb_docs=fb_docs, alpha=alpha)
+
+    def execute(self, ctx, Q, R):
+        assert R is not None, "RM3 needs retrieved results (use after Retrieve)"
+        be = ctx.backend
+        fb = self.params["fb_docs"]
+
+        def run(terms, weights, docids, scores):
+            return RT.rm3_expand(be.index, terms, weights, docids, scores,
+                                 fb_terms=self.params["fb_terms"],
+                                 alpha=self.params["alpha"],
+                                 max_fwd=be.index.max_fwd_len)
+
+        t2, w2 = be.map_query_chunks(run, Q, R["docids"][:, :fb],
+                                     R["scores"][:, :fb])
+        return {**Q, "terms": t2, "weights": w2}, R
+
+
+# ---------------------------------------------------------------------------
 # feature extraction
 # ---------------------------------------------------------------------------
 
@@ -289,6 +398,65 @@ def _sort_by_scores(R, new_scores):
             R["features"], 1,
             order[..., None].expand(-1, -1, R["features"].shape[-1]))
     return out
+
+
+class LTRRerank(Transformer):
+    """Learning-to-rank stage over feature columns (LambdaMART slot).
+
+    A pairwise-logistic MLP (``models/ltr.py``) trained by plain gradient
+    descent, full batch, for ``epochs`` steps — the xgBoost stage of
+    Listing 1.  The gradient comes from torch autograd where the JAX
+    package takes ``jax.value_and_grad``.  ``state`` is drawn on first use
+    from a generator seeded with ``seed`` on the backend's device (or set,
+    e.g. by ``models.ltr.ltr_state_from_arrays``); each fit bumps
+    ``version``, which is part of the stage's key, so a shared memo never
+    serves scores of an earlier state."""
+    kind = "ltr"
+    stateful = True
+
+    def __init__(self, n_features: int, hidden: int = 32, lr: float = 0.05,
+                 epochs: int = 30, seed: int = 0):
+        super().__init__(n_features=n_features, hidden=hidden, lr=lr,
+                         epochs=epochs, seed=seed)
+        self.state = None
+
+    def _model(self, be):
+        """The state, drawn on the backend's device if there is none yet."""
+        from repro_torch.models import ltr
+        if self.state is None:
+            gen = torch.Generator(device=be.device).manual_seed(
+                self.params["seed"])
+            self.state = ltr.init_state(self.params["n_features"],
+                                        self.params["hidden"], gen)
+        if self.state.device.type != be.device.type:
+            raise ValueError(f"LTRRerank state lies on {self.state.device}, "
+                             f"the backend on {be.device}")
+        return self.state
+
+    def execute(self, ctx, Q, R):
+        assert "features" in R, \
+            "LTRRerank needs feature columns (use ** / Extract)"
+        model = self._model(ctx.backend)
+        with torch.no_grad():
+            s = model(R["features"])
+        s = torch.where(R["docids"] >= 0, s, -torch.inf)
+        return Q, _sort_by_scores(R, s)
+
+    def _fit_local(self, ctx, Q, R, qrels, Q_valid, R_valid, qrels_valid):
+        from repro_torch.models.ltr import pairwise_loss
+        model = self._model(ctx.backend)
+        feats = R["features"]
+        labels = ctx.backend.label_results(Q, R, qrels)      # [NQ, K] float
+        valid = R["docids"] >= 0
+        lr = self.params["lr"]
+        params = [model.w1, model.b1, model.w2]
+        for _ in range(self.params["epochs"]):
+            loss = pairwise_loss(model(feats), labels, valid)
+            grads = torch.autograd.grad(loss, params)
+            with torch.no_grad():
+                for p, g in zip(params, grads):
+                    p.copy_(p - lr * g)
+        self.version += 1
 
 
 class DenseRerank(Transformer):

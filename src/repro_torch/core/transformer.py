@@ -87,10 +87,15 @@ class Transformer:
     # -- training protocol (paper eq. 9) -------------------------------------
     def fit(self, Q_train, qrels_train, Q_valid=None, qrels_valid=None, *,
             backend=None):
-        """The training protocol is not ported yet: the port has no
-        stateful stage, and ``fit_pipeline`` arrives with ``LTRRerank``."""
-        raise NotImplementedError(
-            "fit_pipeline is not ported yet (it arrives with LTRRerank)")
+        """Depth-first: fit every stateful stage, feeding it the output of
+        its upstream prefix (other transformers applied as needed)."""
+        from repro_torch.core.compiler import fit_pipeline
+        fit_pipeline(self, Q_train, qrels_train, Q_valid, qrels_valid,
+                     backend=backend)
+        return self
+
+    def _fit_local(self, ctx, Q, R, qrels, Q_valid, R_valid, qrels_valid):
+        pass  # stateless by default
 
     # -- operators ------------------------------------------------------------
     def __rshift__(self, other):

@@ -17,10 +17,13 @@ target (cf. paper §4):
                           model (fat postings [Macdonald et al.]).  The
                           target of the RQ2 rewrite.
 
-Plus the kernel lowerings ``retrieve_topk_fused`` / ``retrieve_fat_fused``,
-the unoptimised counterpart of fat, ``extract_feature_docvectors``, and the
-dense second stage over sparse candidates, ``retrieve_dense_rerank`` and
-its kernel lowering ``retrieve_dense_rerank_fused``.
+Plus the weighted multi-model pass ``retrieve_multi`` (the LinearFusion
+target), the kernel lowerings ``retrieve_topk_fused`` /
+``retrieve_fat_fused``, the unoptimised counterpart of fat,
+``extract_feature_docvectors``, the dense second stage over sparse
+candidates, ``retrieve_dense_rerank`` and its kernel lowering
+``retrieve_dense_rerank_fused``, and RM3 query expansion,
+``rm3_expand``.
 
 Summation order.  A document's score is the sum of its query terms'
 contributions in query-slot order, as in the reference's scatter-add over
@@ -192,6 +195,26 @@ def retrieve_fat(index: InvertedIndex, terms, weights, *, rank_model: str,
     return _fat_topk(_scatter_slots(index.n_docs, post, all_s), k)
 
 
+def retrieve_multi(index: InvertedIndex, terms, weights, model_weights, *,
+                   models: tuple[str, ...], k: int, max_postings: int):
+    """Weighted multi-model retrieval in ONE postings pass — the target of
+    the LinearFusion rewrite (w1·Retrieve(m1) + w2·Retrieve(m2) fused).
+    ``model_weights`` [F] contracts the per-model scores of each posting
+    before the per-slot scatter, as an elementwise product and a sum over
+    the F models (as a matrix-vector product with F = 2 it took the most
+    device time of the fusion path, ``benchmarks/torch_rq_profile.py``).
+    Returns (docids [NQ, k], scores)."""
+    post = gather_postings(index, terms, max_postings)
+    dl = index.doc_len[post["doc_ids"]]
+    all_s = scoring.score_all(models, post["tfs"], dl,
+                              post["df"][..., None], post["cf"][..., None],
+                              index.stats)
+    s = (all_s * model_weights).sum(-1)
+    s = s * weights[..., None] * post["mask"]
+    top_s, top_d = topk(_scatter_slots(index.n_docs, post, s), k)
+    return top_d.to(torch.int32), top_s
+
+
 # ---------------------------------------------------------------------------
 # kernel-fused retrieval — targets of the IR lowering pass (core/passes.py)
 # ---------------------------------------------------------------------------
@@ -309,3 +332,104 @@ def extract_feature_docvectors(index: InvertedIndex, terms, weights,
     s = s * weights[:, None, :] * (terms >= 0)[:, None, :]
     s = torch.where((docids >= 0)[..., None], s, 0.0)
     return s.sum(dim=2)                                      # [NQ, K]
+
+
+# ---------------------------------------------------------------------------
+# RM3 query expansion via the direct index
+# ---------------------------------------------------------------------------
+
+#: the NaN of the reference's CPU arithmetic (x86's default NaN: sign bit
+#: set, quiet).  The top-k rule orders floats by their bits, so a NaN's sign
+#: decides whether it ranks above +inf or below -inf, and the card's
+#: arithmetic makes NaNs of the other sign
+_REF_NAN_BITS = -0x400000                # 0xffc00000 as int32
+
+
+def _relevance_model(index: InvertedIndex, docids, scores, max_fwd: int):
+    """The RM1 relevance model [NQ, vocab] of the feedback lists docids /
+    scores [NQ, FB]: each feedback document's term distribution weighted by
+    the softmax of its score, summed over the documents.
+
+    The reference adds the flattened [FB, max_fwd] contributions in one
+    scatter, in document order on the CPU.  A document vector holds each
+    term once, so one ``index_add_`` per document, in document order, is
+    free of conflicts and adds in the reference's order on the card too.
+    Positions past a document's length (term 0, tf 0) go to spill columns
+    past the vocabulary instead of term 0: their contributions are zeros
+    (NaN when the document's weight is), and tens of thousands of atomic
+    adds on one address would serialise.  Returns (model, and whether a
+    padded position carried a NaN [NQ], which the reference adds to term
+    0)."""
+    NQ, FB = docids.shape
+    V = index.vocab
+    d = docids.clamp(min=0).long()
+    start = index.fwd_start[d]
+    length = index.fwd_start[d + 1] - start
+    ar = torch.arange(max_fwd, device=docids.device)
+    in_rng = ar < length[..., None]                         # [NQ, FB, L]
+    pos = (start[..., None] + ar).clamp(max=index.fwd_terms.shape[0] - 1)
+    dtfs = torch.where(in_rng, index.fwd_tfs[pos].to(torch.float32), 0.0)
+
+    p_rel = torch.softmax(torch.where(docids >= 0, scores, -torch.inf), 1)
+    p_t_d = dtfs / index.doc_len[d][..., None].to(torch.float32).clamp(min=1.0)
+    w_contrib = p_rel[..., None] * p_t_d                    # [NQ, FB, L]
+
+    width = V + max_fwd
+    col = torch.where(in_rng, index.fwd_terms[pos].long(), V + ar)
+    col = col + (torch.arange(NQ, device=docids.device) * width)[:, None, None]
+    rm = torch.zeros(NQ * width, dtype=torch.float32, device=docids.device)
+    for j in range(FB):
+        rm.index_add_(0, col[:, j].reshape(-1), w_contrib[:, j].reshape(-1))
+    rm = rm.view(NQ, width)
+    return rm[:, :V], rm[:, V:].isnan().any(1)
+
+
+def rm3_expand(index: InvertedIndex, terms, weights, docids, scores, *,
+               fb_terms: int = 10, alpha: float = 0.5, max_fwd: int):
+    """Relevance-model expansion from the feedback docs docids / scores
+    [NQ, FB] of each query (terms / weights [NQ, MAXQ]).
+
+    Returns (new_terms [NQ, MAXQ] int32, new_weights [NQ, MAXQ]) where the
+    expansion terms are appended after the original query terms.
+
+    Two details follow the reference's CPU results exactly.  It zeroes the
+    query's own terms in the model by a scatter-set in which every padded
+    slot writes term 0's own value back, the writes landing in slot order:
+    so term 0 is zeroed only when the last slot that maps to it is a real
+    term 0 — a mask here, not an order-dependent ``index_put_``.  And a
+    query with no feedback document (all docids -1) has NaN document
+    weights, as the reference's softmax over all -inf does; every NaN of
+    the model takes the reference's sign, so the top-k ranks them below
+    every number on either device."""
+    NQ, MAXQ = terms.shape
+    rm, pad_nan = _relevance_model(index, docids, scores, max_fwd)
+    nan = torch.tensor(_REF_NAN_BITS, dtype=torch.int32,
+                       device=rm.device).view(torch.float32)
+    rm = torch.cat([torch.where(pad_nan, torch.nan, rm[:, 0])[:, None],
+                    rm[:, 1:]], 1)
+    rm = torch.where(rm.isnan(), nan, rm)
+
+    # don't re-select original terms
+    real = terms >= 0
+    V = index.vocab
+    zero = torch.zeros((NQ, V + 1), dtype=torch.bool, device=terms.device)
+    zero.scatter_(1, torch.where(terms > 0, terms, V).long(), True)
+    slots = torch.arange(MAXQ, device=terms.device)
+    last0 = torch.where(terms <= 0, slots, -1).amax(1)     # -1: none
+    zero[:, 0] = (last0 >= 0) & (
+        torch.gather(terms, 1, last0.clamp(min=0)[:, None])[:, 0] == 0)
+    rm = torch.where(zero[:, :V], 0.0, rm)
+
+    exp_w, exp_t = topk(rm, fb_terms)
+    exp_w = exp_w / exp_w.sum(1, keepdim=True).clamp(min=1e-9)
+
+    n_orig = real.sum(1)
+    exp_slot = slots == (n_orig[:, None] + torch.arange(
+        fb_terms, device=terms.device))[..., None]          # [NQ, fb, MAXQ]
+    new_terms = torch.where(
+        real, terms, (exp_slot * (exp_t[..., None] + 1)).sum(1) - 1)
+    w_norm = weights / (weights * real).sum(1, keepdim=True).clamp(min=1e-9)
+    new_weights = torch.where(real, alpha * w_norm,
+                              (1 - alpha) * (exp_slot * exp_w[..., None])
+                              .sum(1))
+    return new_terms.to(torch.int32), new_weights

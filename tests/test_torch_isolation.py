@@ -40,6 +40,19 @@ rag = (rt.Retrieve("BM25") >> rt.DenseRerank() % 4
        >> rt.Generate("t", max_new_tokens=3, max_prompt_len=16,
                       prompt_docs=2))
 assert rt.run_pipeline(rag, Q, backend=be)["tokens"].shape == (3, 3)
+import tempfile
+prf = (rt.Retrieve("BM25") >> rt.RM3Expand(fb_docs=3, fb_terms=4)
+       >> rt.Retrieve("BM25")) % 5
+ltr = ((rt.Retrieve("BM25") >> (rt.Extract("QL") ** rt.Extract("DPH"))) % 5
+       >> rt.LTRRerank(n_features=2, epochs=3))
+ltr.fit(Q, topics.qrels, backend=be)
+with tempfile.TemporaryDirectory() as d:
+    for _ in range(2):
+        cache = rt.ArtifactCache(d)
+        res = rt.Experiment([prf, ltr], Q, topics.qrels, ["map"], backend=be,
+                            artifact_cache=cache, measure_time=True)
+    assert cache.hits > 0 and res["plan"].n_stage_executions == 5
+assert res["results"][1]["docids"].shape == (3, 5)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))

@@ -187,16 +187,24 @@ def test_experiment_table_equals_reference(env):
 
 
 def test_experiment_timing_and_planner_refusal(env):
+    """The planner no longer refuses: ``plan=True`` is the default, with
+    the reference's MRT decomposition; ``plan=False`` keeps the sequential
+    path's single ``mrt_ms``."""
     _, tbe = _backends(env, None)
     res = T.Experiment([T.Retrieve("BM25") % 10], env["tQ"],
                        env["topics"].qrels, ["map", "P_5", "recip_rank"],
                        backend=tbe, measure_time=True)
     row = res["table"][0]
     assert row["mrt_ms"] > 0 and set(row) >= {"map", "P_5", "recip_rank"}
+    assert row["compile_ms"] >= 0
+    assert 0 < row["mrt_shared_ms"] <= row["mrt_ms"] + 1e-9
     assert "mrt_ms" in T.format_table(res["table"])
-    with pytest.raises(NotImplementedError, match="plan"):
-        T.Experiment([T.Retrieve("BM25") % 10], env["tQ"],
-                     env["topics"].qrels, backend=tbe, plan=True)
+    assert isinstance(res["plan"], T.ExperimentPlan)
+    seq = T.Experiment([T.Retrieve("BM25") % 10], env["tQ"],
+                       env["topics"].qrels, backend=tbe, plan=False,
+                       measure_time=True)
+    assert seq["table"][0]["mrt_ms"] > 0 and "plan" not in seq
+    assert set(seq["table"][0]) == {"name", "map", "ndcg_cut_10", "mrt_ms"}
 
 
 def test_explain_records_capability_decisions(env):
