@@ -4,7 +4,9 @@ port's RQ1/RQ2 paths, of cell L1's RM3, linear-fusion and
 learning-to-rank pipelines (and the LTR stage's fit), of its dense second stage (brute-force and
 IVF-PQ DenseRetrieve) at TREC Robust04 scale (528,155 documents), and of
 the RAG answer stage's LM (cell G1: Qwen2-1.5B, random weights from seed
-0).
+0), eagerly and as captured CUDA graphs, and of the served path (cell S1:
+a burst of single-query requests, and RAG requests through the decode
+pool).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -14,7 +16,11 @@ It builds the Robust04-scale index and its dense state on the card
 (``repro_torch.index.robust04``), warms every pipeline up once, then
 profiles one timed run of each setting over the 250 T topics (chunks of
 16), and for G1 the prefill of one chunk of 16 prompts of 1,024 tokens
-and its 31 greedy decode steps apart, and prints, per setting:
+and its 31 greedy decode steps apart (the steps also as one captured
+graph), then a ``MultiPipelineServer`` (the engine's default ladder, the
+stage cache off so that each run executes): 250 T topics as single-query
+requests to ``Retrieve("BM25", k=100) >> Extract("QL")``, and 16 to G1's
+pipeline decoded in a pool of 8 slots; and prints, per setting:
 the wall time, the device time summed over kernels, the device's idle
 share of the wall time, the operators with the most device time, and the
 port's own kernels whatever their rank.
@@ -72,17 +78,18 @@ def _profile(name: str, run) -> None:
                   f"{e.count:6d} calls  {e.key[:90]}")
 
 
-def _profile_g1(index, dense, Q) -> None:
+def _profile_g1(index, dense, Q):
     """G1's LM on one chunk of 16 T topics: the prefill, then the decode
-    steps, each profiled apart."""
+    steps (eagerly, and as one captured graph), each profiled apart;
+    returns (cfg, lm)."""
     import dataclasses
     import torch
     import repro_torch as rt
     from repro_torch.configs import qwen2_1_5b
-    from repro_torch.core import Context
+    from repro_torch.core import Context, StageProgram
     from repro_torch.models import transformer_lm as tlm
     cfg = dataclasses.replace(qwen2_1_5b.model_cfg(), attn_impl="pallas")
-    be = rt.TorchBackend(index, dense, default_k=1000, query_chunk=16,
+    be = rt.TorchBackend(index, dense, default_k=1000, bucket_ladder=(16,),
                          device="cuda")
     be.register_lm(cfg.name, cfg, seed=0)
     lm = be.lm(cfg.name)[1]
@@ -102,9 +109,48 @@ def _profile_g1(index, dense, Q) -> None:
             out, _ = tlm.decode_step(cfg, lm, tok, cache, G1_PROMPT + t)
             tok = torch.argmax(out, -1)[:, None]
 
+    def decode_all(lm, tok, cache):
+        for t in range(G1_NEW - 1):
+            out, cache = tlm.decode_step(cfg, lm, tok, cache, G1_PROMPT + t)
+            tok = torch.argmax(out, -1)[:, None]
+        return tok, cache
+
+    prog = StageProgram(key=("g1 decode steps",), fn=decode_all)
     _profile(f"G1 prefill (16 x {G1_PROMPT} tokens, {cfg.name})",
              lambda: tlm.prefill(cfg, lm, prompts, cache))
     _profile(f"G1 decode ({G1_NEW - 1} steps of 16 tokens)", decode)
+    _profile(f"G1 decode, one captured graph ({G1_NEW - 1} steps)",
+             lambda: be.engine.run_pinned(prog, lm, first, cache,
+                                          donate_argnums=(2,)))
+    return cfg, lm
+
+
+def _profile_serve(index, dense, Q, cfg, lm) -> None:
+    """Cell S1's served path, the stage cache off: a burst of 250
+    single-query requests to one tenant, then 16 RAG requests through the
+    decode pool (slot prefills and ragged steps, each a captured graph)."""
+    import repro_torch as rt
+    be = rt.TorchBackend(index, dense, default_k=1000, device="cuda")
+    be.register_lm(cfg.name, cfg, lm)
+    gen = rt.Generate(cfg.name, max_new_tokens=G1_NEW,
+                      max_prompt_len=G1_PROMPT, prompt_docs=G1_DOCS)
+    server = rt.MultiPipelineServer(
+        {"ql": rt.Retrieve("BM25", k=100) >> rt.Extract("QL")}, be,
+        rt.ServeConfig.default(optimize=False, cache_entries=0,
+                               max_queue=4096).with_decode(8))
+    server.add_pipeline(rt.Retrieve("BM25") >> rt.DenseRerank() % 8 >> gen,
+                        name="rag", optimize=True)
+    server.warmup({k: v[:1] for k, v in Q.items()})
+
+    def serve(name, n):
+        server.submit({k: v[:n] for k, v in Q.items()}, pipeline=name)
+        server.pump()
+
+    nq = int(Q["qid"].shape[0])
+    _profile(f"S1 served burst ({nq} requests, Retrieve k=100 >> Extract "
+             f"QL, ladder {be.engine.ladder})", lambda: serve("ql", nq))
+    _profile("S1 served RAG (16 requests, 8 slots, slot prefill + ragged "
+             "decode steps as captured graphs)", lambda: serve("rag", 16))
 
 
 def main() -> int:
@@ -154,8 +200,9 @@ def main() -> int:
             ("D4 IVF-PQ unoptimised", d4, None, False, pq),
             ("D4 IVF-PQ optimised", d4, None, True, pq)]
     for name, pipe, desc, opt, dense_kw in runs:
-        be = rt.TorchBackend(index, dense, default_k=1000, query_chunk=16,
-                             descriptor=desc, device="cuda", **dense_kw)
+        be = rt.TorchBackend(index, dense, default_k=1000,
+                             bucket_ladder=(16,), descriptor=desc,
+                             device="cuda", **dense_kw)
         node = rt.compile_pipeline(pipe, be) if opt else pipe
         _profile(f"{name} ({FORM}, {len(topics.qids)} topics)",
                  lambda: rt.run_pipeline(node, Q, backend=be, optimize=False))
@@ -166,11 +213,12 @@ def main() -> int:
     train, _ = next(tuning.kfold_splits(topics.qids, 2, seed=0))
     Qtr = tuning._subset(Q, train)
     qrels_tr = tuning._subset_qrels(topics.qrels, Qtr)
-    be = rt.TorchBackend(index, default_k=1000, query_chunk=16,
+    be = rt.TorchBackend(index, default_k=1000, bucket_ladder=(16,),
                          device="cuda")
     _profile(f"L1 ltr fit ({len(train)} topics, 30 epochs)",
              lambda: ltr.fit(Qtr, qrels_tr, backend=be))
-    _profile_g1(index, dense, Q)
+    cfg, lm = _profile_g1(index, dense, Q)
+    _profile_serve(index, dense, Q, cfg, lm)
     print(card())
     return 0
 

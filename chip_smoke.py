@@ -20,8 +20,11 @@ the bf16 one beside the library call at shapes around G1's) and runs the
 RAG answer stage at full width (cell G1: ``Retrieve("BM25") >>
 DenseRerank() % 8 >> Generate(...)`` with Qwen2-1.5B, 28 layers, random
 weights from seed 0, 1,024-token prompts and 32 greedy tokens on the 250 T
-topics), and shows through the kernels' launch counters that each main
-path ran on its kernels.
+topics, the greedy decode of each chunk one captured CUDA graph), then
+serves cell S1 (four tenants on one server: two sharing a BM25 prefix in
+the stage cache, a top-10 on the top-k kernel and G1's RAG pipeline in a
+continuous-batching decode pool of captured graphs), and shows through the
+kernels' launch counters that each main path ran on its kernels.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -41,6 +44,10 @@ import time
 from pathlib import Path
 
 CHUNK = 16
+#: the engine's ladder on the backends of the cells RQ1-P1: one rung, the
+#: chunk their readings in PERF.md were taken at (the served cell S1 takes
+#: the default ladder)
+LADDER = (CHUNK,)
 #: where the main path runs (the card; a rehearsal on the CPU may change it)
 DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
@@ -59,6 +66,9 @@ PQ_KS = (1, 10, 32, 33, 80, 128)
 #: cell G1, the RAG answer stage: prompt and decode lengths, documents per
 #: prompt, the reranked depth the prompt reads
 G1_PROMPT, G1_NEW, G1_DOCS, G1_DEPTH = 1024, 32, 4, 8
+#: cell S1, the served path: requests of each SLO burst and their deadline
+#: (benchmarks/serve_bench.py's), RAG requests, decode slots
+S1_SLO, S1_SLO_MS, S1_RAG, S1_SLOTS = 64, 250.0, 32, 8
 #: least share of the 250 T topics whose first generated token the kernel
 #: path and the einsum path agree on (both bf16, same weights).  Both
 #: round the probabilities to bf16 before the PV product (the einsum path
@@ -190,6 +200,37 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+def zero_launches() -> None:
+    """Set every kernel's launch counts to 0: the count its wrapper keeps
+    on the host and the count the kernel keeps on the card."""
+    import torch
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    for w in kernels.wrappers().values():
+        w.launches = 0
+    kernels.device_launches(reset=True)
+
+
+def read_launches(*names) -> dict:
+    """name -> {"device": runs of the kernel counted by the kernel itself
+    on the card, launched or replayed in a captured graph; "host":
+    launches counted by its wrapper on the host, eager or recorded into a
+    graph being captured} since :func:`zero_launches`."""
+    import torch
+    from repro_torch import kernels
+    torch.cuda.synchronize()
+    dev, ws = kernels.device_launches(), kernels.wrappers()
+    return {n: {"device": dev[n], "host": ws[n].launches} for n in names}
+
+
+def assert_eager_launches(counts: dict, where: str) -> None:
+    """On a path that captures no graph the two counts agree, and each
+    kernel ran at least once."""
+    for name, c in counts.items():
+        assert c["device"] == c["host"], (where, name, c)
+        assert c["device"] > 0, f"kernel {name} was not launched on {where}"
 
 
 def signed_zeros(shape, p_pos, g):
@@ -566,7 +607,7 @@ def phase_dense_build(index) -> dict:
         f"{PQ_M} {info['pq_s']:.2f} s (host codebooks + codes); max_list_len "
         f"{ivf.max_list_len}; bytes per document: flat {flat:.2f}, PQ "
         f"{pq:.2f}, reduction {flat / pq:.2f}x")
-    kw = dict(default_k=1000, query_chunk=CHUNK, device=DEVICE)
+    kw = dict(default_k=1000, bucket_ladder=LADDER, device=DEVICE)
     return {"index": index, "dense": dense, "ivf": ivf, "ivfpq": ivfpq,
             "be": rt.TorchBackend(index, dense, ivf=ivf, **kw),
             "be_pq": rt.TorchBackend(index, dense, ivfpq=ivfpq, pq_m=PQ_M,
@@ -824,7 +865,7 @@ def phase_dense(forms, state) -> None:
     host = rt.TorchBackend(on_host(state["index"]), on_host(state["dense"]),
                            ivfpq=on_host(state["ivfpq"]), pq_m=PQ_M,
                            pq_refine=PQ_REFINE, default_k=1000,
-                           query_chunk=CHUNK, device="cpu")
+                           bucket_ladder=LADDER, device="cpu")
     Qh = rt.make_queries(topics.terms, topics.weights, topics.qids,
                          device="cpu")
     Rh = rt.run_pipeline(pipes["D4"][0], Qh, backend=host)
@@ -1005,20 +1046,21 @@ def phase_attention_shapes() -> None:
 
 def phase_generate(index, forms, state) -> dict:
     """Cell G1: the RAG answer stage at full width on the 250 T topics
-    through ``Experiment(measure_time=True)``; reads the launch counters
-    right after it, then times one chunk's prefill and decode apart and
-    runs the einsum attention path on the same weights."""
+    through ``Experiment(measure_time=True)``, the greedy decode of each
+    chunk one captured CUDA graph; reads the launch counters right after
+    it, then times one chunk's prefill and decode apart, eagerly and as
+    captured graphs (whose tokens must equal the eager run's bit for bit),
+    and runs the einsum attention path on the same weights."""
     import dataclasses
     import torch
     import repro_torch as rt
     from repro_torch.configs import qwen2_1_5b
-    from repro_torch.core import Context, ir
-    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
-    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.core import Context, StageProgram, ir
+    from repro_torch.core.stages import greedy_generate_fn
     from repro_torch.models import transformer_lm as tlm
     cfg = dataclasses.replace(qwen2_1_5b.model_cfg(), attn_impl="pallas")
     be = rt.TorchBackend(index, state["dense"], default_k=1000,
-                         query_chunk=CHUNK, device=DEVICE)
+                         bucket_ladder=LADDER, device=DEVICE)
     t0 = time.perf_counter()
     be.register_lm(cfg.name, cfg, seed=0)
     torch.cuda.synchronize()
@@ -1052,22 +1094,23 @@ def phase_generate(index, forms, state) -> dict:
     nq = len(topics.qids)
 
     # the main path: counts from zero, read right after the Experiment
-    flash_attention.launches = 0
-    streaming_dense_topk.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     res = rt.Experiment([pipe], Q, topics.qrels, ["map", "ndcg_cut_10"],
                         backend=be, measure_time=True)
-    launches = {"flash_attention": flash_attention.launches,
-                "dense_topk": streaming_dense_topk.launches}
+    launches = read_launches("flash_attention", "dense_topk")
     row, A = res["table"][0], res["results"][0]
     peak = torch.cuda.max_memory_allocated()
     log(f"[main] G1 {time.perf_counter() - t0:.1f} s (warm-up + timed run);"
-        f" launches: flash_attention {launches['flash_attention']} (28 layers"
-        f" x 16 chunks x 2 runs = 896), dense_topk {launches['dense_topk']};"
-        f" peak device memory {peak} bytes")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the G1 path"
+        f" launches (device: runs on the card, counted by the kernels; "
+        f"host: counted by the wrappers, eager or recorded into a capture) "
+        f"{launches}; flash's expected device count is 28 layers x (16 "
+        f"chunks x 2 runs of the captured graph + the warm-up run before "
+        f"its capture) = 924, host 28 x 2 = 56; graph captures by cause "
+        f"{be.engine.compiles_by_cause()}; peak device memory {peak} bytes")
+    for name, c in launches.items():
+        assert c["device"] > 0, f"kernel {name} did not run on the G1 path"
     tokens = A["tokens"]
     assert tokens.shape == (nq, G1_NEW) and tokens.dtype == torch.int32
     assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
@@ -1091,19 +1134,66 @@ def phase_generate(index, forms, state) -> dict:
         logits, cache = tlm.prefill(cfg, lm, prompts, cache)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
-        tok = torch.argmax(logits, -1)
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        eager = [tok]
         for t in range(G1_NEW - 1):
             logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
                                             G1_PROMPT + t)
-            tok = torch.argmax(logits, -1)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+            eager.append(tok)
         torch.cuda.synchronize()
         times["prefill"].append(t1 - t0)
         times["decode"].append(time.perf_counter() - t1)
     pre, dec = min(times["prefill"]), min(times["decode"])
-    log(f"[generate] one chunk of {CHUNK} (best of 3): prefill {1e3 * pre:.2f}"
-        f" ms = {CHUNK * G1_PROMPT / pre:.0f} tokens/s; {G1_NEW - 1} decode "
-        f"steps {1e3 * dec:.2f} ms = {1e3 * dec / (G1_NEW - 1):.3f} ms/step ="
-        f" {CHUNK * (G1_NEW - 1) / dec:.0f} tokens/s")
+    log(f"[generate] one chunk of {CHUNK}, eager (best of 3): prefill "
+        f"{1e3 * pre:.2f} ms = {CHUNK * G1_PROMPT / pre:.0f} tokens/s; "
+        f"{G1_NEW - 1} decode steps {1e3 * dec:.2f} ms = "
+        f"{1e3 * dec / (G1_NEW - 1):.3f} ms/step = "
+        f"{CHUNK * (G1_NEW - 1) / dec:.0f} tokens/s")
+    # the same program as captured graphs: G1's (prefill + every decode
+    # step, the Experiment's entry), and the decode steps alone, whose
+    # cache the program updates in place
+    eager = torch.stack(eager, dim=1)
+    assert torch.equal(A["tokens"][:CHUNK], eager), \
+        "G1's tokens through the captured graph differ from the eager run"
+    gen_prog = StageProgram(key=(be.uid, generate(cfg.name).key(),
+                                 "generate"), fn=greedy_generate_fn(
+        cfg, max_prompt_len=G1_PROMPT, max_new_tokens=G1_NEW))
+
+    def decode_all(lm, tok, cache):
+        for t in range(G1_NEW - 1):
+            logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
+                                            G1_PROMPT + t)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        return tok, cache
+
+    dec_prog = StageProgram(key=("g1 decode steps",), fn=decode_all)
+    cache = tlm.init_kv_cache(cfg, CHUNK, P, device=DEVICE)
+    tok0 = torch.argmax(tlm.prefill(cfg, lm, prompts, cache)[0],
+                        -1).to(torch.int32)
+    be.engine.run_pinned(dec_prog, lm, tok0, cache, donate_argnums=(2,))
+    g_times = {"program": [], "decode": []}
+    for _ in range(3):
+        for name, call in (
+                ("program", lambda: be.engine.run_pinned(gen_prog, lm,
+                                                         prompts)),
+                ("decode", lambda: be.engine.run_pinned(
+                    dec_prog, lm, tok0, cache, donate_argnums=(2,)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            g_times[name].append(time.perf_counter() - t0)
+            if name == "program":
+                assert torch.equal(out, eager)
+    g_prog, g_dec = min(g_times["program"]), min(g_times["decode"])
+    log(f"[generate] one chunk of {CHUNK}, captured graphs (best of 3): "
+        f"prefill + {G1_NEW - 1} decode steps {1e3 * g_prog:.2f} ms (eager "
+        f"{1e3 * (pre + dec):.2f} ms), tokens bit-equal to the eager run; "
+        f"{G1_NEW - 1} decode steps alone {1e3 * g_dec:.2f} ms = "
+        f"{1e3 * g_dec / (G1_NEW - 1):.3f} ms/step (eager "
+        f"{1e3 * dec / (G1_NEW - 1):.3f}) = "
+        f"{CHUNK * (G1_NEW - 1) / g_dec:.0f} tokens/s")
 
     # the einsum attention path on the card, same weights
     cfg_x = dataclasses.replace(cfg, attn_impl="xla")
@@ -1137,7 +1227,8 @@ def phase_generate(index, forms, state) -> dict:
             f"{gaps[1]} (bf16 logits; spacing 0.5 in [64, 128), 1 in "
             f"[128, 256))")
     assert first >= G1_FIRST_TOKEN_MIN, first
-    return launches
+    return {"launches": launches, "cfg": cfg, "lm": lm, "tokens": tokens,
+            "docids": A["docids"]}
 
 
 def phase_rq1(index, forms) -> tuple:
@@ -1148,7 +1239,7 @@ def phase_rq1(index, forms) -> tuple:
                                                   "fused_scoring"}),
             "full": BackendDescriptor.default()}
     want = {"kernels": "fused_topk_retrieve", "full": "pruned_retrieve"}
-    bes = {name: rt.TorchBackend(index, default_k=1000, query_chunk=CHUNK,
+    bes = {name: rt.TorchBackend(index, default_k=1000, bucket_ladder=LADDER,
                                  descriptor=d, device=DEVICE)
            for name, d in caps.items()}
     pipe = rt.Retrieve("BM25") % 10
@@ -1196,7 +1287,7 @@ def phase_rq1_sequential(pipe, runs) -> None:
 def phase_rq2(index, forms) -> None:
     import torch
     import repro_torch as rt
-    be = rt.TorchBackend(index, default_k=1000, query_chunk=CHUNK,
+    be = rt.TorchBackend(index, default_k=1000, bucket_ladder=LADDER,
                          device=DEVICE)
     pipe = (rt.Retrieve("BM25") >> (rt.Extract("QL") **
                                     rt.Extract("TF_IDF"))) % 1000
@@ -1263,7 +1354,6 @@ def phase_l1(index, forms) -> dict:
     import torch
     import repro_torch as rt
     from repro_torch.core import ir, tuning
-    from repro_torch.kernels.fused_scoring.ops import fused_scoring
     topics = forms["T"]
     Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
                         device=DEVICE)
@@ -1271,7 +1361,7 @@ def phase_l1(index, forms) -> dict:
     Qtr, Qte = tuning._subset(Q, train), tuning._subset(Q, test)
     qrels_tr = tuning._subset_qrels(topics.qrels, Qtr)
     qrels_te = tuning._subset_qrels(topics.qrels, Qte)
-    be = rt.TorchBackend(index, default_k=1000, query_chunk=CHUNK,
+    be = rt.TorchBackend(index, default_k=1000, bucket_ladder=LADDER,
                          device=DEVICE)
     ltr = rt.LTRRerank(n_features=3, epochs=30)
     pipes = _l1_pipelines(rt, ltr)
@@ -1289,17 +1379,17 @@ def phase_l1(index, forms) -> dict:
     assert [o.kind for o in ir.chain(lt)] == ["fused_fat_retrieve", "ltr"]
     assert lt.inputs[1].ref is ltr          # the fitted stage itself
 
-    fused_scoring.launches = 0
+    zero_launches()
     res = rt.Experiment(list(pipes.values()), Qte, qrels_te,
                         ["map", "ndcg_cut_10"], backend=be,
                         names=list(pipes), measure_time=True)
-    launches = fused_scoring.launches
+    launches = read_launches("fused_scoring")
     plan = res["plan"]
     log(f"[l1] plan: {plan.n_stage_executions} stage executions for "
         f"{plan.n_stage_requests} requests; fused_scoring launches "
-        f"{launches}")
+        f"{launches['fused_scoring']}")
     assert (plan.n_stage_executions, plan.n_stage_requests) == (9, 10)
-    assert launches > 0, "kernel fused_scoring was not launched on L1"
+    assert_eager_launches(launches, "L1")
     log(rt.format_table(res["table"]))
     for r in res["stage_table"]:
         log(f"[l1] stage {json.dumps(r)}")
@@ -1310,8 +1400,8 @@ def phase_l1(index, forms) -> dict:
     # the first chunk on the host, from the same index and fitted state
     host_ltr = rt.LTRRerank(n_features=3, epochs=30)
     host_ltr.state = copy.deepcopy(ltr.state).cpu()
-    host = rt.TorchBackend(on_host(index), default_k=1000, query_chunk=CHUNK,
-                           device="cpu")
+    host = rt.TorchBackend(on_host(index), default_k=1000,
+                           bucket_ladder=LADDER, device="cpu")
     Qh = {key: v[:CHUNK].cpu() for key, v in Qte.items()}
     n_ties = {}
     for (name, p), R in zip(_l1_pipelines(rt, host_ltr).items(),
@@ -1424,7 +1514,7 @@ def phase_planner(forms, l1) -> None:
         f"{min(seq_ms) / plan_ms:.3f} (best of 3, 250 T topics, chunks of "
         f"{CHUNK})")
 
-    fresh = rt.TorchBackend(be.index, default_k=1000, query_chunk=CHUNK,
+    fresh = rt.TorchBackend(be.index, default_k=1000, bucket_ladder=LADDER,
                             device=DEVICE)
     t0 = time.perf_counter()
     dig = backend_digest(fresh)
@@ -1450,16 +1540,280 @@ def phase_planner(forms, l1) -> None:
         f"rankings equal bit for bit")
 
 
+def _tenant_latency(reqs) -> dict:
+    """Served requests a second, and p50 / p95 latency (ms), of one
+    tenant's requests, from their traces: served over the span from the
+    first arrival to the last completion."""
+    import numpy as np
+    served = [r for r in reqs if r.result is not None]
+    lat = np.array([r.trace.latency_ms for r in served])
+    span = max(r.trace.t_done for r in reqs) - \
+        min(r.trace.t_arrival for r in reqs)
+    return {"requests": len(reqs), "served": len(served),
+            "served_per_s": round(len(served) / span, 1),
+            "p50_ms": round(float(np.percentile(lat, 50)), 3),
+            "p95_ms": round(float(np.percentile(lat, 95)), 3)}
+
+
+def _results(reqs, key):
+    import numpy as np
+    return np.concatenate([r.result[key] for r in reqs])
+
+
+def _check_pinned_donation() -> None:
+    """A pinned program's captured graph adopts the buffer of its donated
+    argument: replays update the caller's buffer in place, and a call that
+    donates another buffer raises instead of copying it over the first."""
+    import torch
+    from repro_torch.core import StageProgram
+    from repro_torch.core.engine import ShardedQueryEngine
+    eng = ShardedQueryEngine(DEVICE)
+    prog = StageProgram(key=("donation check",),
+                        fn=lambda x, buf: buf.add_(x))
+    a, b = (torch.zeros(1024, device=DEVICE) for _ in range(2))
+    one = torch.ones(1024, device=DEVICE)
+    for _ in range(3):
+        a = eng.run_pinned(prog, one, a, donate_argnums=(1,))
+    assert bool((a == 3).all()), a[:4]
+    try:
+        eng.run_pinned(prog, one, b, donate_argnums=(1,))
+    except ValueError:
+        pass
+    else:
+        raise AssertionError("a foreign donated buffer was copied in")
+    assert bool((b == 0).all()) and bool((a == 3).all())
+    log("[serve] a pinned graph owns its donated buffer: 3 replays added 3 "
+        "in place, another buffer raised and was left untouched")
+
+
+def phase_serve(index, forms, state, g1) -> dict:
+    """Cell S1, the served path: one ``MultiPipelineServer`` over the
+    Robust04-scale index with the engine's default ladder, four tenants —
+    ``ql`` and ``tfidf`` (``Retrieve("BM25", k=100) >> Extract(...)``,
+    unoptimised, so they share the Retrieve prefix in the stage cache),
+    ``top10`` (``Retrieve("BM25") % 10`` on the top-k kernel) and ``rag``
+    (G1's pipeline on G1's LM, decoded in a pool of 8 slots whose prefill
+    and step are captured graphs).  Traffic: warm-up on one T topic, the
+    250 T topics to ql then to tfidf as standing bursts, 32 T topics to
+    rag, and once they decode 64 TD topics each to ql and top10 with
+    serve_bench's 250 ms deadline.  Holds the served results to
+    ``run_pipeline``'s and G1's, asserts zero captures after warm-up and
+    the kernels' launches on the served path, then holds each kernel
+    against its plain version at the served shapes."""
+    import numpy as np
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import BackendDescriptor, ir
+    from repro_torch.core.descriptor import DEFAULT_CAPABILITIES
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    from repro_torch.kernels.topk.ops import streaming_topk
+    from repro_torch.kernels.topk.ref import streaming_topk_ref
+    from repro_torch.serve import DeadlineUnmeetable
+    cfg, lm = g1["cfg"], g1["lm"]
+    # exact top-k without block-max pruning, so that "% 10" lowers onto
+    # the top-k kernel
+    desc = BackendDescriptor.default(DEFAULT_CAPABILITIES - {"pruned_topk"})
+    be = rt.TorchBackend(index, state["dense"], default_k=1000,
+                         descriptor=desc, device=DEVICE)
+    be.register_lm(cfg.name, cfg, lm)
+    gen = rt.Generate(cfg.name, max_new_tokens=G1_NEW,
+                      max_prompt_len=G1_PROMPT, prompt_docs=G1_DOCS)
+    shared = {"ql": rt.Retrieve("BM25", k=100) >> rt.Extract("QL"),
+              "tfidf": rt.Retrieve("BM25", k=100) >> rt.Extract("TF_IDF")}
+    optimised = {"top10": rt.Retrieve("BM25") % 10,
+                 "rag": rt.Retrieve("BM25") >> rt.DenseRerank() % G1_DEPTH
+                 >> gen}
+    server = rt.MultiPipelineServer(
+        shared, be, rt.ServeConfig.default(optimize=False, max_queue=4096)
+        .with_decode(S1_SLOTS))
+    for name, pipe in optimised.items():
+        server.add_pipeline(pipe, name=name, optimize=True)
+    chains = {name: [op.kind for op in ir.chain(rt.compile_pipeline(
+        pipe, be, optimize=name in optimised))]
+        for name, pipe in {**shared, **optimised}.items()}
+    assert chains["top10"] == ["fused_topk_retrieve"], chains
+    assert chains["rag"] == ["fused_dense_rerank", "generate"], chains
+    T, TD = (rt.make_queries(f.terms, f.weights, f.qids, device=DEVICE)
+             for f in (forms["T"], forms["TD"]))
+    nq = int(T["qid"].shape[0])
+
+    def rows(Q, a, b):
+        return {key: val[a:b] for key, val in Q.items()}
+
+    _check_pinned_donation()
+    t0 = time.perf_counter()
+    warm = server.warmup(rows(T, 0, 1))
+    torch.cuda.synchronize()
+    warm_causes = be.engine.compiles_by_cause()
+    log(f"[serve] warm-up {time.perf_counter() - t0:.1f} s: tenants "
+        f"{chains}, ladder {be.engine.ladder}; program-cache entries by "
+        f"cause {warm_causes} (pinned: the decode pool's prefill and step, "
+        f"each a captured CUDA graph); warm-up report {warm}")
+
+    # the served main path: counts from zero, read right after it
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t_main = time.perf_counter()
+    reqs, split = {}, {}
+    for name in shared:
+        t0 = time.perf_counter()
+        reqs[name] = server.submit(T, pipeline=name)
+        t1 = time.perf_counter()
+        server.pump()
+        split[name] = (round(1e3 * (t1 - t0), 3),
+                       round(1e3 * (time.perf_counter() - t1), 3))
+    pool = server._pools["rag"]
+    step_s, inner = [], pool._step
+
+    def timed_step(*args):
+        t0 = time.perf_counter()
+        out = inner(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return out
+
+    pool._step = timed_step
+    reqs["rag"] = server.submit(rows(T, 0, S1_RAG), pipeline="rag")
+    while server.stats()["decode_pools"]["rag"]["active"] == 0:
+        server.step(drain=True)
+    slo = {"ql SLO": [], "top10 SLO": []}
+    at_door = dict.fromkeys(slo, 0)
+    for i in range(S1_SLO):
+        for name in slo:
+            try:
+                slo[name].append(server.submit_one(
+                    rows(TD, i, i + 1), pipeline=name.split()[0],
+                    timeout_ms=S1_SLO_MS))
+            except DeadlineUnmeetable:
+                at_door[name] += 1
+    server.pump()
+    torch.cuda.synchronize()
+    main_s = time.perf_counter() - t_main
+    launches = read_launches("topk", "dense_topk", "flash_attention")
+    peak = torch.cuda.max_memory_allocated()
+    pool._step = inner
+    stats = server.stats()
+    reqs.update(slo)
+    lat = {name: _tenant_latency(r) for name, r in reqs.items()}
+    log(f"[main] S1 {main_s:.1f} s: {json.dumps(lat)}; SLO requests shed "
+        f"at the door {at_door}; launches on the served path (device: "
+        f"runs on the card, replays of the pool's graphs included; host: "
+        f"counted by the wrappers) {launches}; peak device memory {peak} "
+        f"bytes")
+    for name, c in launches.items():
+        assert c["device"] > 0, f"kernel {name} did not run on the served path"
+    # every request ended served, or dropped at its deadline (shed at the
+    # door or at batch close, or expired in the queue): none in error, and
+    # none without a deadline dropped
+    for name, rs in reqs.items():
+        errors = [r.error for r in rs if r.error is not None]
+        assert not errors, (name, errors[:3])
+        lost = [r for r in rs if r.result is None and not r.trace.timed_out]
+        assert not lost, (name, [r.rid for r in lost])
+        if name in slo:
+            n_drop = sum(r.trace.timed_out for r in rs)
+            assert lat[name]["served"] + n_drop + at_door[name] == \
+                S1_SLO, (name, lat[name], n_drop, at_door[name])
+        else:
+            assert lat[name]["served"] == len(rs), (name, lat[name])
+    drops = {name: {"shed at close": sum(r.trace.shed for r in slo[name]),
+                    "expired in queue": sum(r.trace.timed_out
+                                            and not r.trace.shed
+                                            for r in slo[name])}
+             for name in slo}
+    log(f"[serve] SLO bursts of {S1_SLO} requests a tenant: shed at the "
+        f"door {at_door}, deadline drops after admission {drops}; no request"
+        f" in error, every one served or dropped at its deadline")
+    hits = stats["pipelines"]["tfidf"]["cross_pipeline_prefix_hits"]
+    recompiles = stats["recompiles_since_warmup"]
+    steps = np.array(step_s) * 1e3
+    n_tok = sum(len(r.result["tokens"][0]) for r in reqs["rag"])
+    log(f"[serve] tfidf cross_pipeline_prefix_hits {hits} of {nq}; "
+        f"recompiles_since_warmup {recompiles}; program-cache entries by "
+        f"cause {be.engine.compiles_by_cause()}; decode pool of "
+        f"{S1_SLOTS} slots: {len(steps)} steps, {steps.mean():.3f} ms/step "
+        f"mean, {np.median(steps):.3f} median, {steps.min():.3f} min "
+        f"(host clock around each replay and its token read-back; G1 "
+        f"offline decode ms/step above), {n_tok} tokens for {S1_RAG} "
+        f"requests = {1e3 * n_tok / steps.sum():.0f} tokens/s of decode "
+        f"time; engine {stats['engine']['service_ms_ewma']} ms per bucket;"
+        f" bursts (submit ms, pump ms) {split}; {stats['batches']} batches "
+        f"of {stats['mean_batch_size']} requests on average")
+    assert hits == nq, hits
+    assert recompiles == 0, recompiles
+
+    # served results against the offline ones
+    for name, pipe in shared.items():
+        want = rt.run_pipeline(pipe, T, backend=be, optimize=False)
+        for key in ("docids", "scores", "features"):
+            got = torch.as_tensor(_results(reqs[name], key))
+            assert same_bits(got, want[key].cpu()), (name, key)
+    pos = {q: j for j, q in enumerate(TD["qid"].tolist())}
+    for name, pipe, opt in (("ql SLO", shared["ql"], False),
+                            ("top10 SLO", optimised["top10"], True)):
+        served = [r for r in slo[name] if r.result is not None]
+        sel = torch.tensor([pos[r.qid] for r in served])
+        want = rt.run_pipeline(pipe, TD, backend=be, optimize=opt)
+        for key in ("docids", "scores"):
+            got = torch.as_tensor(_results(served, key))
+            assert same_bits(got, want[key].cpu()[sel]), (name, key)
+    got_d = torch.as_tensor(_results(reqs["rag"], "docids"))
+    got_t = torch.as_tensor(_results(reqs["rag"], "tokens"))
+    want_t = g1["tokens"][:S1_RAG].cpu()
+    assert torch.equal(got_d, g1["docids"][:S1_RAG].cpu())
+    first = float((got_t[:, 0] == want_t[:, 0]).float().mean())
+    whole = float((got_t == want_t).all(1).float().mean())
+    log(f"[serve] served rankings and features equal run_pipeline's bit for "
+        f"bit (ql, tfidf, ql SLO, top10 SLO); rag docids equal G1's; rag "
+        f"tokens (ragged decode in the pool) vs G1's (batch decode): first "
+        f"token agrees on {first:.4f} of {S1_RAG}, all {G1_NEW} on "
+        f"{whole:.4f}")
+    assert first >= G1_FIRST_TOKEN_MIN, first
+
+    # each kernel against its plain version at the served shapes: a full
+    # bucket of BM25 rows for the top-k, the rag tenant's gathered
+    # candidates for dense_topk, one slot's prefill for flash attention
+    g = torch.Generator(device=DEVICE).manual_seed(2)
+    scores = torch.rand(be.engine.ladder[-1], index.n_docs, device=DEVICE,
+                        generator=g)
+    v1, i1 = streaming_topk(scores, k=10)
+    v2, i2 = streaming_topk_ref(scores, k=10)
+    assert same_bits(v1, v2) and torch.equal(i1.long(), i2.long())
+    emb = state["dense"].emb
+    docs = torch.randint(0, index.n_docs, (be.engine.ladder[-1], 1000),
+                         device=DEVICE, generator=g)
+    qv = torch.randn(be.engine.ladder[-1], emb.shape[1], device=DEVICE,
+                     generator=g)
+    base = torch.zeros(docs.shape, device=DEVICE)
+    v1, i1 = streaming_dense_topk(emb[docs], qv, base, k=G1_DEPTH)
+    v2, i2 = dense_topk_ref(emb[docs], qv, base, k=G1_DEPTH)
+    torch.testing.assert_close(v1, v2, rtol=1e-5, atol=1e-5)
+    n_ties = _check_docids(i2, v2, i1, rtol=1e-5, atol=1e-5)
+    q = torch.randn(1, G1_PROMPT, cfg.n_q, cfg.d_head, device=DEVICE,
+                    generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(1, G1_PROMPT, cfg.n_kv, cfg.d_head, device=DEVICE,
+                        generator=g).to(torch.bfloat16) for _ in range(2))
+    diff = float((flash_attention(q, k, v, causal=True).float()
+                  - flash_attention_ref(q, k, v, causal=True).float())
+                 .abs().max())
+    assert diff <= 2e-2, diff
+    log(f"[serve] kernels at the served shapes: topk [{scores.shape[0]}, "
+        f"{index.n_docs}] k=10 bit-equal to its plain version; dense_topk "
+        f"{tuple(emb[docs].shape)} k={G1_DEPTH} within 1e-5 ({n_ties} "
+        f"rank(s) inside a tie); flash_attention q {tuple(q.shape)} bf16 "
+        f"within {diff:.4f} of its plain version (2e-2)")
+    return launches
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
-    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
-    from repro_torch.kernels.fused_scoring.ops import fused_scoring
-    from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
-    from repro_torch.kernels.topk.ops import streaming_topk
 
     # the plain versions' matmuls in full fp32, as the kernels compute
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1471,22 +1825,20 @@ def main() -> int:
     index, forms = phase_index()
     rows = phase_kernels(index, forms)
 
-    # the main path: counts from zero, read right after RQ1 + RQ2
-    streaming_topk.launches = 0
-    fused_scoring.launches = 0
+    # the main path: counts from zero, read right after RQ1 + RQ2.  Each
+    # kernel's "launches" in the kernels line is the count its kernel keeps
+    # on the card, summed over the main paths' windows
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     rq1 = phase_rq1(index, forms)
-    topk_rq1, fs_rq1 = streaming_topk.launches, fused_scoring.launches
+    at_rq1 = read_launches("topk", "fused_scoring")
     phase_rq2(index, forms)
-    launches = {"topk": streaming_topk.launches,
-                "fused_scoring": fused_scoring.launches}
-    log(f"[main] RQ1+RQ2 {time.perf_counter() - t0:.1f} s; launches: topk "
-        f"{launches['topk']} (RQ1 {topk_rq1}), fused_scoring "
-        f"{launches['fused_scoring']} (RQ1 {fs_rq1}); peak device memory "
+    windows = [read_launches("topk", "fused_scoring")]
+    log(f"[main] RQ1+RQ2 {time.perf_counter() - t0:.1f} s; launches "
+        f"{windows[-1]} (RQ1 {at_rq1}); peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
-    for name, n in launches.items():
-        assert n > 0, f"kernel {name} was not launched on the main path"
+    assert_eager_launches(windows[-1], "the RQ1+RQ2 path")
 
     phase_rq1_sequential(*rq1)
     del rq1
@@ -1496,37 +1848,45 @@ def main() -> int:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     l1 = phase_l1(index, forms)
+    windows.append(l1["launches"])
     phase_tuning(forms, l1)
     phase_planner(forms, l1)
     log(f"[main] L1, CV, grid search, P1 and the artifact cache "
         f"{time.perf_counter() - t0:.1f} s; fused_scoring launches in L1's "
-        f"Experiment {l1['launches']}; peak device memory "
+        f"Experiment {l1['launches']['fused_scoring']}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
     del l1
 
     state = phase_dense_build(index)
     rows.update(phase_dense_kernels(index, forms, state))
     # the dense main path: counts from zero, read right after D1-D4
-    streaming_dense_topk.launches = 0
-    streaming_pq_topk.launches = 0
+    zero_launches()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     phase_dense(forms, state)
-    dense = {"dense_topk": streaming_dense_topk.launches,
-             "pq_topk": streaming_pq_topk.launches}
-    log(f"[main] dense D1-D4 {time.perf_counter() - t0:.1f} s; launches: "
-        f"dense_topk {dense['dense_topk']}, pq_topk {dense['pq_topk']}; peak "
-        f"device memory {torch.cuda.max_memory_allocated()} bytes")
-    for name, n in dense.items():
-        assert n > 0, f"kernel {name} was not launched on the dense path"
-    launches.update(dense)
+    windows.append(read_launches("dense_topk", "pq_topk"))
+    log(f"[main] dense D1-D4 {time.perf_counter() - t0:.1f} s; launches "
+        f"{windows[-1]}; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} bytes")
+    assert_eager_launches(windows[-1], "the dense path")
 
     rows.update(phase_attention_kernels())
     phase_attention_shapes()
     # the RAG main path (cell G1): its counts are set to zero and read
     # inside phase_generate, around its Experiment
     g1 = phase_generate(index, forms, state)
-    launches["flash_attention"] = g1["flash_attention"]
+    windows.append(g1["launches"])
+    # the served main path (cell S1): its counts are set to zero and read
+    # inside phase_serve, around its traffic, and added to each kernel's
+    t0 = time.perf_counter()
+    windows.append(phase_serve(index, forms, state, g1))
+    log(f"[main] S1 phase {time.perf_counter() - t0:.1f} s")
+    launches = {}
+    for w in windows:
+        for name, c in w.items():
+            tot = launches.setdefault(name, {"device": 0, "host": 0})
+            for side in tot:
+                tot[side] += c[side]
 
     log(json.dumps({"tpu_kernels": [
         {"function": f, "status": s, "replaces": r}
@@ -1551,7 +1911,9 @@ def main() -> int:
     for name, (row, src, rep) in sources.items():
         r = rows[row]
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": rep, "launches": launches[name],
+                        "replaces": rep,
+                        "launches": launches[name]["device"],
+                        "host_launches": launches[name]["host"],
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": r["bound_by"],

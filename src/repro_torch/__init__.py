@@ -8,10 +8,12 @@ the reference.  Entry points run on the card unless the caller passes
     from repro_torch import Experiment, Retrieve, TorchBackend, build_index
     from repro_torch import DenseRerank, DenseRetrieve, Generate
     from repro_torch import LTRRerank, RM3Expand, CrossValidate, GridSearch
+    from repro_torch import MultiPipelineServer, PipelineServer, ServeConfig
 """
 from repro_torch.core.compiler import TorchBackend, run_pipeline
 from repro_torch.core.data import make_queries
 from repro_torch.core.descriptor import BackendDescriptor
+from repro_torch.core.engine import ShardedQueryEngine
 from repro_torch.core.experiment import Experiment, format_table
 from repro_torch.core.ir import Schema, SchemaError, lower, raise_ir
 from repro_torch.core.passes import compile_pipeline, explain_pipeline
@@ -24,9 +26,12 @@ from repro_torch.core.stages import (DenseRerank, DenseRetrieve, Extract,
 from repro_torch.core.tuning import CrossValidate, GridSearch
 from repro_torch.index import (build_index, expand_topics, index_from_arrays,
                                synthesize_corpus, synthesize_topics)
+from repro_torch.serve import (DeadlineUnmeetable, MultiPipelineServer,
+                               PipelineServer, ServeConfig, StageResultCache)
 
 __all__ = [
-    "TorchBackend", "BackendDescriptor", "compile_pipeline",
+    "TorchBackend", "BackendDescriptor", "ShardedQueryEngine",
+    "compile_pipeline",
     "explain_pipeline", "run_pipeline", "lower", "raise_ir",
     "Schema", "SchemaError", "make_queries", "Experiment", "format_table",
     "ExperimentPlan", "ArtifactCache", "GridSearch", "CrossValidate",
@@ -34,5 +39,6 @@ __all__ = [
     "DenseRerank", "FusedDenseRetrieve", "FusedDenseRerank", "LTRRerank",
     "RM3Expand", "SDMRewrite", "StemRewrite", "Generate", "build_index",
     "expand_topics", "index_from_arrays", "synthesize_corpus",
-    "synthesize_topics",
+    "synthesize_topics", "PipelineServer", "MultiPipelineServer",
+    "ServeConfig", "DeadlineUnmeetable", "StageResultCache",
 ]

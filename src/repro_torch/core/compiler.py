@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
+import os
 import weakref
 
 import numpy as np
@@ -23,6 +25,7 @@ import torch
 
 from repro_torch.common import resolve_device, topk
 from repro_torch.core.descriptor import BackendDescriptor
+from repro_torch.core.engine import ShardedQueryEngine, StageProgram
 from repro_torch.core.ir import Op, lower
 from repro_torch.core.transformer import Transformer
 from repro_torch.index.inverted import BLOCK, InvertedIndex
@@ -32,11 +35,16 @@ from repro_torch.index.inverted import BLOCK, InvertedIndex
 # backend
 # ---------------------------------------------------------------------------
 
+#: monotonic backend ids that scope the engine's cache keys (an id() would
+#: be recycled)
+_BACKEND_UID = itertools.count()
+
+
 class TorchBackend:
     """Execution backend over the torch index: capability descriptor plus
-    chunked query execution on one device, the dense second stage's state
-    (embeddings, query projection, IVF and IVF-PQ indexes) and the
-    generate stage's LMs (``register_lm``).
+    bucketed query execution on one device (the engine), the dense second
+    stage's state (embeddings, query projection, IVF and IVF-PQ indexes)
+    and the generate stage's LMs (``register_lm``).
 
     The optimisation surface consulted by the rewrite/fusion passes lives
     on ``self.descriptor``; pass ``descriptor=BackendDescriptor.default(
@@ -47,21 +55,33 @@ class TorchBackend:
     nothing for it: ``dense`` (pass one to share it across backends), the
     query projection (the same draws as the embeddings' projection), the
     IVF-flat index with ``ivf_lists`` lists and the IVF-PQ index with
-    ``pq_m`` subspaces (``ivf=`` / ``ivfpq=`` supply ready ones)."""
+    ``pq_m`` subspaces (``ivf=`` / ``ivfpq=`` supply ready ones).
+
+    Stages run through a :class:`~repro_torch.core.engine
+    .ShardedQueryEngine` with the ladder ``bucket_ladder``, or ``engine=``
+    to share one.  Without ``bucket_ladder`` the ladder is
+    ``(query_chunk,)`` when ``query_chunk`` is given, so the engine chunks
+    the query axis as the sequential loop does, and ``(8, 16, 32)`` when
+    neither is.  ``sharded=False``, or ``REPRO_ENGINE=sequential`` in the
+    environment, keeps the unpadded loop over chunks of ``query_chunk``
+    queries (16 when not given) instead."""
 
     def __init__(self, index: InvertedIndex, dense=None, *,
-                 default_k: int = 1000, query_chunk: int = 16,
+                 default_k: int = 1000, query_chunk: int | None = None,
                  descriptor: BackendDescriptor | None = None, device=None,
-                 ivf=None, ivf_lists: int | None = None, ivfpq=None,
-                 pq_m: int = 8, pq_refine: int = 4):
+                 sharded: bool | None = None,
+                 engine: ShardedQueryEngine | None = None,
+                 bucket_ladder=None, ivf=None, ivf_lists: int | None = None,
+                 ivfpq=None, pq_m: int = 8, pq_refine: int = 4):
         self.device = resolve_device(device)
+        self.uid = next(_BACKEND_UID)
         if index.device != self.device:
             index = dataclasses.replace(
                 index, **{n: a.to(self.device)
                           for n, a in index.arrays().items()})
         self.index = index
         self.default_k = min(default_k, index.n_docs)
-        self.query_chunk = query_chunk
+        self.query_chunk = 16 if query_chunk is None else int(query_chunk)
         self.descriptor = (descriptor if descriptor is not None
                            else BackendDescriptor.default())
         # stopwords are removed at index time (build_index), so the global
@@ -86,6 +106,13 @@ class TorchBackend:
         #: name -> (LMConfig, TransformerLM): decoder LMs the generate stage
         #: resolves by name, so its IR params stay scalar
         self._lms: dict = {}
+        if sharded is None:
+            sharded = os.environ.get("REPRO_ENGINE", "sharded") != "sequential"
+        if bucket_ladder is None and query_chunk is not None:
+            bucket_ladder = (self.query_chunk,)
+        self.engine = (engine if engine is not None
+                       else ShardedQueryEngine(self.device, ladder=bucket_ladder)
+                       if sharded else None)
 
     # -- generate-stage LMs --------------------------------------------------
     def register_lm(self, name: str, cfg, params=None, *, seed: int = 0):
@@ -164,11 +191,34 @@ class TorchBackend:
         from repro_torch.index.dense import embed_queries
         return embed_queries(self._qproj, Q["terms"], Q["weights"])
 
-    def map_query_chunks(self, fn, Q, *extra):
-        """Run the batched ``fn(terms, weights, *extra)`` on chunks of
-        ``query_chunk`` queries and concatenate its outputs (a tensor or a
-        tuple of tensors) along the query axis."""
-        args = (Q["terms"], Q["weights"]) + extra
+    def map_query_chunks(self, fn, Q, *extra, key=None):
+        """Run the batched ``fn(terms, weights, *extra)`` (``fn(*extra)``
+        when Q is None) over the query axis and return its outputs (a
+        tensor or a tuple of tensors) for all queries.  Routed through the
+        engine when there is one (the default); ``key`` (the stage's
+        structural key) names the engine's cache entry, scoped by this
+        backend's uid: stage keys do not embed the index, which ``fn``
+        closes over, so an engine shared across backends would otherwise
+        mix them.  Without an engine, the sequential loop."""
+        if self.engine is not None:
+            scoped = None if key is None else (self.uid, key)
+            return self.engine.run(StageProgram(key=scoped, fn=fn), Q, *extra)
+        return self.map_query_chunks_sequential(fn, Q, *extra)
+
+    def barrier(self, tree=None):
+        """Wait until the device has computed ``tree`` (the engine's
+        barrier, a synchronize of the card; nothing on the CPU)."""
+        if self.engine is not None:
+            return self.engine.barrier(tree)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return tree
+
+    def map_query_chunks_sequential(self, fn, Q, *extra):
+        """The unpadded loop over chunks of ``query_chunk`` queries, their
+        outputs concatenated along the query axis: the engine's baseline
+        and escape hatch (``REPRO_ENGINE=sequential``)."""
+        args = ((Q["terms"], Q["weights"]) if Q is not None else ()) + extra
         nq = args[0].shape[0]
         if nq == 0:
             raise ValueError("empty query batch")

@@ -14,9 +14,9 @@ Timing semantics: with ``measure_time=True`` the plan runs twice — a cold
 pass (kernel builds and first-call costs happen here) and a steady-state
 pass with a fresh memo — and ``mrt_ms`` reports the steady pass: the sum of
 each stage's wall clock on the pipeline's path per query, every stage
-ended by ``torch.cuda.synchronize()`` on a CUDA backend.  ``compile_ms``
-is the cold pass's excess, ``mrt_shared_ms`` splits each stage over the
-pipelines sharing it.  The sequential path's ``mrt_ms`` is one
+ended by the backend's barrier (``torch.cuda.synchronize()`` on a CUDA
+backend).  ``compile_ms`` is the cold pass's excess, ``mrt_shared_ms``
+splits each stage over the pipelines sharing it.  The sequential path's ``mrt_ms`` is one
 synchronised run of the whole pipeline after a warm-up run, per query.
 """
 from __future__ import annotations
@@ -24,8 +24,6 @@ from __future__ import annotations
 import time
 from pathlib import Path
 from typing import Sequence
-
-import torch
 
 from repro_torch.core import measures as M
 from repro_torch.core.compiler import Context, TorchBackend, run_pipeline
@@ -85,8 +83,7 @@ def _experiment_planned(pipelines, topics, qrels, metrics, backend, names,
 def _experiment_sequential(pipelines, topics, qrels, metrics, backend, names,
                            optimize, measure_time, share_cache) -> dict:
     """The pre-planner path (``plan=False``)."""
-    sync = (torch.cuda.synchronize if backend.device.type == "cuda"
-            else (lambda: None))
+    sync = backend.barrier
     shared = Context(backend)
     rows, results = [], []
     for name, pipe in zip(names, pipelines):

@@ -13,9 +13,10 @@ per query set.
 Per trie node the planner records wall-clock for a cold pass (first calls,
 kernel builds) and a steady-state pass, so an Experiment's MRT decomposes
 into ``compile`` / ``execute`` / ``shared-amortised`` components.  On the
-card a recorded (or persisted) stage ends with ``torch.cuda.synchronize()``,
-so its wall clock covers its device work, not only its enqueueing; an
-unrecorded pass stays asynchronous.
+card a recorded (or persisted) stage ends with the backend's barrier (the
+engine's ``barrier``, a ``torch.cuda.synchronize()``), so its wall clock
+covers its device work, not only its enqueueing; an unrecorded pass stays
+asynchronous.
 
 Stage outputs can additionally be spilled to an on-disk
 :class:`ArtifactCache` keyed by ``(prefix key, query-set digest, backend
@@ -329,8 +330,6 @@ class ExperimentPlan:
         tracer = (get_tracer() if getattr(desc, "observability", False)
                   else NOOP_TRACER)
         device = self.backend.device
-        sync = (torch.cuda.synchronize if device.type == "cuda"
-                else (lambda: None))
         qtok = ctx.source_token(Q, None)
         idx_dig = backend_digest(self.backend) if cache is not None else None
         results: list = [None] * len(self._leaves)
@@ -356,7 +355,7 @@ class ExperimentPlan:
                 # barrier only at stage boundaries the caller needs timed
                 # (or persisted); untimed runs stay asynchronous
                 if record is not None or ck is not None:
-                    sync()
+                    self.backend.barrier((Qo, Ro))
                 child.cache_hit = False
                 if ck is not None:
                     cache.store(ck, Qo, Ro)
@@ -382,10 +381,16 @@ class ExperimentPlan:
                     sp.set(cache_hit=child.cache_hit)
                     visit(child, *out)
 
-        with tracer.span("plan.execute", "plan",
-                         n_stage_executions=self.n_stage_executions,
-                         n_stage_requests=self.n_stage_requests):
-            visit(self.root, Q, None, qtok)
+        try:
+            with tracer.span("plan.execute", "plan",
+                             n_stage_executions=self.n_stage_executions,
+                             n_stage_requests=self.n_stage_requests):
+                visit(self.root, Q, None, qtok)
+        finally:
+            # visit calls itself through its own closure cell: a reference
+            # cycle that would hold ctx, its memo and the backend (on the
+            # card, the engine's captured graphs) until a collection pass
+            visit = None
         return results
 
     # -- timing attribution --------------------------------------------------

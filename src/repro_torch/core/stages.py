@@ -4,8 +4,8 @@ stage, the dense second stage and the RAG answer stage.
 
 Leaf stages close over *static* config only; array state (learned weights)
 lives in ``self.state`` and is trained through ``fit()``.  Execution is
-batched over the query axis and chunked by the backend
-(``backend.map_query_chunks``).
+batched over the query axis and bucketed by the backend's engine
+(``backend.map_query_chunks``, keyed by the stage's ``key()``).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ class Retrieve(Transformer):
             return RT.retrieve_topk(be.index, terms, weights, model=model,
                                     k=k, max_postings=be.max_postings)
 
-        docs, scores = be.map_query_chunks(run, Q)
+        docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -64,7 +64,7 @@ class PrunedRetrieve(Transformer):
                                       k=k, n_blocks=budget,
                                       max_blocks_per_term=mbt)
 
-        docs, scores = be.map_query_chunks(run, Q)
+        docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -90,7 +90,7 @@ class MultiRetrieve(Transformer):
                                      models=models, k=k,
                                      max_postings=be.max_postings)
 
-        docs, scores = be.map_query_chunks(run, Q)
+        docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -114,7 +114,7 @@ class FatRetrieve(Transformer):
                 feature_models=self.params["features"], k=k,
                 max_postings=be.max_postings)
 
-        docs, scores, feats = be.map_query_chunks(run, Q)
+        docs, scores, feats = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores,
                    "features": feats}
 
@@ -140,7 +140,7 @@ class FusedTopKRetrieve(Transformer):
                                           model=model, k=k,
                                           max_postings=be.max_postings)
 
-        docs, scores = be.map_query_chunks(run, Q)
+        docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -165,7 +165,7 @@ class FusedFatRetrieve(Transformer):
                 feature_models=self.params["features"], k=k,
                 max_postings=be.max_postings)
 
-        docs, scores, feats = be.map_query_chunks(run, Q)
+        docs, scores, feats = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores,
                    "features": feats}
 
@@ -188,7 +188,8 @@ class DenseRetrieve(Transformer):
         be = ctx.backend
         k = min(self.params["k"] or be.default_k, be.index.n_docs)
         return _dense_retrieve(be, Q, k=k, nprobe=self.params["nprobe"],
-                               pq=self.params["pq"], fused=False)
+                               pq=self.params["pq"], fused=False,
+                               key=self.key())
 
 
 class FusedDenseRetrieve(Transformer):
@@ -212,11 +213,12 @@ class FusedDenseRetrieve(Transformer):
         k = min(self.params["k"], be.index.n_docs)
         return _dense_retrieve(be, Q, k=k, nprobe=self.params["nprobe"],
                                pq=self.params["pq"], fused=True,
-                               shortlist=self.params["pq_shortlist"])
+                               shortlist=self.params["pq_shortlist"],
+                               key=self.key())
 
 
 def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
-                    shortlist: int | None = None):
+                    key, shortlist: int | None = None):
     """The search both dense retrieval stages run, chunk by chunk: IVF-PQ
     (``nprobe`` and ``pq``), IVF-flat (``nprobe``) or brute force."""
     from repro_torch.index import dense as DN
@@ -241,7 +243,7 @@ def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
         qv = be.embed_queries({"terms": terms, "weights": weights})
         return search(state, qv, k=k, **kw)
 
-    docs, scores = be.map_query_chunks(run, Q)
+    docs, scores = be.map_query_chunks(run, Q, key=key)
     return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -272,7 +274,7 @@ class FusedDenseRerank(Transformer):
                 k_in=k_in, k=k, alpha=p["alpha"],
                 max_postings=be.max_postings)
 
-        docs, scores = be.map_query_chunks(run, Q)
+        docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
 
 
@@ -353,7 +355,7 @@ class RM3Expand(Transformer):
                                  max_fwd=be.index.max_fwd_len)
 
         t2, w2 = be.map_query_chunks(run, Q, R["docids"][:, :fb],
-                                     R["scores"][:, :fb])
+                                     R["scores"][:, :fb], key=self.key())
         return {**Q, "terms": t2, "weights": w2}, R
 
 
@@ -377,7 +379,8 @@ class Extract(Transformer):
                 be.index, terms, weights, docids, model=self.params["model"],
                 max_fwd=be.index.max_fwd_len)
 
-        f = be.map_query_chunks(run, Q, R["docids"])[..., None]  # [NQ, K, 1]
+        f = be.map_query_chunks(run, Q, R["docids"],
+                                key=self.key())[..., None]  # [NQ, K, 1]
         feats = R.get("features")
         feats = f if feats is None else torch.cat([feats, f], -1)
         return Q, {**R, "features": feats}
@@ -477,7 +480,8 @@ class DenseRerank(Transformer):
             qv = be.embed_queries({"terms": terms, "weights": weights})
             return RT.dense_rerank_scores(emb, qv, docids, scores, alpha)
 
-        s = be.map_query_chunks(run, Q, R["docids"], R["scores"])
+        s = be.map_query_chunks(run, Q, R["docids"], R["scores"],
+                                key=self.key())
         return Q, _sort_by_scores(R, s)
 
 
@@ -561,8 +565,9 @@ class Generate(Transformer):
     The output is the answer-bearing A relation: the incoming ranking plus
     a ``tokens [NQ, max_new_tokens]`` column block; A is terminal, no
     ranking stage may consume it (core/passes.py schema rules).  Prompts
-    are prefilled and decoded per chunk of ``query_chunk`` queries; each
-    row's tokens depend on its own prompt alone."""
+    are prefilled and decoded per chunk of the engine's chunk plan (of
+    ``query_chunk`` queries without an engine); each row's tokens depend
+    on its own prompt alone."""
     kind = "generate"
     out_kind = "A"
     reads_results = True
@@ -581,22 +586,31 @@ class Generate(Transformer):
             prompt_docs=self.params["prompt_docs"])
 
     def assemble(self, ctx, Q, R):
-        """Prompts [NQ, max_prompt_len] for the incoming ranking."""
+        """Prompts [NQ, max_prompt_len] for the incoming ranking (shared by
+        the offline path below and the server's decode pool)."""
         return ctx.backend.map_query_chunks(self._assembler(ctx.backend), Q,
-                                            R["docids"])
+                                            R["docids"], key=self.key())
 
     def execute(self, ctx, Q, R):
         assert R is not None, "Generate needs retrieved results"
         be = ctx.backend
         cfg, lm = be.lm(self.params["model"])
-        assemble = self._assembler(be)
         gen = greedy_generate_fn(
             cfg, max_prompt_len=self.params["max_prompt_len"],
             max_new_tokens=self.params["max_new_tokens"])
+        if be.engine is not None:
+            # one pinned program per ladder rung: a captured CUDA graph of
+            # the prefill and every decode step on the card
+            from repro_torch.core.engine import StageProgram
+            prompts = self.assemble(ctx, Q, R)
+            prog = StageProgram(key=(be.uid, self.key(), "generate"), fn=gen)
+            tokens = be.engine.run_pinned_chunks(prog, prompts, lm)
+        else:
+            assemble = self._assembler(be)
 
-        def run(terms, weights, docids):
-            return gen(lm, assemble(terms, weights, docids))
+            def run(terms, weights, docids):
+                return gen(lm, assemble(terms, weights, docids))
 
-        tokens = be.map_query_chunks(run, Q, R["docids"])
+            tokens = be.map_query_chunks(run, Q, R["docids"])
         return Q, {"qid": Q["qid"], "docids": R["docids"],
                    "scores": R["scores"], "tokens": tokens}

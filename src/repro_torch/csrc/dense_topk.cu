@@ -49,6 +49,9 @@
 #include <cuda_runtime.h>
 
 #include "topk_block.cuh"
+#include "launch_count.cuh"
+
+REPRO_LAUNCH_COUNTER(repro_launches_dense_topk)
 
 namespace {
 
@@ -259,6 +262,7 @@ dense_segments_kernel(const float* __restrict__ emb, int64_t emb_qstride,
                       int dim, int64_t seg_len, int64_t tile, int group,
                       int64_t n_groups, int k, float* __restrict__ out_vals,
                       int* __restrict__ out_idxs, int64_t out_qstride) {
+  count_launch();
   extern __shared__ __align__(16) float dyn[];
   __shared__ repro::TopKSmem<THREADS, WQ> sm;
   // warps a query in the warp select, and this warp's query and part

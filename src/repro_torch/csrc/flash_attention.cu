@@ -55,6 +55,7 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include "launch_count.cuh"
 
 // csrc/flash_attention_sm90.cu: the bf16 path (wgmma fed by TMA)
 cudaError_t flash_attention_bf16_sm90(const void* q, const void* k,
@@ -62,6 +63,8 @@ cudaError_t flash_attention_bf16_sm90(const void* q, const void* k,
                                       int T_len, int H, int Hkv, int D,
                                       int causal, int chunk, float scale,
                                       cudaStream_t st);
+
+REPRO_LAUNCH_COUNTER(repro_launches_flash_attention)
 
 namespace {
 
@@ -113,6 +116,7 @@ flash_attention_kernel(const float* __restrict__ q,
                        int S,
                        int T_len, int H, int Hkv, int causal, int chunk,
                        float scale) {
+  count_launch();
   constexpr int LDQ = D + 1, LDK = D + 1, LDV = D, DC = D / 16;
   extern __shared__ float smem[];
   float* Qs = smem;

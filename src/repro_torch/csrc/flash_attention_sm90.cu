@@ -79,6 +79,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
+#include "launch_count.cuh"
+
+REPRO_LAUNCH_COUNTER(repro_launches_flash_attention_sm90)
 
 namespace {
 
@@ -426,6 +429,7 @@ __global__ void __launch_bounds__(THREADS, 1)
                                 __nv_bfloat16* __restrict__ out, int B, int S,
                                 int T_len, int H, int Hkv, int causal,
                                 int chunk, float scale_log2) {
+  count_launch();
   using L = Smem<D>;
   constexpr int NB = D / BOX;        // boxes per row
   constexpr int BOX_Q = BQ * 128;    // bytes of one Q box

@@ -23,6 +23,9 @@
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+#include "launch_count.cuh"
+
+REPRO_LAUNCH_COUNTER(repro_launches_fused_scoring)
 
 namespace {
 
@@ -78,6 +81,7 @@ __global__ void fused_scoring_kernel(const int* __restrict__ tf,
                                      const int* __restrict__ cf, int64_t n,
                                      int64_t group, int code, int n_models,
                                      Stats st, float* __restrict__ out) {
+  count_launch();
   const int64_t stride = (int64_t)gridDim.x * blockDim.x;
   for (int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
        i += stride) {

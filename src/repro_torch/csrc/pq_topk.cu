@@ -61,8 +61,11 @@
 #include <cuda_runtime.h>
 
 #include "topk_block.cuh"
+#include "launch_count.cuh"
 
 namespace cg = cooperative_groups;
+
+REPRO_LAUNCH_COUNTER(repro_launches_pq_topk)
 
 namespace {
 
@@ -169,6 +172,7 @@ pq_cluster_kernel(const uint8_t* __restrict__ codes,
   // t * THREADS + 32 c + l (as warp c's queue in sm.queues)
   __shared__ repro::Key inbox[THREADS * WQ];
   __shared__ __align__(8) uint64_t bars[3];  // the table, the ring's slots
+  count_launch();
   cg::cluster_group cluster = cg::this_cluster();
   const int tid = threadIdx.x;
   const int warp = tid >> 5;

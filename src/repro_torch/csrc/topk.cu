@@ -33,6 +33,9 @@
 #include <cuda_runtime.h>
 
 #include "topk_block.cuh"
+#include "launch_count.cuh"
+
+REPRO_LAUNCH_COUNTER(repro_launches_topk)
 
 namespace {
 
@@ -47,6 +50,7 @@ topk_segments_kernel(const float* __restrict__ scores, int64_t n,
                      int64_t row_stride, int64_t seg_len, int k,
                      float* __restrict__ out_vals,
                      int* __restrict__ out_idxs) {
+  count_launch();
   __shared__ repro::TopKSmem<THREADS, WQ> sm;
   const int64_t q = blockIdx.y;
   const int64_t s = blockIdx.x;

@@ -60,6 +60,10 @@ SIGNATURES = {
     "repro_flash_attention_sm90_smem": (_I32,),
     # blocks_x, blocks_y, threads, cluster, stream: an empty launch
     "repro_empty_launch": (_I32, _I32, _I32, _I32, _P),
+    # the device launch counters (csrc/launch_count.cuh): count, reset
+    **{f"repro_launches_{name}": (_P, _I32) for name in (
+        "topk", "fused_scoring", "dense_topk", "pq_topk", "flash_attention",
+        "flash_attention_sm90")},
 }
 
 

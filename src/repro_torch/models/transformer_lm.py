@@ -183,16 +183,20 @@ def _layer_chunks(cfg: LMConfig) -> list[int]:
             for i in range(cfg.n_layers)]
 
 
-def _block(cfg: LMConfig, p: Block, x, positions, chunk: int,
-           kv_cache=None, cache_index: int | None = None,
-           memo: dict | None = None) -> torch.Tensor:
-    """One transformer layer: x [B, S, d] -> x'."""
+def _block(cfg: LMConfig, p: Block, x, attend) -> torch.Tensor:
+    """One transformer layer: x [B, S, d] -> x'; ``attend(attn, h)`` is
+    the attention sublayer's output for the normalised ``h``."""
     h = L.rmsnorm(x, p.ln_attn, cfg.norm_eps)
-    x = x + L.attn_apply(p.attn, h, positions=positions, kv_cache=kv_cache,
-                         cache_index=cache_index, chunk=chunk,
-                         impl=cfg.attn_impl, memo=memo)
+    x = x + attend(p.attn, h)
     h = L.rmsnorm(x, p.ln_mlp, cfg.norm_eps)
     return x + L.mlp_apply(p.mlp, h)
+
+
+def _last_logits(cfg: LMConfig, lm: TransformerLM, x) -> torch.Tensor:
+    """Logits [B, vocab] in ``cfg.dtype`` of the last position of x."""
+    x = L.rmsnorm(x[:, -1:], lm.ln_final, cfg.norm_eps)
+    unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
+    return (x @ unembed.to(cfg.dtype))[:, 0]
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
@@ -214,12 +218,13 @@ def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
     positions = start_pos + torch.arange(S, device=tokens.device)
     memo = {}          # RoPE tables and masks, made once for all layers
     for i, (blk, chunk) in enumerate(zip(lm.layers, _layer_chunks(cfg))):
-        x = _block(cfg, blk, x, positions, chunk,
-                   kv_cache=(cache["k"][i], cache["v"][i]),
-                   cache_index=start_pos, memo=memo)
-    x = L.rmsnorm(x[:, -1:], lm.ln_final, cfg.norm_eps)
-    unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
-    return (x @ unembed.to(cfg.dtype))[:, 0], cache
+        def attend(attn, h, i=i, chunk=chunk):
+            return L.attn_apply(attn, h, positions=positions,
+                                kv_cache=(cache["k"][i], cache["v"][i]),
+                                cache_index=start_pos, chunk=chunk,
+                                impl=cfg.attn_impl, memo=memo)
+        x = _block(cfg, blk, x, attend)
+    return _last_logits(cfg, lm, x), cache
 
 
 def prefill(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
@@ -230,5 +235,35 @@ def prefill(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
 
 def decode_step(cfg: LMConfig, lm: TransformerLM, token: torch.Tensor,
                 cache: dict, pos: int):
-    """token [B, 1] at absolute position ``pos`` -> (logits, cache)."""
+    """token [B, 1] at absolute position ``pos`` -> (logits, cache); every
+    row at one position (:func:`decode_step_ragged` takes a position per
+    row)."""
     return _serve_pass(cfg, lm, token, cache, pos)
+
+
+def decode_step_ragged(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
+                       cache: dict, positions: torch.Tensor):
+    """tokens [B, 1], each row at its own absolute position ``positions``
+    [B] (a device tensor) -> (logits [B, vocab], cache): the decode pool's
+    step, whose slots sit at different depths.  Each row's k and v are
+    scattered into the cache at its position, in place, and its attention
+    reads the cache up to that position; the einsum path, as the JAX
+    package's ragged decode (``serve/batching.py``) takes it.  No value
+    leaves the device, so the step can be captured as a CUDA graph."""
+    B = tokens.shape[0]
+    pos = positions.long()
+    x = lm.embed.to(cfg.dtype)[tokens.long()]
+    rope = L.rope_cos_sin(pos[:, None], cfg.d_head, cfg.rope_theta)
+    T = cache["k"].shape[2]
+    valid = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
+    bias = torch.where(valid, 0.0, L.NEG_INF)[:, None, None, None, :]
+    at = pos[:, None, None, None].expand(B, 1, cfg.n_kv, cfg.d_head)
+    for i, blk in enumerate(lm.layers):
+        def attend(attn, h, i=i):
+            q, k, v = attn.project(h, pos[:, None], rope)
+            ck, cv = cache["k"][i], cache["v"][i]
+            ck.scatter_(1, at, k.to(ck.dtype))
+            cv.scatter_(1, at, v.to(cv.dtype))
+            return attn.out(L.gqa_attention(q, ck, cv, bias, impl="xla"))
+        x = _block(cfg, blk, x, attend)
+    return _last_logits(cfg, lm, x), cache

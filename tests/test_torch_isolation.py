@@ -53,6 +53,14 @@ with tempfile.TemporaryDirectory() as d:
                             artifact_cache=cache, measure_time=True)
     assert cache.hits > 0 and res["plan"].n_stage_executions == 5
 assert res["results"][1]["docids"].shape == (3, 5)
+assert be.engine is not None and be.engine.total_compiles() > 0
+server = rt.MultiPipelineServer({"bm25": rt.Retrieve("BM25") % 5, "rag": rag},
+                                be, rt.ServeConfig.default().with_decode(2))
+server.warmup(Q)
+row = {k: v[:1] for k, v in Q.items()}
+assert server.submit_wait(row)["docids"].shape == (1, 5)
+assert server.submit_wait(row, pipeline="rag")["tokens"].shape == (1, 3)
+assert server.stats()["recompiles_since_warmup"] == 0
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -105,3 +113,7 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         TorchBackend(index)
     assert TorchBackend(index, device="cpu").device.type == "cpu"
+    from repro_torch.core.engine import ShardedQueryEngine
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedQueryEngine()
+    assert ShardedQueryEngine("cpu").device.type == "cpu"
