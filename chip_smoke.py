@@ -24,7 +24,12 @@ topics, the greedy decode of each chunk one captured CUDA graph), then
 serves cell S1 (four tenants on one server: two sharing a BM25 prefix in
 the stage cache, a top-10 on the top-k kernel and G1's RAG pipeline in a
 continuous-batching decode pool of captured graphs), and shows through the
-kernels' launch counters that each main path ran on its kernels.
+kernels' launch counters that each main path ran on its kernels.  Beside
+the main path it runs cell A1 (the measured optimiser: a cold autotune of
+the gate and the IVF knobs by CUDA events into a persisted profile, a warm
+compile that replays it, the roofline peaks fitted from the probes) and
+cuts D2's store into 1, 2, 4 and 8 doc shards, merged bit-equal to the
+unsharded search.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -53,10 +58,6 @@ DEVICE = "cuda"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 FP32_OPS_PER_S = 67e12           # H100 SXM data sheet, fp32 outside tensor cores
 BF16_TC_OPS_PER_S = 989e12       # H100 SXM data sheet, dense bf16 tensor cores
-#: fp32 operations per posting for each model, counted from the model
-#: lines of csrc/fused_scoring.cu (adds, multiplies, divides, min/max and
-#: transcendental calls each count one)
-MODEL_OPS = {"BM25": 12, "TF_IDF": 8, "QL": 12, "DPH": 23, "Coord": 1}
 RQ2_MODELS = ("BM25", "QL", "TF_IDF")
 #: k of the top-k sweeps: both sides of each size of the warp select's
 #: queue (32, 64 or 128 keys a warp) and its largest k
@@ -200,6 +201,23 @@ def same_bits(a, b) -> bool:
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
     return torch.equal(a, b)
+
+
+#: the sources of the fusion gate's decisions on the main paths' compiles
+GATE_SOURCES: dict = {}
+
+
+def compile_checked(pipe, be, report: dict | None = None, **kw):
+    """``compile_pipeline`` with its gate decisions held: each decided on
+    the cost estimates, or rejected at a kernel's k limit; none
+    ``"estimate_failed"``.  Their sources are tallied in GATE_SOURCES."""
+    import repro_torch as rt
+    rep = {} if report is None else report
+    op = rt.compile_pipeline(pipe, be, report=rep, **kw)
+    for d in rep.get("fusion_decisions", ()):
+        assert d["source"] in ("estimate", "kernel_limit"), (pipe, d)
+        GATE_SOURCES[d["source"]] = GATE_SOURCES.get(d["source"], 0) + 1
+    return op
 
 
 def zero_launches() -> None:
@@ -368,7 +386,7 @@ def phase_small_parity():
         Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
                             device=dev)
         out[dev] = [rt.run_pipeline(p, Q, backend=be) for p in dpipes]
-        kinds = [rt.compile_pipeline(p, be).kind for p in dpipes]
+        kinds = [compile_checked(p, be).kind for p in dpipes]
         assert kinds == ["fused_dense_rerank"] + ["fused_dense_retrieve"] * 3
     n_ties = 0
     for a, b in zip(out["cpu"], out["cuda"]):
@@ -457,7 +475,7 @@ def phase_kernels(index, forms) -> dict:
     from repro_torch.core.data import make_queries
     from repro_torch.index.inverted import gather_postings
     from repro_torch.index.retrieve import score_exhaustive
-    from repro_torch.kernels.fused_scoring.ops import fused_scoring
+    from repro_torch.kernels.fused_scoring.ops import MODEL_OPS, fused_scoring
     from repro_torch.kernels.fused_scoring.ref import fused_scoring_ref
     from repro_torch.kernels.topk.ops import streaming_topk
     from repro_torch.kernels.topk.ref import streaming_topk_ref
@@ -838,7 +856,7 @@ def phase_dense(forms, state) -> None:
     from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
     res, per_cell = {}, {}
     for name, (pipe, be, kind) in pipes.items():
-        got = rt.compile_pipeline(pipe, be).kind
+        got = compile_checked(pipe, be).kind
         assert got == kind, (name, got)
         out = {}
         before = streaming_dense_topk.launches
@@ -1082,7 +1100,7 @@ def phase_generate(index, forms, state) -> dict:
 
     pipe = rag(cfg.name)
     report = {}
-    op = rt.compile_pipeline(pipe, be, report=report)
+    op = compile_checked(pipe, be, report=report)
     kinds = [o.kind for o in ir.chain(op)]
     assert kinds == ["fused_dense_rerank", "generate"], kinds
     log(f"[generate] compile report: chain {kinds}; fusion decisions "
@@ -1244,7 +1262,7 @@ def phase_rq1(index, forms) -> tuple:
            for name, d in caps.items()}
     pipe = rt.Retrieve("BM25") % 10
     for name, kind in want.items():
-        got = rt.compile_pipeline(pipe, bes[name]).kind
+        got = compile_checked(pipe, bes[name]).kind
         assert got == kind, (name, got)
     runs = []
     for form, topics in forms.items():
@@ -1291,7 +1309,7 @@ def phase_rq2(index, forms) -> None:
                          device=DEVICE)
     pipe = (rt.Retrieve("BM25") >> (rt.Extract("QL") **
                                     rt.Extract("TF_IDF"))) % 1000
-    got = rt.compile_pipeline(pipe, be).kind
+    got = compile_checked(pipe, be).kind
     assert got == "fused_fat_retrieve", got
     for form, topics in forms.items():
         Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
@@ -1372,7 +1390,11 @@ def phase_l1(index, forms) -> dict:
     log(f"[l1] LTRRerank fitted on {len(train)} training topics (30 epochs, "
         f"K 1000, the per-feature Extract path) in {fit_s:.2f} s; version "
         f"{ltr.version}")
-    kinds = {name: rt.compile_pipeline(p, be) for name, p in pipes.items()}
+    t0 = time.perf_counter()
+    kinds = {name: compile_checked(p, be) for name, p in pipes.items()}
+    compile_s = time.perf_counter() - t0
+    log(f"[l1] cold compile of the five pipelines on a fresh backend "
+        f"(gate estimates included) {compile_s:.3f} s")
     fusion, lt = kinds["fusion"], kinds["ltr"]
     assert fusion.kind == "cutoff" and \
         fusion.inputs[0].kind == "multi_retrieve", fusion.label()
@@ -1489,7 +1511,9 @@ def phase_planner(forms, l1) -> None:
     nq = len(topics.qids)
     pipes = [rt.Retrieve("BM25", k=1000) >> rt.Extract(m)
              for m in ("QL", "TF_IDF", "DPH")]
+    t0 = time.perf_counter()
     plan = rt.ExperimentPlan(pipes, be, optimize=False)
+    plan_s = time.perf_counter() - t0
     plan.execute(Q, ctx=Context(be))                # warm-up
     t_plan = []
     for _ in range(3):
@@ -1520,6 +1544,11 @@ def phase_planner(forms, l1) -> None:
     dig = backend_digest(fresh)
     dig_s = time.perf_counter() - t0
     three = list(_l1_pipelines(rt).values())[:3]
+    t0 = time.perf_counter()
+    rt.ExperimentPlan(three, fresh)
+    three_s = time.perf_counter() - t0
+    log(f"[p1] cold compile: P1's plan {plan_s:.3f} s (optimize=False), L1's "
+        f"first three pipelines planned on a fresh backend {three_s:.3f} s")
     with tempfile.TemporaryDirectory() as d:
         runs = []
         for _ in range(2):
@@ -1538,6 +1567,290 @@ def phase_planner(forms, l1) -> None:
         f"from the card once); first run {h1} hits / {m1} misses in "
         f"{s1:.2f} s, second {h2} hits / {m2} misses in {s2:.2f} s; "
         f"rankings equal bit for bit")
+
+
+#: cell A1, the measured optimiser (``bench_autotune`` of
+#: benchmarks/ir_bench.py at Robust04 scale): the sparse workloads' gate
+#: capabilities and band (every gate measured), and the profile's file
+A1_CAPS = frozenset({"fat", "multi_model", "fused_topk", "fused_scoring"})
+A1_BAND = 10.0
+A1_PROFILE = Path(__file__).resolve().parent / "build" / "tuning_profile.json"
+#: shard counts of the doc-sharded D2 check
+DOC_SHARDS = (1, 2, 4, 8)
+
+
+def _calibration_record(d: dict) -> dict | None:
+    """``fit_peaks``-shaped record of one measured gate decision (each
+    candidate's op counts and probe seconds)."""
+    keys = ("fused_measured_s", "unfused_measured_s", "fused_flops",
+            "unfused_flops", "fused_bytes", "unfused_bytes")
+    if not all(d.get(k) for k in keys):
+        return None
+    return {side: {"flops": d[f"{side}_flops"], "bytes": d[f"{side}_bytes"],
+                   "measured_s": d[f"{side}_measured_s"]}
+            for side in ("unfused", "fused")}
+
+
+def _ratio(a, b):
+    return None if not (a and b) else round(a / b, 4)
+
+
+def phase_autotune(index, forms, state, smi: str) -> dict:
+    """Cell A1: the paper's backend-aware optimiser on the card.  A cold
+    tune (the profile file deleted first) of three sparse workloads under
+    capabilities A1_CAPS and band A1_BAND, so that every sparse gate is
+    measured by CUDA events, and of D3 and D4 under the full capabilities
+    and the default band, whose IVF knobs (nprobe; the PQ kernel's tile)
+    are measured; then a warm compile of the same on fresh backends and a
+    fresh read of the profile, which must replay every decision with no
+    estimate and no probe.  Prints each decision's predicted and measured
+    fused/unfused ratio and each knob's candidates; fits the roofline peaks
+    from the measured decisions and shows a third descriptor that attaches
+    the profile: refitted, or on the datasheet peaks where ``fit_refusal``
+    refuses the fit.  Holds every PQ tile candidate bit-equal, times the
+    tiles on the kernel alone, and runs D3 and D4 on the 250 T topics with the
+    tuned knobs beside the untuned ones (MRT, recall@10 against D2).
+    Counts launches from zero over the phase; the main path's windows are
+    read before it."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.analysis.op_cost import (PEAK_BYTES_PER_S,
+                                              PEAK_FLOPS_PER_S, fit_peaks,
+                                              fit_refusal)
+    from repro_torch.core import TuningProfile
+    from repro_torch.core.plan import backend_digest
+    from repro_torch.index import dense as DN
+    from repro_torch.index.robust04 import NPROBE, PQ_M, PQ_REFINE
+    from repro_torch.kernels.pq_scoring.ops import plan as plan_pq
+    zero_launches()
+    t_phase = time.perf_counter()
+    A1_PROFILE.parent.mkdir(parents=True, exist_ok=True)
+    A1_PROFILE.unlink(missing_ok=True)          # a cold tune
+    sparse = {
+        "retrieve_topk": rt.Retrieve("BM25") % 10,
+        "fat_scorer_topk": (rt.Retrieve("BM25")
+                            >> (rt.Extract("QL") ** rt.Extract("TF_IDF")))
+        % 10,
+        "mixed_k_linear": 0.5 * rt.Retrieve("BM25", k=200)
+        + 0.5 * rt.Retrieve("QL", k=1000)}
+    dense = {"D3": rt.DenseRetrieve(k=10, nprobe=NPROBE) % 10,
+             "D4": rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10}
+
+    def backends(prof):
+        """(sparse, dense) backends over the main path's state, sharing
+        one profile object, so that neither save drops the other's
+        entries."""
+        kw = dict(default_k=1000, bucket_ladder=LADDER, device=DEVICE)
+        sd = (rt.BackendDescriptor.default(A1_CAPS, device=DEVICE)
+              .with_profile(prof).with_autotune(True, band=A1_BAND))
+        dd = (rt.BackendDescriptor.default(device=DEVICE)
+              .with_profile(prof).with_autotune(True))
+        return (rt.TorchBackend(index, descriptor=sd, **kw),
+                rt.TorchBackend(index, state["dense"], ivf=state["ivf"],
+                                ivfpq=state["ivfpq"], pq_m=PQ_M,
+                                pq_refine=PQ_REFINE, descriptor=dd, **kw))
+
+    phases = {}
+    for phase in ("cold", "warm"):
+        prof = TuningProfile(A1_PROFILE)
+        be_s, be_d = backends(prof)
+        # the profile's key digests each backend's content (the index read
+        # from the card once a backend): timed apart from the compiles
+        t0 = time.perf_counter()
+        backend_digest(be_s), backend_digest(be_d)
+        digest_s = time.perf_counter() - t0
+        out = {}
+        for name, pipe in {**sparse, **dense}.items():
+            rep = {}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            op = rt.compile_pipeline(pipe, be_d if name in dense else be_s,
+                                     report=rep)
+            out[name] = {"s": time.perf_counter() - t0, "op": op,
+                         "tuning": rep["tuning"],
+                         "decisions": rep["fusion_decisions"]}
+        phases[phase] = (out, prof, be_s, be_d)
+        tot = {k: sum(w["tuning"][k] for w in out.values())
+               for k in next(iter(out.values()))["tuning"]}
+        log(f"[a1] {phase} compile {sum(w['s'] for w in out.values()):.3f} "
+            f"s ({', '.join(f'{n} {w['s']:.3f}' for n, w in out.items())}) "
+            f"after the backends' digests {digest_s:.2f} s; tuning {tot}; "
+            f"profile {prof.info()}")
+    cold, _, be_s, be_d = phases["cold"]
+    warm, prof_w, _, _ = phases["warm"]
+    n_cold = 0
+    records = []
+    clock = "CUDA events" if DEVICE != "cpu" else "host clock"
+    for name, w in cold.items():
+        for d in w["decisions"]:
+            n_cold += 1
+            assert d["source"] not in ("estimate_failed", "probe_failed"), d
+            if d.get("knob"):
+                log(f"[a1] {name} knob {d['knob']}: chosen {d['chosen']} "
+                    f"(configured {d['configured']}); seconds "
+                    f"{d['measured_knob_s']}; overlap@10 against the widest "
+                    f"{d['overlap_at_k']}")
+                continue
+            if name in sparse:
+                assert d["source"] == "measured", (name, d)
+            rec = _calibration_record(d)
+            if rec:
+                records.append(rec)
+            log(f"[a1] {name} gate [{d['pattern']}] "
+                f"{'fused' if d['accepted'] else 'kept unfused'} "
+                f"({d['source']}): predicted fused/unfused "
+                f"{_ratio(d['fused_proxy_s'], d['unfused_proxy_s'])}, "
+                f"measured {_ratio(d['fused_measured_s'], d['unfused_measured_s'])}"
+                f" (fused {d['fused_measured_s']}, unfused "
+                f"{d['unfused_measured_s']} s, {clock})")
+        log(f"[a1] {name} lowers to {w['op'].label()}")
+    for name, w in warm.items():
+        assert w["op"].key() == cold[name]["op"].key(), name
+        assert all(d["source"] == "profile" for d in w["decisions"]), name
+    wt = {k: sum(w["tuning"][k] for w in warm.values())
+          for k in ("gate_estimates", "probe_measurements", "profile_hits",
+                    "profile_misses")}
+    assert wt["gate_estimates"] == 0 and wt["probe_measurements"] == 0, wt
+    assert wt["profile_hits"] == n_cold and wt["profile_misses"] == 0, \
+        (wt, n_cold)
+    log(f"[a1] warm compile replays all {n_cold} cold decisions: {wt}")
+
+    fit = fit_peaks(records)
+    assert fit is not None, records
+    log(f"[a1] fit_peaks over {fit['n_records']} measured decisions: "
+        f"{json.dumps(fit)} on {smi} (datasheet: 6.7e13 flop/s, 3.35e12 "
+        f"B/s)")
+    prof_w.note_calibration(fit)
+    prof_w.save()
+    third = rt.BackendDescriptor.default(device=DEVICE).with_profile(
+        TuningProfile(A1_PROFILE))
+    refusal = fit_refusal(fit)
+    peaks = (third.peak_flops_per_s, third.peak_bytes_per_s)
+    if refusal is None:
+        assert peaks == (fit["peak_flops_per_s"], fit["peak_bytes_per_s"])
+        log(f"[a1] a third descriptor attaching the profile refits its "
+            f"peaks to {peaks[0]:.4e} flop/s, {peaks[1]:.4e} B/s (digest "
+            f"{third.peak_digest})")
+    else:
+        assert peaks == (PEAK_FLOPS_PER_S, PEAK_BYTES_PER_S), peaks
+        log(f"[a1] the fit is neither noted nor applied ({refusal}): a "
+            f"third descriptor attaching the profile keeps the datasheet "
+            f"peaks {peaks[0]:.4e} flop/s, {peaks[1]:.4e} B/s")
+
+    # every tile the PQ knob measured gives the default tile's result
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    qv = be_d.embed_queries(Q)
+    knobs = [d for d in cold["D4"]["decisions"]
+             if d.get("knob") == "pq_block"]
+    # the tile is a knob of the card's kernel (a CPU rehearsal has none)
+    assert len(knobs) == (DEVICE != "cpu"), knobs
+    blocks = knobs[0]["candidates"] if knobs else []
+    d4 = cold["D4"]["op"].params
+    npb, sl = d4["nprobe"], d4["pq_shortlist"]
+    base = DN.ivfpq_retrieve_topk_fused(state["ivfpq"], qv, k=10, nprobe=npb,
+                                        refine=PQ_REFINE, shortlist=sl)
+    for blk in blocks:
+        got = DN.ivfpq_retrieve_topk_fused(state["ivfpq"], qv, k=10,
+                                           nprobe=npb, refine=PQ_REFINE,
+                                           shortlist=sl, block=blk)
+        assert torch.equal(got[0], base[0]) and same_bits(got[1], base[1]), \
+            blk
+    log(f"[a1] pq_block candidates {blocks} give the default "
+        f"tile's docids and scores bit for bit on the {len(topics.qids)} T "
+        f"topics (nprobe {npb}, shortlist {sl})")
+    if blocks:
+        # the tiles on the kernel alone, at the main path's shape (the
+        # first chunk of T topics at D4's configured nprobe), in turns
+        from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
+        codes, table, pbase, _, r = DN._pq_candidates(
+            state["ivfpq"], qv[:LADDER[0]], k=10, nprobe=NPROBE,
+            refine=PQ_REFINE, shortlist=None)
+        tiles = sorted({plan_pq(codes.shape[1], codes.shape[2],
+                                table.shape[2], b)[2]
+                        for b in (64, 128, 216, 432, 864, 1728, 3456)})
+        ms = {b: [] for b in tiles}
+        for turn in (tiles, tiles[::-1]):
+            for b in turn:
+                ms[b].append(time_ms(lambda: streaming_pq_topk(
+                    codes, table, pbase, k=r, block=b)))
+        log(f"[a1] pq_topk alone on codes {list(codes.shape)}, k={r}, per "
+            f"tile (rows: ms in two turns): "
+            f"{ {b: [round(x, 4) for x in v] for b, v in ms.items()} } on "
+            f"{smi}")
+
+    d2 = rt.Experiment([rt.DenseRetrieve(k=10, nprobe=0) % 10], Q,
+                       topics.qrels, ["map"], backend=state["be"])
+    d2 = d2["results"][0]["docids"]
+    out = {}
+    for name, pipe in dense.items():
+        row = {}
+        for label, be in (("untuned", state["be"] if name == "D3"
+                           else state["be_pq"]), ("tuned", be_d)):
+            r = rt.Experiment([pipe], Q, topics.qrels, ["map"], backend=be,
+                              measure_time=True)
+            row[label] = (r["table"][0]["mrt_ms"],
+                          topk_overlap(r["results"][0]["docids"], d2, 10))
+        assert row["tuned"][1] >= row["untuned"][1] - be_d.descriptor \
+            .autotune_band, (name, row)
+        out[name] = row
+        log(f"[a1] {name} on {len(topics.qids)} T topics, tuned "
+            f"({cold[name]['op'].label()})"
+            f" mrt_ms {row['tuned'][0]:.4f} recall@10 vs D2 "
+            f"{row['tuned'][1]:.4f}; untuned mrt_ms {row['untuned'][0]:.4f} "
+            f"recall@10 {row['untuned'][1]:.4f}")
+    launches = read_launches("topk", "fused_scoring", "dense_topk", "pq_topk")
+    for name, c in launches.items():
+        assert c["device"] > 0, (name, c)
+    log(f"[a1] launches in the phase (probes, knob search, D3/D4 runs) "
+        f"{launches}; phase {time.perf_counter() - t_phase:.1f} s")
+    return {"fit": fit, "dense": out}
+
+
+def phase_doc_sharded(forms, state) -> None:
+    """D2's ``[528155, 64]`` store cut into DOC_SHARDS contiguous shards,
+    each searched by a ``dense_retrieve_exact_fused`` program on the
+    dense-scoring kernel and merged by ``run_doc_sharded``: docids and
+    scores bit-equal to the unsharded D2 search over the 250 T topics."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import StageProgram
+    from repro_torch.core.engine import ShardedQueryEngine
+    from repro_torch.index import dense as DN
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    qv = state["be"].embed_queries(Q)
+    eng = ShardedQueryEngine(DEVICE, ladder=LADDER)
+    k = 10
+    dense = state["dense"]
+    ref = eng.run(StageProgram(key=("d2", k), fn=lambda q: DN
+                               .dense_retrieve_exact_fused(dense, q, k=k)),
+                  None, qv)
+    ref_d, ref_v = ref[0].cpu().numpy(), ref[1].cpu().numpy()
+    ms = {}
+    for n in DOC_SHARDS:
+        shards = DN.shard_dense_index(dense, n)
+        progs = [StageProgram(
+            key=("d2 shard", n, off),
+            fn=lambda q, sh=sh, off=off: (lambda dv: (dv[0] + off, dv[1]))(
+                DN.dense_retrieve_exact_fused(sh, q,
+                                              k=min(k, sh.emb.shape[0]))))
+            for sh, off in shards]
+        eng.run_doc_sharded(progs, None, qv, k=k)         # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        docs, vals = eng.run_doc_sharded(progs, None, qv, k=k)
+        ms[n] = 1e3 * (time.perf_counter() - t0) / len(topics.qids)
+        assert (docs == ref_d).all(), n
+        assert (vals.view("uint32") == ref_v.view("uint32")).all(), n
+    log(f"[doc-shard] D2 [{dense.emb.shape[0]}, {dense.dim}] cut into "
+        f"{DOC_SHARDS} contiguous shards, each on the dense-scoring kernel, "
+        f"merged by run_doc_sharded: docids and scores bit-equal to the "
+        f"unsharded search on the {len(topics.qids)} T topics; ms/query by "
+        f"shard count "
+        f"(host clock, barrier and host merge included) {ms}")
 
 
 def _tenant_latency(reqs) -> dict:
@@ -1631,7 +1944,7 @@ def phase_serve(index, forms, state, g1) -> dict:
         .with_decode(S1_SLOTS))
     for name, pipe in optimised.items():
         server.add_pipeline(pipe, name=name, optimize=True)
-    chains = {name: [op.kind for op in ir.chain(rt.compile_pipeline(
+    chains = {name: [op.kind for op in ir.chain(compile_checked(
         pipe, be, optimize=name in optimised))]
         for name, pipe in {**shared, **optimised}.items()}
     assert chains["top10"] == ["fused_topk_retrieve"], chains
@@ -1869,6 +2182,10 @@ def main() -> int:
         f"{windows[-1]}; peak device memory "
         f"{torch.cuda.max_memory_allocated()} bytes")
     assert_eager_launches(windows[-1], "the dense path")
+    # cell A1 and the doc-sharded D2 check, outside the main path's
+    # windows: A1 counts its own launches from zero
+    phase_autotune(index, forms, state, smi)
+    phase_doc_sharded(forms, state)
 
     rows.update(phase_attention_kernels())
     phase_attention_shapes()
@@ -1888,6 +2205,8 @@ def main() -> int:
             for side in tot:
                 tot[side] += c[side]
 
+    log(f"[gate] decisions on the main paths' compiles by source: "
+        f"{GATE_SOURCES} (none estimate_failed)")
     log(json.dumps({"tpu_kernels": [
         {"function": f, "status": s, "replaces": r}
         for f, s, r in TPU_KERNELS]}))

@@ -9,11 +9,12 @@ the dense second stage and the RAG answer stage.
 """
 from repro_torch.core.compiler import Context, TorchBackend, run_pipeline  # noqa: F401
 from repro_torch.core.data import make_queries  # noqa: F401
-from repro_torch.core.descriptor import BackendDescriptor  # noqa: F401
+from repro_torch.core.descriptor import BackendDescriptor, TuningProfile  # noqa: F401
 from repro_torch.core.engine import ShardedQueryEngine, StageProgram  # noqa: F401
 from repro_torch.core.experiment import Experiment, format_table  # noqa: F401
 from repro_torch.core.ir import Op, Schema, SchemaError, lower, raise_ir  # noqa: F401
-from repro_torch.core.passes import compile_pipeline, explain_pipeline  # noqa: F401
+from repro_torch.core.passes import (AutotunePass, compile_pipeline,  # noqa: F401
+                                     explain_pipeline)
 from repro_torch.core.plan import ArtifactCache, ExperimentPlan  # noqa: F401
 from repro_torch.core.stages import (DenseRerank, DenseRetrieve,  # noqa: F401
                                      Extract, FatRetrieve, FusedDenseRerank,

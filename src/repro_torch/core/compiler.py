@@ -83,7 +83,7 @@ class TorchBackend:
         self.default_k = min(default_k, index.n_docs)
         self.query_chunk = 16 if query_chunk is None else int(query_chunk)
         self.descriptor = (descriptor if descriptor is not None
-                           else BackendDescriptor.default())
+                           else BackendDescriptor.default(device=self.device))
         # stopwords are removed at index time (build_index), so the global
         # max posting-list length is the gather width
         lens = index.term_start[1:] - index.term_start[:-1]

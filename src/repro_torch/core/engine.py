@@ -521,10 +521,16 @@ class ShardedQueryEngine:
 
     def run_doc_sharded(self, programs: Sequence[StageProgram], Q, *extra,
                         k: int):
-        """Doc-axis sharded top-k: not ported yet."""
-        raise NotImplementedError(
-            "run_doc_sharded (doc-axis dense sharding) is not ported yet: "
-            "ROADMAP §1 item 4, doc-axis dense sharding")
+        """Doc-axis sharded top-k: run one StageProgram per document shard
+        (each closing over its contiguous shard and emitting *global* doc
+        ids, e.g. built over ``index.dense.shard_dense_index``), then merge
+        the per-shard ``(docids, scores)`` across shards on the host with
+        :func:`merge_shard_topk`.  The shards' programs are enqueued one
+        after another with no wait; the barrier before the merge is the one
+        synchronisation point."""
+        parts = [self.run(p, Q, *extra) for p in programs]
+        self.barrier(parts)
+        return merge_shard_topk(parts, k=k)
 
     def _materialize(self, outs, plan):
         _, n_tail, b_tail = plan[-1]

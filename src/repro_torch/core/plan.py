@@ -281,7 +281,11 @@ class ExperimentPlan:
                                      trace=self.traces[i],
                                      cse_table=cse_table)
                     for i, p in enumerate(self.pipelines)]
-        # (the JAX package saves its gate's tuning profile here: none until AutotunePass is ported)
+        # publish any fresh autotune/gate decisions now, so a second
+        # Experiment (or another process) compiles this plan profile-warm
+        prof = backend.descriptor.profile
+        if prof is not None:
+            prof.save()
         self.chains = [ir.chain(op) for op in self.ops]
         self.root = PlanNode(None, None)
         self.root.persist = "root"

@@ -195,18 +195,22 @@ class DenseRetrieve(Transformer):
 class FusedDenseRetrieve(Transformer):
     """``DenseRetrieve % K`` lowered to the dense-scoring kernel path
     (``kernels/dense_scoring``, or ``kernels/pq_scoring`` when ``pq=True``)
-    at the cutoff depth, created by the IR lowering pass (core/passes.py).
-    ``pq_shortlist`` pins the ADC shortlist depth (the pass sets it to the
-    *unfused* chain's depth so fusion is an exact rewrite; ``None`` =
-    refine*k)."""
+    at the cutoff depth, created by the cost-gated IR lowering pass
+    (core/passes.py).  ``pq_block`` pins the PQ kernel's rows a tile
+    (autotuned on the card; ``None`` = the kernel's default, and then not
+    a param, so the stage's key is the untuned one); ``pq_shortlist`` pins
+    the ADC shortlist depth (the pass sets it to the *unfused* chain's
+    depth so fusion is an exact rewrite; ``None`` = refine*k)."""
     kind = "fused_dense_retrieve"
     reads_results = False
 
     def __init__(self, k: int = 10, nprobe: int = 8, pq: bool = False,
-                 pq_shortlist: int | None = None):
+                 pq_shortlist: int | None = None,
+                 pq_block: int | None = None):
         super().__init__(
             k=int(k), nprobe=int(nprobe), pq=bool(pq),
-            pq_shortlist=None if pq_shortlist is None else int(pq_shortlist))
+            pq_shortlist=None if pq_shortlist is None else int(pq_shortlist),
+            **({} if pq_block is None else {"pq_block": int(pq_block)}))
 
     def execute(self, ctx, Q, R):
         be = ctx.backend
@@ -214,11 +218,13 @@ class FusedDenseRetrieve(Transformer):
         return _dense_retrieve(be, Q, k=k, nprobe=self.params["nprobe"],
                                pq=self.params["pq"], fused=True,
                                shortlist=self.params["pq_shortlist"],
+                               block=self.params.get("pq_block"),
                                key=self.key())
 
 
 def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
-                    key, shortlist: int | None = None):
+                    key, shortlist: int | None = None,
+                    block: int | None = None):
     """The search both dense retrieval stages run, chunk by chunk: IVF-PQ
     (``nprobe`` and ``pq``), IVF-flat (``nprobe``) or brute force."""
     from repro_torch.index import dense as DN
@@ -228,7 +234,7 @@ def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
                   else DN.ivfpq_retrieve_topk)
         kw = {"nprobe": min(nprobe, state.n_lists), "refine": be.pq_refine}
         if fused:
-            kw["shortlist"] = shortlist
+            kw.update(shortlist=shortlist, block=block)
     elif nprobe:
         state = be.ivf
         search = DN.ivf_retrieve_topk_fused if fused else DN.ivf_retrieve_topk

@@ -24,6 +24,10 @@ IVF-PQ search is two-level: the ADC scores of the probed codes give a
 shortlist of depth ``r``, which is re-scored exactly against the flat
 (doc-id-ordered) float store, and the final top-k is taken from the exact
 scores.
+
+Doc-axis sharding (``shard_dense_index``, ``sharded_dense_topk``) cuts the
+flat store into contiguous shards, takes each shard's top-k on the kernel
+and merges them, bit-equal to the unsharded search.
 """
 from __future__ import annotations
 
@@ -501,12 +505,56 @@ def ivfpq_retrieve_topk(pq: IVFPQIndex, qvecs, *, k: int, nprobe: int,
 
 
 def ivfpq_retrieve_topk_fused(pq: IVFPQIndex, qvecs, *, k: int, nprobe: int,
-                              refine: int = 4, shortlist: int | None = None):
+                              refine: int = 4, shortlist: int | None = None,
+                              block: int | None = None):
     """Two-level IVF-PQ search with the ADC stage through the PQ-scoring
-    kernel."""
+    kernel; ``block`` caps the kernel's rows a tile (no result changes)."""
     from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
     codes_c, table, base, pos, r = _pq_candidates(
         pq, qvecs, k=k, nprobe=nprobe, refine=refine, shortlist=shortlist)
-    vals_a, idxs = streaming_pq_topk(codes_c, table, base, k=r)
+    vals_a, idxs = streaming_pq_topk(codes_c, table, base, k=r, block=block)
     return _pq_finish(pq, qvecs, torch.gather(pos, 1, idxs.long()), vals_a,
                       k=k)
+
+
+# ---------------------------------------------------------------------------
+# Doc-axis sharding: per-shard top-k + cross-shard merge
+# ---------------------------------------------------------------------------
+
+def shard_dense_index(dense: DenseIndex,
+                      n_shards: int) -> list[tuple[DenseIndex, int]]:
+    """Partition the document axis into ``n_shards`` contiguous slices
+    (views of the store, no copy).  Returns ``(shard, offset)`` pairs;
+    ``offset`` maps shard-local row ids back to global doc ids.  Contiguity
+    is what makes the cross-shard merge tie-break identically to the
+    single-index oracle (lower global id wins in both)."""
+    D = int(dense.emb.shape[0])
+    n_shards = int(n_shards)
+    if n_shards < 1 or n_shards > D:
+        raise ValueError(f"n_shards={n_shards} outside [1, {D}]")
+    cuts = [round(i * D / n_shards) for i in range(n_shards + 1)]
+    return [(dataclasses.replace(dense, emb=dense.emb[lo:hi]), lo)
+            for lo, hi in zip(cuts[:-1], cuts[1:])]
+
+
+def sharded_dense_topk(shards, qvecs, *, k: int):
+    """Per-shard exact top-k through the dense-scoring kernel, then one
+    merge through ``common.topk`` (qvecs [NQ, dim] -> docids [NQ, k] int32,
+    scores [NQ, k]).
+
+    Bit-identical to ``dense_retrieve_exact_fused`` on the unsharded
+    index: a row's dot product does not depend on the other rows, each
+    shard's top-k keeps ties in ascending local (= global, shards are
+    contiguous) id order, and the merge's stable top-k over the
+    shard-ordered concatenation therefore resolves ties to the lowest
+    global doc id — exactly the oracle's rule."""
+    docs_parts, vals_parts = [], []
+    for shard, offset in shards:
+        ks = min(k, int(shard.emb.shape[0]))
+        d, v = dense_retrieve_exact_fused(shard, qvecs, k=ks)
+        docs_parts.append(d + offset)
+        vals_parts.append(v)
+    vals = torch.cat(vals_parts, 1)
+    docs = torch.cat(docs_parts, 1)
+    top_v, sel = topk(vals, k)
+    return torch.gather(docs, 1, sel).to(torch.int32), top_v

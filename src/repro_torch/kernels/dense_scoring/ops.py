@@ -5,6 +5,8 @@ MAX_KERNEL_K`` and raises for a larger k (the IR fusion pass lowers onto
 the kernel only within that bound); for a CPU tensor it takes the plain
 version.  There is no fallback from a failed launch: it raises.
 ``streaming_dense_topk.launches`` counts kernel launches, and only those.
+In a pricing run (``kernels/pricing.py``) a call is priced by :func:`cost`
+and launches nothing.
 """
 from __future__ import annotations
 
@@ -12,6 +14,7 @@ import torch
 
 from repro_torch.common import cdiv
 from repro_torch.kernels import _build
+from repro_torch.kernels.pricing import priced, topk_outputs
 from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
 from repro_torch.kernels.segments import plan_segments
 
@@ -42,6 +45,23 @@ def kernel_native(k: int) -> bool:
     return k <= MAX_KERNEL_K
 
 
+def cost(emb: torch.Tensor, qvec: torch.Tensor,
+         base: torch.Tensor | None = None, *, k: int) -> tuple[float, float]:
+    """(flops, bytes) of one call: emb, the queries and base read once
+    (a shared emb once for all queries), the k f32 values and int32
+    indices of each query written once, 2·dim flops a scored row."""
+    nq, dim = qvec.shape
+    n = emb.shape[-2]
+    read = sum(x.numel() * 4 for x in (emb, qvec, base) if x is not None)
+    return float(2 * nq * n * dim), float(read + nq * k * 8)
+
+
+def _outputs(emb: torch.Tensor, qvec: torch.Tensor,
+             base: torch.Tensor | None = None, *, k: int):
+    return topk_outputs((qvec.shape[0],), k, emb.shape[-2], emb.device)
+
+
+@priced(cost, _outputs)
 def streaming_dense_topk(emb: torch.Tensor, qvec: torch.Tensor,
                          base: torch.Tensor | None = None, *, k: int):
     """Top-``k`` of ``emb @ q + base`` for each query: values sorted

@@ -3,6 +3,8 @@
 For a CUDA tensor it launches the kernel; for a CPU tensor it takes the
 plain version.  There is no fallback from a failed launch: it raises.
 ``fused_scoring.launches`` counts kernel launches, and only those.
+In a pricing run (``kernels/pricing.py``) a call is priced by :func:`cost`
+and launches nothing.
 """
 from __future__ import annotations
 
@@ -10,9 +12,14 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_scoring.ref import fused_scoring_ref
+from repro_torch.kernels.pricing import priced
 
 #: model id order used by the kernel (its ``model_code`` packs these ids)
 SUPPORTED = ("BM25", "TF_IDF", "QL", "DPH", "Coord")
+#: fp32 operations per posting for each model, counted from the model
+#: lines of csrc/fused_scoring.cu (adds, multiplies, divides, min/max and
+#: transcendental calls each count one)
+MODEL_OPS = {"BM25": 12, "TF_IDF": 8, "QL": 12, "DPH": 23, "Coord": 1}
 
 
 def models_supported(models) -> bool:
@@ -22,6 +29,22 @@ def models_supported(models) -> bool:
     return all(m in SUPPORTED for m in models)
 
 
+def cost(tf, dl, df, cf, *, models: tuple[str, ...],
+         stats: dict) -> tuple[float, float]:
+    """(flops, bytes) of one call: tf, dl, df and cf read once, the
+    [..., F] f32 scores written once, ``MODEL_OPS`` a posting per model."""
+    n = tf.numel()
+    read = sum(x.numel() * x.element_size() for x in (tf, dl, df, cf))
+    return (float(n * sum(MODEL_OPS[m] for m in models)),
+            float(read + n * len(models) * 4))
+
+
+def _outputs(tf, dl, df, cf, *, models: tuple[str, ...], stats: dict):
+    return torch.zeros((*tf.shape, len(models)), dtype=torch.float32,
+                       device=tf.device)
+
+
+@priced(cost, _outputs)
 def fused_scoring(tf, dl, df, cf, *, models: tuple[str, ...], stats: dict):
     """Postings columns tf, dl [..., L] int32 -> [..., L, F] f32 multi-model
     scores (one read of each posting), 0 where ``tf == 0``.

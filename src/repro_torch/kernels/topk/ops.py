@@ -5,12 +5,15 @@ MAX_KERNEL_K`` and raises for a larger k (the IR fusion pass lowers onto
 the kernel only within that bound); for a CPU tensor it takes the plain
 version.  There is no fallback from a failed launch: it raises.
 ``streaming_topk.launches`` counts kernel launches, and only those.
+In a pricing run (``kernels/pricing.py``) a call is priced by :func:`cost`
+and launches nothing.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels.pricing import priced, topk_outputs
 from repro_torch.kernels.segments import plan_segments
 from repro_torch.kernels.topk.ref import streaming_topk_ref
 
@@ -31,6 +34,20 @@ def kernel_native(k: int) -> bool:
     return k <= MAX_KERNEL_K
 
 
+def cost(scores: torch.Tensor, *, k: int) -> tuple[float, float]:
+    """(flops, bytes) of one call: the score rows read once, the k values
+    and int32 indices of each row written once, one comparison a score."""
+    n = scores.shape[-1]
+    nq = scores.numel() // max(n, 1)
+    return float(nq * n), float(nq * n * scores.element_size() + nq * k * 8)
+
+
+def _outputs(scores: torch.Tensor, *, k: int):
+    return topk_outputs(tuple(scores.shape[:-1]), k, scores.shape[-1],
+                        scores.device)
+
+
+@priced(cost, _outputs)
 def streaming_topk(scores: torch.Tensor, *, k: int):
     """Top-``k`` of each row of ``scores`` [NQ, N] (or one row [N]): values
     sorted descending (f32) and their int32 indices, -0.0 below +0.0, ties

@@ -418,8 +418,12 @@ class PipelineServer:
                "pipelines": list(self._tenants),
                "compiles": (None if self.engine is None
                             else self.engine.total_compiles())}
-        # (the JAX package persists its AutotunePass profile here: none
-        # until that pass is ported, ROADMAP §1 item 1)
+        # persist any autotune decisions taken at compile time, so the next
+        # server process starts profile-warm (zero estimates / probes)
+        prof = self.backend.descriptor.profile
+        if prof is not None:
+            prof.save()
+            out["tuning_profile"] = prof.info()
         if self.compile_report:
             out["tuning"] = self.compile_report.get("tuning")
         return out
@@ -765,7 +769,8 @@ class PipelineServer:
             out["engine"] = None
             out["recompiles_since_warmup"] = None
         out["tuning"] = default.compile_report.get("tuning")
-        out["tuning_profile"] = None         # no AutotunePass profile yet
+        prof = self.backend.descriptor.profile
+        out["tuning_profile"] = None if prof is None else prof.info()
         return out
 
 

@@ -256,13 +256,14 @@ def _kinds(op):
 
 
 def test_passes_lower_d1_to_d4(env):
-    """D1-D4 lower onto the kernels: the port's gate is the capability
-    plus kernel_native (every fused form is exact).  The JAX package's
-    cost gate takes the same lowering, with the same parameters, where
-    the fused form prices strictly cheaper (a deep retrieve under a
-    shallow cutoff); at k_in == K its estimates tie and it keeps the
-    chain, and for IVF-PQ it prices the shortlist depth where the port
-    asks whether the kernel carries it."""
+    """D1-D4 lower onto the kernels: the port's gate prices each fused
+    form strictly cheaper on the op stream (``"source": "estimate"``), and
+    a shortlist the PQ kernel does not carry is rejected before any
+    estimate (``"kernel_limit"``).  The JAX package's cost gate takes the
+    same lowering, with the same parameters, where the fused form prices
+    strictly cheaper (a deep retrieve under a shallow cutoff); at k_in ==
+    K its HLO estimates tie and it keeps the chain, where the port's eager
+    count sees the unfused chain's score rows and sort."""
     jbe, tbe = _backends(env)
     jp, tp = _pipelines(J), _pipelines(T)
     want = {"D1": "fused_dense_rerank", "D2": "fused_dense_retrieve",
@@ -274,7 +275,10 @@ def test_passes_lower_d1_to_d4(env):
         top = T.compile_pipeline(tp[name], tbe, report=rep)
         assert top.kind == kind, (name, top.kind)
         assert [d["source"] for d in rep["fusion_decisions"]] == \
-            ["capability"]
+            ["kernel_limit" if name == "D4-deep" else "estimate"]
+        for d in rep["fusion_decisions"]:
+            if d["accepted"]:
+                assert d["fused_proxy_s"] < d["unfused_proxy_s"]
         if name in ("D1", "D2-deep", "D3-deep"):
             jop = J.compile_pipeline(jp[name], jbe)
             assert jop.kind == kind
@@ -305,6 +309,48 @@ def test_pq_gate_both_branches(env):
         assert torch.equal(Ro["scores"], Ru["scores"])
     assert [(d["pattern"], d["accepted"], d["kernel_native"]) for d in reps] \
         == [("pq_topk", True, True), ("pq_topk", False, False)]
+
+
+# ---------------------------------------------------------------------------
+# doc-axis sharding
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n_shards", [1, 2, 3, 4, 7])
+def test_shard_dense_index_offsets_equal_reference(env, n_shards):
+    """Contiguous shards at the reference's cuts, each a view of the
+    store."""
+    got = TD.shard_dense_index(env["tdense"], n_shards)
+    want = JD.shard_dense_index(env["jbe"].dense, n_shards)
+    assert [o for _, o in got] == [o for _, o in want]
+    for (ts, _), (js, _) in zip(got, want):
+        np.testing.assert_array_equal(ts.emb.numpy(), np.asarray(js.emb))
+        assert ts.emb.data_ptr() >= env["tdense"].emb.data_ptr()
+        assert ts.emb._base is env["tdense"].emb
+    with pytest.raises(ValueError, match="n_shards"):
+        TD.shard_dense_index(env["tdense"], 0)
+
+
+@pytest.mark.parametrize("n_shards", [1, 2, 4])
+def test_sharded_dense_topk_equals_unsharded_and_reference(env, n_shards):
+    """Per-shard top-k + one merge is bit-equal to the unsharded search
+    and to the JAX package's unsharded oracle; the JAX package's own
+    sharded form agrees as a ranking (XLA's CPU dot rounds by the shard's
+    row count, so it is not bit-equal to its own oracle on this host)."""
+    k = 10
+    shards = TD.shard_dense_index(env["tdense"], n_shards)
+    d, v = TD.sharded_dense_topk(shards, env["tqv"], k=k)
+    od, ov = TD.dense_retrieve_exact_fused(env["tdense"], env["tqv"], k=k)
+    jd, jv = _per_query(JD.dense_retrieve_exact, env["jbe"].dense,
+                        env["jqv"], k=k)
+    for want_d, want_v in ((od.numpy(), ov.numpy()),
+                           (np.asarray(jd), np.asarray(jv))):
+        np.testing.assert_array_equal(d.numpy(), want_d)
+        np.testing.assert_array_equal(v.numpy().view(np.uint32),
+                                      want_v.view(np.uint32))
+    assert d.dtype == torch.int32
+    jshards = JD.shard_dense_index(env["jbe"].dense, n_shards)
+    _agree(jax.vmap(lambda q: JD.sharded_dense_topk(jshards, q, k=k))(
+        env["jqv"]), (d, v), f"sharded {n_shards}")
 
 
 @pytest.mark.parametrize("caps,want", [

@@ -29,6 +29,13 @@ pipes += [(rt.Retrieve("BM25", k=30) >> rt.DenseRerank(alpha=0.3)) % 5,
 res = rt.Experiment(pipes, Q, topics.qrels, ["map"], backend=be)
 assert res["results"][1]["features"].shape == (3, 5, 2)
 assert all(r["docids"].shape == (3, 5) for r in res["results"][2:])
+desc = (rt.BackendDescriptor.default(frozenset({"fused_topk"}), device="cpu")
+        .with_autotune(True, band=10.0, probe_queries=1, probe_repeats=1))
+rep = {}
+rt.compile_pipeline(rt.Retrieve("BM25") % 5,
+                    rt.TorchBackend(be.index, default_k=20, device="cpu",
+                                    descriptor=desc), report=rep)
+assert rep["tuning"]["probe_measurements"] == 2
 import torch
 from repro_torch.configs import qwen2_1_5b
 from repro_torch.models.transformer_lm import LMConfig
@@ -90,6 +97,7 @@ def test_no_source_file_imports_jax_or_reference_package():
     files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
+    assert ROOT / "src" / "repro_torch" / "analysis" / "op_cost.py" in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]

@@ -208,15 +208,23 @@ def test_experiment_timing_and_planner_refusal(env):
 
 
 def test_explain_records_capability_decisions(env):
+    """A capability opens the gate; the estimate decides (predicted fused
+    vs unfused seconds in ``explain()``); a k the kernel does not serve is
+    rejected before any estimate."""
     _, tbe = _backends(env, KERNEL_CAPS)
     text = _pipelines(T)[0].explain(tbe)
     assert "FusedTopKRetrieve" in text
-    assert "fusion gate [topk]: fused (kernel_native=True, capability)" in text
+    assert "fusion gate [topk]: fused (predicted fused" in text
+    assert "kernel_native=True, estimate)" in text
     report = {}
     T.compile_pipeline(T.Retrieve("BM25", k=300) % 200, tbe, report=report)
     (d,) = report["fusion_decisions"]
-    assert d == {"pattern": "topk", "accepted": False,
-                 "kernel_native": False, "source": "capability"}
+    assert {k: d[k] for k in ("pattern", "accepted", "kernel_native",
+                              "source")} == {
+        "pattern": "topk", "accepted": False, "kernel_native": False,
+        "source": "kernel_limit"}
+    assert report["gate"] == {"gate_decisions": 1, "fused": 0}
+    assert report["tuning"]["gate_estimates"] == 0
 
 
 def test_compile_spans_reach_the_tracer_when_asked(env):

@@ -581,15 +581,16 @@ def pq_scores_model(codes, table, base):
     return acc if base is None else (acc + base).astype(np.float32)
 
 
-def pq_model(codes, table, base, k):
-    """csrc/pq_topk.cu: a cluster of C CTAs a query (the wrapper's plan),
-    each a segment of seg_len rows in tiles; a CTA's warps run the warp
-    select over each tile's scores (the first tile seeds the bar, the
-    queues stay across tiles), merge their thread queues at the end, and
-    the CTA's warp queues merge; then warp w of the first CTA takes CTA w's
-    queue, and the first C warps' queues merge into [k]."""
+def pq_model(codes, table, base, k, block=None):
+    """csrc/pq_topk.cu: a cluster of C CTAs a query (the wrapper's plan,
+    ``block`` capping its rows a tile), each a segment of seg_len rows in
+    tiles; a CTA's warps run the warp select over each tile's scores (the
+    first tile seeds the bar, the queues stay across tiles), merge their
+    thread queues at the end, and the CTA's warp queues merge; then warp w
+    of the first CTA takes CTA w's queue, and the first C warps' queues
+    merge into [k]."""
     nq, n, m = codes.shape
-    cluster, seg_len, tile = pq_ops.plan(n, m, table.shape[2])
+    cluster, seg_len, tile = pq_ops.plan(n, m, table.shape[2], block)
     warps = PQ_THREADS // 32
     scores = pq_scores_model(codes, table, base)
     vals, idxs = [], []
@@ -691,11 +692,42 @@ def test_pq_model_equals_plain_and_jax(nq, n, m, kind, k):
         assert c == k - 1 or any(near), (r, c)
 
 
+# (queries, rows, m, kind, k, block): D4's one-tile segments cut into two,
+# four and 18 tiles (the pq_block knob's candidates and a small one), and
+# long rows at other tiles than the largest that fits
+PQ_BLOCK_CASES = [(2, 6888, 16, "random", 80, 432),
+                  (2, 6888, 16, "dup_codes", 10, 216),
+                  (1, 6888, 16, "small_ints", 128, 48),
+                  (1, 40000, 16, "small_ints", 64, 1000)]
+
+
+@pytest.mark.parametrize("nq,n,m,kind,k,block", PQ_BLOCK_CASES)
+def test_pq_model_block_is_bit_equal(nq, n, m, kind, k, block):
+    """Any tile the plan allows gives the default tile's result bit for
+    bit: the warp queues and the bar carry over from tile to tile."""
+    rng = np.random.default_rng(nq * n + m + k + block)
+    codes, table, base = make_pq(kind, nq, n, m, rng)
+    tile = pq_ops.plan(n, m, 256)[2]
+    assert pq_ops.plan(n, m, 256, block)[2] < tile
+    v0, i0 = pq_model(codes, table, base, k)
+    v, i = pq_model(codes, table, base, k, block)
+    np.testing.assert_array_equal(i, i0)
+    np.testing.assert_array_equal(v.view(np.uint32), v0.view(np.uint32))
+
+
 def test_pq_plan():
     """D4's chunk: clusters of 8 CTAs a query, 864 rows a CTA in one tile
     (16 x 8 = 128 CTAs); long rows stream through tiles that fit beside the
     table; segments and tiles are multiples of 16 rows."""
     assert pq_ops.plan(6888, 16, 256) == (8, 864, 864)
+    # block: rounded up to 16 rows, capped by the segment and the shared
+    # memory
+    assert pq_ops.plan(6888, 16, 256, 400) == (8, 864, 400)
+    assert pq_ops.plan(6888, 16, 256, 401) == (8, 864, 416)
+    assert pq_ops.plan(6888, 16, 256, 5000) == (8, 864, 864)
+    assert pq_ops.plan(40000, 16, 256, 10 ** 6) == pq_ops.plan(40000, 16, 256)
+    with pytest.raises(ValueError, match="block"):
+        pq_ops.plan(6888, 16, 256, 0)
     cluster, seg_len, tile = pq_ops.plan(40000, 16, 256)
     assert (cluster, seg_len) == (8, 5008) and tile < seg_len
     assert seg_len % 16 == 0 and tile % 16 == 0
