@@ -3,10 +3,12 @@
 port's RQ1/RQ2 paths, of cell L1's RM3, linear-fusion and
 learning-to-rank pipelines (and the LTR stage's fit), of its dense second stage (brute-force and
 IVF-PQ DenseRetrieve) at TREC Robust04 scale (528,155 documents), and of
-the RAG answer stage's LM (cell G1: Qwen2-1.5B, random weights from seed
-0), eagerly and as captured CUDA graphs, and of the served path (cell S1:
-a burst of single-query requests, and RAG requests through the decode
-pool).
+the RAG answer stage's LMs (cell G1: Qwen2-1.5B; the MoE cells G2,
+OLMoE-1B-7B, and G3, Llama-4-Scout at 8 layers; random weights from seed
+0), eagerly and as captured CUDA graphs, with an MoE layer's time split
+into router, dispatch, expert products and combine, and of the served
+path (cell S1: a burst of single-query requests, and RAG requests through
+the decode pool).
 
 Run from the repository root on a machine with one NVIDIA H100:
 
@@ -20,7 +22,10 @@ and its 31 greedy decode steps apart (the steps also as one captured
 graph), then a ``MultiPipelineServer`` (the engine's default ladder, the
 stage cache off so that each run executes): 250 T topics as single-query
 requests to ``Retrieve("BM25", k=100) >> Extract("QL")``, and 16 to G1's
-pipeline decoded in a pool of 8 slots; and prints, per setting:
+pipeline decoded in a pool of 8 slots; then for G2 (chunks of 16 prompts
+of 1,024 tokens) and G3 (chunks of 4 prompts of 16,384) the first chunk's
+prefill and its decode steps as one captured graph, and layer 0's MoE
+split into its parts by CUDA events; and prints, per setting:
 the wall time, the device time summed over kernels, the device's idle
 share of the wall time, the operators with the most device time, and the
 port's own kernels whatever their rank.
@@ -40,6 +45,10 @@ PORT_KERNELS = ("topk_segments_kernel", "topk_merge_kernel",
                 "pq_cluster_kernel", "flash_attention_kernel")
 #: cell G1: prompt length, greedy tokens, documents per prompt
 G1_PROMPT, G1_NEW, G1_DOCS = 1024, 32, 4
+#: the MoE cells: name -> (config module, layers kept or None, chunk,
+#: prompt length, documents per prompt, reranked depth); 32 greedy tokens
+MOE_CELLS = {"G2": ("olmoe_1b_7b", None, 16, 1024, 4, 8),
+             "G3": ("llama4_scout_17b_a16e", 8, 4, 16384, 64, 64)}
 
 
 def _device_us(evt) -> float:
@@ -123,6 +132,106 @@ def _profile_g1(index, dense, Q):
              lambda: be.engine.run_pinned(prog, lm, first, cache,
                                           donate_argnums=(2,)))
     return cfg, lm
+
+
+def _events_ms(fn, reps: int = 5) -> float:
+    """Mean device ms of ``fn()`` by CUDA events, after one warm-up."""
+    import torch
+    fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def _moe_parts(name: str, p, x, m) -> None:
+    """One MoE layer's device time split into its parts, at the hidden
+    states ``x`` [B, S, d] of a prefill or a decode step (CUDA events,
+    each part on its own inputs): the router (logits, top-k, aux), the
+    dispatch (positions and the [E, C, d] buffer), the expert products,
+    the combine (rows back, gates, sum over k) and the shared expert."""
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    B, S, d = x.shape
+    xt = x.reshape(B * S, d)
+    C = moe.scatter_capacity(m, B * S)
+    gates, idx, _ = moe._routing(xt, p.router, m)
+    flat_e, slot, keep = moe.scatter_slots(idx, m.n_experts, C)
+    buf = moe._scatter_buffer(xt, flat_e, slot, keep, m.n_experts, C)
+    y = moe._expert_ffn(p, buf)
+
+    def dispatch():
+        f, s, k = moe.scatter_slots(idx, m.n_experts, C)
+        return moe._scatter_buffer(xt, f, s, k, m.n_experts, C)
+
+    parts = {"router": lambda: moe._routing(xt, p.router, m),
+             "dispatch": dispatch,
+             "experts": lambda: moe._expert_ffn(p, buf),
+             "combine": lambda: moe._scatter_combine(y, flat_e, slot, keep,
+                                                     gates)}
+    if m.n_shared:
+        parts["shared expert"] = lambda: L.mlp_apply(p.shared, x)
+    ms = {k: _events_ms(f) for k, f in parts.items()}
+    whole = _events_ms(lambda: moe.moe_apply(p, x, m))
+    print(f"   {name}: one MoE layer, x {tuple(x.shape)}, capacity {C}: "
+          f"whole {whole:.3f} ms; " + ", ".join(
+              f"{k} {v:.3f} ms ({v / sum(ms.values()):.3f})"
+              for k, v in ms.items()))
+
+
+def _profile_moe(index, dense, Q, cell: str) -> None:
+    """An MoE cell's LM on its first chunk of T topics (random weights
+    from seed 0, bf16, the flash kernel): the prefill, then the 31 greedy
+    decode steps as one captured graph, each profiled apart; and layer
+    0's MoE split into its parts at the prefill's and a step's inputs."""
+    import dataclasses
+    import importlib
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import Context, StageProgram
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as tlm
+    mod, layers, chunk, prompt, docs, depth = MOE_CELLS[cell]
+    full = importlib.import_module(f"repro_torch.configs.{mod}").model_cfg()
+    cfg = dataclasses.replace(full, attn_impl="pallas",
+                              n_layers=layers or full.n_layers)
+    be = rt.TorchBackend(index, dense, default_k=1000,
+                         bucket_ladder=(chunk,), device="cuda")
+    be.register_lm(cfg.name, cfg, seed=0)
+    lm = be.lm(cfg.name)[1]
+    Qc = {k: v[:chunk] for k, v in Q.items()}
+    R = rt.run_pipeline(rt.Retrieve("BM25") >> rt.DenseRerank() % depth, Qc,
+                        backend=be)
+    gen = rt.Generate(cfg.name, max_new_tokens=G1_NEW, max_prompt_len=prompt,
+                      prompt_docs=docs)
+    prompts = gen.assemble(Context(be), Qc, R)
+    cache = tlm.init_kv_cache(cfg, chunk, prompt + G1_NEW, device="cuda")
+    logits, _ = tlm.prefill(cfg, lm, prompts, cache)
+    first = torch.argmax(logits, -1)[:, None]
+    del logits
+
+    def decode_all(lm, tok, cache):
+        for t in range(G1_NEW - 1):
+            out, cache = tlm.decode_step(cfg, lm, tok, cache, prompt + t)
+            tok = torch.argmax(out, -1)[:, None]
+        return tok, cache
+
+    prog = StageProgram(key=(cell, "decode steps"), fn=decode_all)
+    _profile(f"{cell} prefill ({chunk} x {prompt} tokens, {cfg.name}, "
+             f"{cfg.n_layers} layers)",
+             lambda: tlm.prefill(cfg, lm, prompts, cache))
+    _profile(f"{cell} decode, one captured graph ({G1_NEW - 1} steps of "
+             f"{chunk} tokens)",
+             lambda: be.engine.run_pinned(prog, lm, first, cache,
+                                          donate_argnums=(2,)))
+    blk = lm.layers[0]
+    h = L.rmsnorm(lm.embed[prompts.long()], blk.ln_mlp, cfg.norm_eps)
+    _moe_parts(f"{cell} prefill", blk.moe, h, cfg.moe)
+    _moe_parts(f"{cell} decode step", blk.moe, h[:, :1].contiguous(),
+               cfg.moe)
 
 
 def _profile_serve(index, dense, Q, cfg, lm) -> None:
@@ -219,6 +328,10 @@ def main() -> int:
              lambda: ltr.fit(Qtr, qrels_tr, backend=be))
     cfg, lm = _profile_g1(index, dense, Q)
     _profile_serve(index, dense, Q, cfg, lm)
+    del cfg, lm
+    for cell in MOE_CELLS:
+        torch.cuda.empty_cache()
+        _profile_moe(index, dense, Q, cell)
     print(card())
     return 0
 

@@ -29,7 +29,16 @@ the main path it runs cell A1 (the measured optimiser: a cold autotune of
 the gate and the IVF knobs by CUDA events into a persisted profile, a warm
 compile that replays it, the roofline peaks fitted from the probes) and
 cuts D2's store into 1, 2, 4 and 8 doc shards, merged bit-equal to the
-unsharded search.
+unsharded search.  Last come the mixture-of-experts LMs: the flash kernel
+at their prefill shapes (OLMoE's MHA; Llama-4's 40-over-8 heads at 16,384
+tokens, chunked at 8,192 and global), one full-width MoE layer of each on
+the card against the CPU, then cells G2 (G1's pipeline on OLMoE-1B-7B at
+full width, 250 T topics, then an 8-slot decode pool) and G3
+(Llama-4-Scout at full width and 8 of 48 layers, 16 T topics with
+16,384-token prompts of 64 documents), each freed before the next LM is
+drawn, with their routing, their tokens through the graphs held to the
+eager run, and each layer's attention on the kernel held to the einsum
+path.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -41,12 +50,15 @@ exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import NamedTuple
 
 CHUNK = 16
 #: the engine's ladder on the backends of the cells RQ1-P1: one rung, the
@@ -79,6 +91,35 @@ S1_SLO, S1_SLO_MS, S1_RAG, S1_SLOTS = 64, 250.0, 32, 8
 #: the H100 with the earlier fp32-probability kernel (PERF.md, G1); 0.95
 #: leaves room for another card's sums
 G1_FIRST_TOKEN_MIN = 0.95
+
+
+
+class RagCell(NamedTuple):
+    """A RAG answer-stage cell on a mixture-of-experts LM: G1's pipeline
+    shape, ``Retrieve("BM25") >> DenseRerank() % depth >> Generate(...)``,
+    bf16 on the flash kernel, random weights from seed 0."""
+    name: str
+    config: str            # module of repro_torch.configs
+    layers: int | None     # the depth kept (None: the published depth)
+    topics: int | None     # the first T topics (None: all 250)
+    chunk: int             # queries a chunk: the engine's one rung
+    prompt: int
+    new: int
+    docs: int
+    depth: int
+    pool_slots: int        # a decode pool on the same LM after (0: none)
+    einsum_topics: int | None  # topics the einsum path decodes end to end
+
+
+#: cell G2: OLMoE-1B-7B at full width and depth, G1's traffic and lengths;
+#: then an 8-slot decode pool over 16 of its prompts; the einsum path end
+#: to end on all 250 topics
+G2 = RagCell("G2", "olmoe_1b_7b", None, None, 16, 1024, 32, 4, 8, 8, None)
+#: cell G3: Llama-4-Scout at full width, 8 of its 48 layers (3 of 4
+#: chunked at 8,192), 16,384-token prompts of 64 documents, 16 T topics;
+#: the einsum path end to end on the first chunk (~10 s a chunk)
+G3 = RagCell("G3", "llama4_scout_17b_a16e", 8, 16, 4, 16384, 32, 64, 64, 0,
+             4)
 
 #: clock cycles that time_ms's spin holds the card, ~5 ms on an H100:
 #: longer than the host's stalls seen while enqueueing a timed call (2.8 ms
@@ -692,6 +733,9 @@ def phase_dense_kernels(index, forms, state) -> dict:
              "D3 no base": (emb_c, qv, None),
              "D1 rerank": (emb_r, qv, base_r),
              "G1 rerank": (emb_g, qv, base_g),
+             # G3: a chunk of 4 queries reranked to depth 64
+             "G3 rerank, 4 queries": (emb_g[:G3.chunk], qv[:G3.chunk],
+                                      base_g[:G3.chunk]),
              "shorter than a segment": (short, qv, None),
              "[16, 100, 64] rows": (emb_r[:, :100], qv, None),
              "dim 62 shared": (e62, q62, masked),
@@ -720,29 +764,33 @@ def phase_dense_kernels(index, forms, state) -> dict:
         f"{tuple(emb_c.shape)}, D1 rows {tuple(emb_r.shape)}, G1 rows "
         f"{tuple(emb_g.shape)}")
     rows = {}
-    shapes = {"D2": (emb, None, 10), "D3": (emb_c, base_c, 10),
-              "D1": (emb_r, base_r, 10), "G1": (emb_g, base_g, G1_DEPTH)}
-    for name, (e, b, k) in shapes.items():
-        nq, c = CHUNK, e.shape[-2]
-        nbytes = e.numel() * 4 + qv.numel() * 4 + nq * k * 8 + \
+    g3 = slice(0, G3.chunk)
+    shapes = {"D2": (emb, qv, None, 10), "D3": (emb_c, qv, base_c, 10),
+              "D1": (emb_r, qv, base_r, 10),
+              "G1": (emb_g, qv, base_g, G1_DEPTH),
+              "G3": (emb_g[g3], qv[g3], base_g[g3], G3.depth)}
+    for name, (e, qx, b, k) in shapes.items():
+        nq, c = qx.shape[0], e.shape[-2]
+        nbytes = e.numel() * 4 + qx.numel() * 4 + nq * k * 8 + \
             (0 if b is None else b.numel() * 4)
         bms, by = bound(nbytes, 2 * nq * c * dim)
         if e.dim() == 2:
             def library():
-                return torch.topk(qv @ e.T, k)
+                return torch.topk(qx @ e.T, k)
         else:
             def library():
                 return torch.topk(torch.baddbmm(
-                    b[..., None], e, qv[..., None])[..., 0], k)
+                    b[..., None], e, qx[..., None])[..., 0], k)
         (ms_a, ms_b), plain, lib = time_in_turns(
-            lambda: streaming_dense_topk(e, qv, b, k=k),
-            lambda: dense_topk_ref(e, qv, b, k=k), library)
+            lambda: streaming_dense_topk(e, qx, b, k=k),
+            lambda: dense_topk_ref(e, qx, b, k=k), library)
         ms = (ms_a + ms_b) / 2
         rows[f"dense_topk {name}"] = {
             "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
             "bound_by": by, "max_abs_err": err,
             "shape": f"{'x'.join(map(str, e.shape))} x {nq} queries k={k}"}
-        log(f"[dense kernels] dense_topk {name} {tuple(e.shape)} k={k}: "
+        log(f"[dense kernels] dense_topk {name} {tuple(e.shape)} x {nq} "
+            f"queries k={k}: "
             f"kernel {ms_a:.4f} / {ms_b:.4f} ms (mean {ms:.4f}), plain "
             f"{plain:.4f} ms, "
             f"library (two calls: matmul + torch.topk) {lib:.4f} ms, bound "
@@ -929,7 +977,11 @@ def phase_attention_kernels() -> dict:
              (2, 100, 70, 4, 2, 64, True, 32),
              (2, 130, 70, 4, 2, 128, False, 48),
              (CHUNK, G1_PROMPT, G1_PROMPT, cfg.n_q, cfg.n_kv, cfg.d_head,
-              True, 0)]
+              True, 0),
+             # G3's grouping (40 q heads over 8 kv heads) with a chunk;
+             # G2's MHA (16 over 16) at its prompt length
+             (1, 256, 256, 40, 8, 128, True, 64),
+             (2, 1024, 1024, 16, 16, 128, True, 0)]
     # ragged against the bf16 kernel's 128-row q and kv tiles; the last,
     # 576 work tiles of one or two kv tiles, crosses the persistent CTAs'
     # work-tile boundaries many times
@@ -1060,6 +1112,136 @@ def phase_attention_shapes() -> None:
             f"({ops / ms / 1e9:.1f} TFLOP/s), library {lib:.4f} ms "
             f"({ops / lib / 1e9:.1f} TFLOP/s), kernel / library "
             f"{ms / lib:.3f}; max abs err vs plain {diff:.4f}")
+    phase_attention_moe_shapes(g)
+
+
+def _visible_pairs(S: int, chunk: int) -> int:
+    """(query, key) pairs causal attention over S positions visits, within
+    blocks of ``chunk`` positions (0: one block)."""
+    c = chunk or S
+    n, r = divmod(S, c)
+    return n * c * (c + 1) // 2 + r * (r + 1) // 2
+
+
+#: the MoE cells' prefill attention: (cell, B, S, H, Hkv, D, chunk, the
+#: (batch, kv head) groups held against the plain version; None: all)
+MOE_FLASH_SHAPES = [("G2", 16, 1024, 16, 16, 128, 0, None),
+                    ("G3 chunked", 4, 16384, 40, 8, 128, 8192,
+                     ((0, 0), (2, 3), (3, 7))),
+                    ("G3 global", 4, 16384, 40, 8, 128, 0,
+                     ((0, 0), (2, 3), (3, 7)))]
+#: an output row of N(0, 1) q/k/v averages the values of the keys it sees:
+#: a row past a few thousand keys has an RMS near sqrt(e / keys), ~0.02 at
+#: 8,192, so 2e-2 alone would pass a kernel that lost a kv tile there.
+#: Each element is also held within its own bf16 rounding (2^-8 of itself)
+#: plus four bf16 ulps (2^-5) of its row's RMS, for the rounding of P to
+#: bf16 in the sums, against the plain version's fp32 result, and the
+#: whole within 1e-2 relative: a kv tile of 128 keys lost or counted
+#: twice moves a late row by about a tenth of its RMS
+ROW_REL_TOL, REL_TOL = 2.0 ** -5, 1e-2
+
+
+def attention_errors(a, ref32) -> tuple[float, float, float]:
+    """(max abs error of ``a`` against the bf16 rounding of ``ref32``,
+    ||a - ref32|| / ||ref32||, the largest element's |a - ref32| over
+    2^-8 |ref32| + ROW_REL_TOL x its row's RMS: <= 1 passes), of attention
+    outputs [..., D]."""
+    import torch
+    d = a.float() - ref32
+    rms = ref32.square().mean(-1, keepdim=True).sqrt()
+    allowed = 2.0 ** -8 * ref32.abs() + ROW_REL_TOL * rms
+    return (float((a.float() - ref32.to(a.dtype).float()).abs().max()),
+            float(torch.linalg.vector_norm(d) /
+                  torch.linalg.vector_norm(ref32)),
+            float((d.abs() / allowed.clamp_min(1e-30)).max()))
+
+
+def phase_attention_moe_shapes(g) -> None:
+    """The bf16 flash kernel at the MoE cells' prefill shapes, each held
+    against the plain version and timed beside its bound, the plain
+    version and the library call: G2's MHA q [16, 1024, 16, 128], and G3's
+    q [4, 16384, 40, 128] with k/v [4, 16384, 8, 128], chunk 8,192 (its
+    chunked layers) and global (every fourth).  The check is 2e-2 absolute
+    and, scale-aware, ``attention_errors`` (each element within its own
+    rounding plus ROW_REL_TOL of its row's RMS, the whole within REL_TOL).
+    At G3 the plain version's fp32 [S, T] scores of the whole call would
+    take 172 GB, so it is held on kv groups (batch b, kv head j: q heads
+    5j..5j+4 against k/v head j) and timed on one of the 32; the library
+    call for a chunked layer is scaled_dot_product_attention with the
+    boolean [S, T] mask, whose masked kernels take no GQA (k/v expanded to
+    40 heads beforehand)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import (attention_mask,
+                                                         flash_attention_ref)
+    for cell, B, S, H, HKV, D, chunk, groups in MOE_FLASH_SHAPES:
+        G = H // HKV
+        q, k, v = (torch.randn(B, S, h, D, device=DEVICE, generator=g)
+                   .to(torch.bfloat16) for h in (H, HKV, HKV))
+        a = flash_attention(q, k, v, causal=True, chunk=chunk)
+
+        def group(b, j):
+            """(q, k, v, out) of batch b and kv head j, or all (None)."""
+            if b is None:
+                return q, k, v, a
+            h = slice(G * j, G * j + G)
+            return (q[b:b + 1, :, h], k[b:b + 1, :, j:j + 1],
+                    v[b:b + 1, :, j:j + 1], a[b:b + 1, :, h])
+
+        diff = rel = row = 0.0
+        for b, j in groups or [(None, None)]:
+            gq, gk, gv, ga = group(b, j)
+            # the plain version's fp32 result on the bf16 inputs
+            ref = flash_attention_ref(gq.float(), gk.float(), gv.float(),
+                                      causal=True, chunk=chunk)
+            e = attention_errors(ga, ref)
+            diff, rel, row = max(diff, e[0]), max(rel, e[1]), max(row, e[2])
+            del ref
+        assert diff <= 2e-2 and rel <= REL_TOL and row <= 1.0, \
+            (cell, diff, rel, row)
+        pq, pk, pv, _ = group(*((0, 0) if groups else (None, None)))
+        plain = time_ms(lambda: flash_attention_ref(pq, pk, pv, causal=True,
+                                                    chunk=chunk), iters=3)
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                             chunk=chunk))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        if chunk:
+            mask = attention_mask(S, S, causal=True, chunk=chunk,
+                                  device=q.device)
+            kt, vt = (x.repeat_interleave(G, dim=2).transpose(1, 2)
+                      for x in (k, v))
+
+            def library():
+                with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION,
+                                  SDPBackend.CUDNN_ATTENTION]):
+                    return F.scaled_dot_product_attention(qt, kt, vt,
+                                                          attn_mask=mask)
+        else:
+            def library():
+                return F.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=G > 1)
+        lib = time_ms(library)
+        ops = 4 * B * H * D * _visible_pairs(S, chunk)
+        nbytes = 2 * (2 * q.numel() + k.numel() + v.numel())
+        b_ops = 1e3 * ops / BF16_TC_OPS_PER_S
+        b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+        log(f"[attention shapes] {cell}: q [{B}, {S}, {H}, {D}] k/v [{B}, "
+            f"{S}, {HKV}, {D}] bf16 causal chunk={chunk}: kernel {ms:.4f} ms"
+            f" ({ops / ms / 1e9:.1f} TFLOP/s), library {lib:.4f} ms, kernel "
+            f"/ library {ms / lib:.3f}; plain "
+            f"{'(one of ' + str(B * HKV) + ' kv groups) ' if groups else ''}"
+            f"{plain:.4f} ms; bound {max(b_ops, b_bytes):.4f} ms "
+            f"({'operations' if b_ops >= b_bytes else 'bytes'}: "
+            f"{ops / 1e9:.1f} GFLOP, {b_ops:.4f} ms; {nbytes / 1e6:.1f} MB, "
+            f"{b_bytes:.4f} ms), {max(b_ops, b_bytes) / ms:.3f} of it; max "
+            f"abs err vs plain {diff:.4f}, relative {rel:.3e}, worst "
+            f"element {row:.3f} of its allowance (2^-8 of itself + "
+            f"{ROW_REL_TOL} of its row's RMS) "
+            f"{'on kv groups ' + str(groups) if groups else ''}")
+        del q, k, v, a, qt, kt, vt
+        torch.cuda.empty_cache()
 
 
 def phase_generate(index, forms, state) -> dict:
@@ -1190,11 +1372,14 @@ def phase_generate(index, forms, state) -> dict:
     tok0 = torch.argmax(tlm.prefill(cfg, lm, prompts, cache)[0],
                         -1).to(torch.int32)
     be.engine.run_pinned(dec_prog, lm, tok0, cache, donate_argnums=(2,))
+    # the chunk's count of real rows, as Generate passes it: the same entry
+    n_real = torch.full((), prompts.shape[0], dtype=torch.long,
+                        device=DEVICE)
     g_times = {"program": [], "decode": []}
     for _ in range(3):
         for name, call in (
                 ("program", lambda: be.engine.run_pinned(gen_prog, lm,
-                                                         prompts)),
+                                                         prompts, n_real)),
                 ("decode", lambda: be.engine.run_pinned(
                     dec_prog, lm, tok0, cache, donate_argnums=(2,)))):
             torch.cuda.synchronize()
@@ -1247,6 +1432,505 @@ def phase_generate(index, forms, state) -> dict:
     assert first >= G1_FIRST_TOKEN_MIN, first
     return {"launches": launches, "cfg": cfg, "lm": lm, "tokens": tokens,
             "docids": A["docids"]}
+
+
+def phase_moe_layers() -> None:
+    """One full-width OLMoE-1B-7B and one Llama-4-Scout MoE layer (weights
+    drawn on the card from seed 0), 64 tokens each, on the card and on
+    the CPU with the same weights and inputs: the experts picked agree but
+    where the top-k margin lies within a bf16 rounding of the scores; the
+    outputs of the tokens routed alike agree within 3 % of the largest
+    magnitude (the bf16 rule); with room for every assignment, scatter and
+    einsum dispatch agree on the card by the same rule."""
+    import importlib
+    import torch
+    from repro_torch.models import moe
+    for mod in ("olmoe_1b_7b", "llama4_scout_17b_a16e"):
+        cfg = importlib.import_module(f"repro_torch.configs.{mod}").model_cfg()
+        m = cfg.moe
+        gen = torch.Generator(device=DEVICE).manual_seed(0)
+        p = moe.moe_init(gen, cfg.d_model, m, cfg.dtype)
+        x = torch.randn(1, 64, cfg.d_model, device=DEVICE,
+                        generator=gen).to(cfg.dtype)
+        t0 = time.perf_counter()
+        p_cpu = moe.MoE(cfg.d_model, m, cfg.dtype, "cpu")
+        p_cpu.load_state_dict(p.state_dict())
+        out = {}
+        for dev, pp in (("card", p), ("cpu", p_cpu)):
+            xx = x.to(dev if dev == "cpu" else DEVICE)
+            xt = xx.reshape(64, cfg.d_model)
+            gates, idx, _ = moe._routing(xt, pp.router, m)
+            scores = xt.float() @ pp.router
+            scores = (torch.sigmoid(scores) if m.router_act == "sigmoid"
+                      else torch.softmax(scores, -1))
+            out[dev] = (moe.moe_apply(pp, xx, m)[0].float().cpu(),
+                        idx.cpu(), scores.cpu())
+        cpu_s = time.perf_counter() - t0
+        (o_c, i_c, s_c), (o_h, i_h, s_h) = out["card"], out["cpu"]
+        same = (i_c.sort(-1).values == i_h.sort(-1).values).all(-1)
+        # a token whose picks differ: its k-th and (k+1)-th scores within
+        # a bf16 rounding (2^-8 relative) on the card's side
+        top = s_c.sort(-1, descending=True).values
+        margin = top[:, m.top_k - 1] - top[:, m.top_k]
+        tie = margin <= top[:, m.top_k - 1].abs() * 2.0 ** -8
+        assert bool((same | tie).all()), (mod, (~same).nonzero().tolist())
+        scale = float(o_h[0, same].abs().max())
+        d_out = float((o_c[0, same] - o_h[0, same]).abs().max())
+        assert d_out <= 0.03 * scale, (mod, d_out, scale)
+        # scatter vs einsum on the card, nothing dropped
+        room = dataclasses.replace(m, capacity_factor=float(m.n_experts))
+        a = moe.moe_apply(p, x, room)[0].float()
+        b = moe.moe_apply(p, x, dataclasses.replace(room,
+                                                    dispatch="einsum"))[0]
+        torch.cuda.synchronize()
+        d_disp = float((a - b.float()).abs().max())
+        assert d_disp <= 0.03 * float(a.abs().max()), (mod, d_disp)
+        log(f"[moe layers] {cfg.name}: {m.n_experts} experts of d_ff "
+            f"{m.d_ff_expert}, top-{m.top_k} {m.router_act}"
+            f"{', 1 shared expert' if m.n_shared else ''}, d_model "
+            f"{cfg.d_model}, 64 tokens: experts picked alike on card and "
+            f"CPU for {float(same.float().mean()):.4f} of the tokens (the "
+            f"rest within a bf16 rounding of the top-k margin); their outputs"
+            f" within {d_out:.4g} of each other (largest {scale:.4g}); "
+            f"scatter vs einsum dispatch on the card {d_disp:.4g} (largest "
+            f"{float(a.abs().max()):.4g}); CPU side {cpu_s:.2f} s")
+        del p, p_cpu, x, a, b
+        torch.cuda.empty_cache()
+
+
+def attention_layer_by_layer(cfg, lm, prompts) -> list:
+    """The kernel path's prefill of ``prompts`` walked layer by layer: at
+    each layer's input, its attention sublayer on the flash kernel and on
+    the einsum path, and the experts the next MoE picks after each.  Per
+    layer: (chunk, max abs difference of the two attention outputs, their
+    largest magnitude, share of tokens whose experts both pick alike)."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import moe
+    from repro_torch.models import transformer_lm as tlm
+    x = lm.embed.to(cfg.dtype)[prompts.long()]
+    positions = torch.arange(prompts.shape[1], device=x.device)
+    memo = {"pallas": {}, "xla": {}}
+    rows = []
+    for blk, chunk in zip(lm.layers, tlm._layer_chunks(cfg)):
+        h = L.rmsnorm(x, blk.ln_attn, cfg.norm_eps)
+        a = {impl: L.attn_apply(blk.attn, h, positions=positions, chunk=chunk,
+                                impl=impl, memo=memo[impl])
+             for impl in memo}
+        picks = [moe._routing(L.rmsnorm(x + a[impl], blk.ln_mlp, cfg.norm_eps)
+                              .reshape(-1, cfg.d_model), blk.moe.router,
+                              cfg.moe)[1].sort(-1).values for impl in memo]
+        rows.append((chunk, float((a["pallas"].float() - a["xla"].float())
+                                  .abs().max()),
+                     float(a["xla"].float().abs().max()),
+                     float((picks[0] == picks[1]).all(-1).float().mean())))
+        x = tlm._block(cfg, blk, x, lambda attn, h, out=a["pallas"]: out)
+        del a, picks, h
+    return rows
+
+
+def plain_attention(q, k, v, *, causal: bool = True, chunk: int = 0):
+    """The flash kernel's plain version (fp32 scores, P and P V), on one kv
+    group (batch b, kv head j) at a time where the whole call's fp32
+    scores would pass 4 GiB."""
+    import torch
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    B, S, H, D = q.shape
+    T, HKV = k.shape[1], k.shape[2]
+    if B * H * S * T * 4 <= 4 << 30:
+        return flash_attention_ref(q, k, v, causal=causal, chunk=chunk)
+    G = H // HKV
+    out = torch.empty_like(q)
+    for b in range(B):
+        for j in range(HKV):
+            h = slice(G * j, G * j + G)
+            out[b:b + 1, :, h] = flash_attention_ref(
+                q[b:b + 1, :, h], k[b:b + 1, :, j:j + 1],
+                v[b:b + 1, :, j:j + 1], causal=causal, chunk=chunk)
+    return out
+
+
+#: the walk's ways: (attention, routes pinned to the einsum path's);
+#: "flash" the kernel, "plain" its plain version in place of it
+WALK = {"einsum": ("xla", False), "kernel": ("flash", False),
+        "kernel pinned": ("flash", True), "plain": ("plain", False),
+        "plain pinned": ("plain", True)}
+
+
+def walk_routes(cfg, lm, prompts, n_rows: int):
+    """The prefill of ``prompts`` [C, P] (the first ``n_rows`` real, the
+    rest zero rows padding the bucket, as the engine runs a chunk) walked
+    layer by layer without a cache, each way of ``WALK``: the einsum
+    attention path; the flash kernel routing on its own (the main path's
+    function) and with each MoE layer routed to the experts the einsum
+    path picks at that layer; and the same two with the kernel's plain
+    version in its place, a second equally correct attention beside the
+    einsum path's.  Returns ({way: last-position logits [C, vocab]},
+    {way: per layer the share of real tokens whose experts it picks as the
+    einsum path does})."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import transformer_lm as tlm
+    x0 = lm.embed.to(cfg.dtype)[prompts.long()]
+    xs = dict.fromkeys(WALK, x0)
+    positions = torch.arange(prompts.shape[1], device=x0.device)
+    memo = {"xla": {}, "pallas": {}}
+    rows = torch.full((), n_rows, dtype=torch.long, device=x0.device)
+    real = n_rows * prompts.shape[1]
+    alike = {way: [] for way in WALK}
+    kernel = L.flash_attention
+    try:
+        for blk, chunk in zip(lm.layers, tlm._layer_chunks(cfg)):
+            met = {}
+            for way, (attn_by, pinned) in WALK.items():
+                im = "xla" if attn_by == "xla" else "pallas"
+                L.flash_attention = (plain_attention if attn_by == "plain"
+                                     else kernel)
+
+                def attend(attn, h, im=im, chunk=chunk):
+                    return L.attn_apply(attn, h, positions=positions,
+                                        chunk=chunk, impl=im, memo=memo[im])
+                route = {"n_rows": rows}
+                if pinned:
+                    route["expert_idx"] = met["einsum"][0]["expert_idx"]
+                met[way] = []
+                xs[way] = tlm._block(cfg, blk, xs[way], attend, met[way],
+                                     **route)
+                same = (met[way][0]["expert_idx"].sort(-1).values ==
+                        met["einsum"][0]["expert_idx"].sort(-1).values)
+                alike[way].append(float(same.all(-1)[:real].float().mean()))
+    finally:
+        L.flash_attention = kernel
+    return ({way: tlm._last_logits(cfg, lm, x) for way, x in xs.items()},
+            alike)
+
+
+def phase_generate_moe(index, forms, state, cell: RagCell) -> dict:
+    """A RAG cell on an MoE LM (G2, G3) through ``Experiment(measure_time=
+    True)``, each chunk's greedy decode one captured CUDA graph: launches
+    read right after it (flash: layers x (chunks x 2 runs of the graph +
+    the warm-up before its capture)); the first chunk run again eagerly
+    with its routing recorded (load per expert, dropped share at prefill
+    and decode), its tokens bit-equal to the graph's; the captured
+    program and decode steps timed; with ``pool_slots`` a decode pool of
+    captured graphs over the first chunk's prompts; then the einsum
+    attention path on the same weights: layer by layer on the first chunk
+    from the kernel path's inputs, each layer's attention output within 3 %
+    of its largest magnitude (the bf16 rule) and the share of tokens whose
+    experts the two outputs pick alike printed; then end to end on
+    ``einsum_topics``, its first-token agreement printed; then the witness
+    of what that agreement measures (``walk_routes``): the same prefills
+    on the kernel, routing freely (first tokens equal to the
+    Experiment's) and pinned to the einsum path's routes, each beside the
+    kernel's plain version in its place, and held to agree with the
+    einsum path no less often than the plain version does.  The
+    end-to-end agreement is not held to G1's 0.95: routing is
+    discontinuous, so rounding-level differences pick other experts for
+    some tokens, and attention carries their states to every later
+    position, whichever of two correct attentions runs."""
+    import importlib
+    import torch
+    import repro_torch as rt
+    from repro_torch.core import Context, StageProgram, ir
+    from repro_torch.core.stages import greedy_generate_fn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer_lm as tlm
+    from repro_torch.serve.batching import ContinuousBatcher, Request
+    tag = f"[{cell.name}]"
+    full = importlib.import_module(
+        f"repro_torch.configs.{cell.config}").model_cfg()
+    cfg = dataclasses.replace(full, attn_impl="pallas",
+                              n_layers=cell.layers or full.n_layers)
+    m = cfg.moe
+    be = rt.TorchBackend(index, state["dense"], default_k=1000,
+                         bucket_ladder=(cell.chunk,), device=DEVICE)
+    t0 = time.perf_counter()
+    be.register_lm(cfg.name, cfg, seed=0)
+    torch.cuda.synchronize()
+    lm = be.lm(cfg.name)[1]
+    n_params = sum(p.numel() for p in lm.parameters())
+    w_bytes = sum(p.numel() * p.element_size() for p in lm.parameters())
+    elt = lm.embed.element_size()
+    # a decode step needs every weight but the embedding table's unused
+    # rows and the routed experts its tokens do not pick, and the KV cache
+    # up to each step's position (P + new / 2 on average)
+    expert_bytes = 3 * cfg.d_model * m.d_ff_expert * elt
+    base_bytes = w_bytes - lm.embed.numel() * elt * \
+        (not cfg.tie_embeddings) - cfg.n_layers * m.n_experts * \
+        expert_bytes + 2 * cfg.n_layers * cell.chunk * \
+        (cell.prompt + cell.new / 2) * cfg.n_kv * cfg.d_head * elt
+    log(f"{tag} {cfg.name}: {cfg.n_layers} of {full.n_layers} layers, "
+        f"d_model {cfg.d_model}, {cfg.n_q}/{cfg.n_kv} heads of {cfg.d_head},"
+        f" {m.n_experts} experts of d_ff {m.d_ff_expert} top-{m.top_k} "
+        f"({m.router_act}{', 1 shared expert' if m.n_shared else ''}), "
+        f"vocab {cfg.vocab}, rope theta {cfg.rope_theta}, chunk "
+        f"{cfg.attn_chunk} every {cfg.attn_chunk_every}: {n_params} "
+        f"parameters, {w_bytes} bytes in {cfg.dtype}, drawn on the card "
+        f"from seed 0 in {time.perf_counter() - t0:.2f} s")
+
+    def generate(model):
+        return rt.Generate(model, max_new_tokens=cell.new,
+                           max_prompt_len=cell.prompt, prompt_docs=cell.docs)
+
+    def rag(model):
+        return (rt.Retrieve("BM25") >> rt.DenseRerank() % cell.depth
+                >> generate(model))
+
+    pipe = rag(cfg.name)
+    kinds = [o.kind for o in ir.chain(compile_checked(pipe, be))]
+    assert kinds == ["fused_dense_rerank", "generate"], kinds
+    topics = forms["T"]
+    nq = cell.topics or len(topics.qids)
+    Q = rt.make_queries(topics.terms[:nq], topics.weights[:nq],
+                        topics.qids[:nq], device=DEVICE)
+    n_chunks, P, C = -(-nq // cell.chunk), cell.prompt, cell.chunk
+
+    # the main path: counts from zero, read right after the Experiment
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = rt.Experiment([pipe], Q, topics.qrels, ["map", "ndcg_cut_10"],
+                        backend=be, measure_time=True)
+    launches = read_launches("flash_attention", "dense_topk")
+    row, A = res["table"][0], res["results"][0]
+    want_flash = cfg.n_layers * (2 * n_chunks + 1)
+    log(f"[main] {cell.name} {time.perf_counter() - t0:.1f} s (warm-up + "
+        f"timed run); launches {launches}; flash's expected device count "
+        f"{cfg.n_layers} layers ({sum(map(bool, tlm._layer_chunks(cfg)))} "
+        f"chunked at {cfg.attn_chunk}, the rest global) x ({n_chunks} chunks"
+        f" x 2 runs of the captured graph + the warm-up run) = {want_flash};"
+        f" graph captures by cause {be.engine.compiles_by_cause()}; peak "
+        f"device memory {torch.cuda.max_memory_allocated()} bytes")
+    assert launches["flash_attention"]["device"] == want_flash, launches
+    assert launches["dense_topk"]["device"] > 0, launches
+    tokens = A["tokens"]
+    assert tokens.shape == (nq, cell.new) and tokens.dtype == torch.int32
+    assert int(tokens.min()) >= 0 and int(tokens.max()) < cfg.vocab
+    assert A["docids"].shape == (nq, cell.depth)
+    log(f"{tag} mrt_ms {row['mrt_ms']:.4f} per query ({nq} T topics, chunks"
+        f" of {C}, prompts of {P}); map {row['map']:.4f} ndcg_cut_10 "
+        f"{row['ndcg_cut_10']:.4f} of the reranked depth {cell.depth}; "
+        f"tokens {tuple(tokens.shape)} in [{int(tokens.min())}, "
+        f"{int(tokens.max())}], {len(torch.unique(tokens))} distinct")
+
+    # the first chunk eagerly, each MoE call's metrics kept: its routing
+    Qc = {key: val[:C] for key, val in Q.items()}
+    prompts = generate(cfg.name).assemble(Context(be),
+                                          Qc, {"docids": A["docids"][:C]})
+    routed = {"prefill": [], "decode": []}
+    cache = tlm.init_kv_cache(cfg, C, P + cell.new, device=DEVICE)
+    logits, cache = tlm.prefill(cfg, lm, prompts, cache,
+                                metrics=routed["prefill"])
+    tok = torch.argmax(logits, -1).to(torch.int32)
+    eager = [tok]
+    for t in range(cell.new - 1):
+        logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache, P + t,
+                                        metrics=routed["decode"])
+        tok = torch.argmax(logits, -1).to(torch.int32)
+        eager.append(tok)
+    eager = torch.stack(eager, dim=1)
+    assert torch.equal(A["tokens"][:C], eager), \
+        f"{cell.name}'s tokens through the captured graph differ from eager"
+    for when, mets in routed.items():
+        load = torch.stack([x["expert_load"] for x in mets]).sum(0).tolist()
+        dropped = int(sum(x["dropped"] for x in mets))
+        n_assign = sum(x["expert_idx"].numel() for x in mets)
+        steps = len(mets) // cfg.n_layers
+        cap = moe.scatter_capacity(m, C, P if when == "prefill" else 1)
+        log(f"{tag} routing at {when} (first chunk, {len(mets)} calls: "
+            f"{cfg.n_layers} layers x {steps} steps; capacity {cap} slots "
+            f"an expert a call): {dropped} of {n_assign} assignments "
+            f"dropped ({dropped / n_assign:.4f}); load per expert over the "
+            f"calls, min {min(load)} max {max(load)}: {load}")
+    # the routed experts a decode step reaches: a layer's distinct picks
+    hit = sum(int((x["expert_load"] > 0).sum()) for x in routed["decode"])
+    hit_per_step = hit / (len(routed["decode"]) // cfg.n_layers)
+    del cache, logits, routed
+
+    # the captured graphs: the Experiment's program (prefill + every
+    # decode step, its entry for this rung) and the decode steps alone,
+    # best of 3
+    gen_prog = StageProgram(key=(be.uid, generate(cfg.name).key(),
+                                 "generate"), fn=greedy_generate_fn(
+        cfg, max_prompt_len=P, max_new_tokens=cell.new))
+
+    def decode_all(lm, tok, cache):
+        for t in range(cell.new - 1):
+            logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
+                                            P + t)
+            tok = torch.argmax(logits, -1).to(torch.int32)
+        return tok, cache
+
+    dec_prog = StageProgram(key=(cell.name, "decode steps"), fn=decode_all)
+    cache = tlm.init_kv_cache(cfg, C, P + cell.new, device=DEVICE)
+    tok0 = torch.argmax(tlm.prefill(cfg, lm, prompts, cache)[0],
+                        -1).to(torch.int32)
+    be.engine.run_pinned(dec_prog, lm, tok0, cache, donate_argnums=(2,))
+    # the chunk's count of real rows, as Generate passes it: the same entry
+    n_real = torch.full((), prompts.shape[0], dtype=torch.long,
+                        device=DEVICE)
+    g_times = {"program": [], "decode": []}
+    for _ in range(3):
+        for name, call in (
+                ("program", lambda: be.engine.run_pinned(gen_prog, lm,
+                                                         prompts, n_real)),
+                ("decode", lambda: be.engine.run_pinned(
+                    dec_prog, lm, tok0, cache, donate_argnums=(2,)))):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = call()
+            torch.cuda.synchronize()
+            g_times[name].append(time.perf_counter() - t0)
+            if name == "program":
+                assert torch.equal(out, eager)
+    g_prog, g_dec = min(g_times["program"]), min(g_times["decode"])
+    steps = cell.new - 1
+    step_bytes = base_bytes + hit_per_step * expert_bytes
+    all_bytes = base_bytes + cfg.n_layers * m.n_experts * expert_bytes
+    log(f"{tag} one chunk of {C}, captured graphs (best of 3): prefill + "
+        f"{steps} decode steps {1e3 * g_prog:.2f} ms, tokens bit-equal to "
+        f"the eager run; {steps} decode steps alone {1e3 * g_dec:.2f} ms = "
+        f"{1e3 * g_dec / steps:.3f} ms/step = {C * steps / g_dec:.0f} "
+        f"tokens/s; prefill ~{1e3 * (g_prog - g_dec):.2f} ms = "
+        f"{C * P / (g_prog - g_dec):.0f} tokens/s; a step needs "
+        f"{step_bytes / 1e9:.2f} GB: bound "
+        f"{1e3 * step_bytes / HBM_BYTES_PER_S:.3f} ms/step, "
+        f"{1e3 * g_dec / steps / (1e3 * step_bytes / HBM_BYTES_PER_S):.3f}"
+        f"x it (the weights but the embedding table's unused rows and the "
+        f"routed experts no token picks: {hit_per_step / cfg.n_layers:.2f} "
+        f"of {m.n_experts} a layer on this run's steps, at most "
+        f"{min(m.n_experts, C * m.top_k)}; the KV cache to each position); "
+        f"the scatter dispatch's products read all {m.n_experts} experts, "
+        f"{all_bytes / 1e9:.2f} GB, "
+        f"{1e3 * all_bytes / HBM_BYTES_PER_S:.3f} ms/step")
+    del cache, tok0, out
+
+    windows = [launches]
+    if cell.pool_slots:
+        # the decode pool on the same LM: the first chunk's prompts as
+        # requests, the slot prefill and the ragged step captured graphs
+        pool = ContinuousBatcher(cfg, lm, slots=cell.pool_slots,
+                                 max_len=P + cell.new + 1, engine=be.engine,
+                                 key=(cell.name, "pool"))
+        before = dict(be.engine.compiles_by_cause())
+        zero_launches()
+        t0 = time.perf_counter()
+        for i, prompt in enumerate(prompts.cpu().numpy()):
+            pool.submit(Request(rid=i, prompt=prompt,
+                                max_new_tokens=cell.new))
+        done = pool.run_to_completion()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        pl = read_launches("flash_attention")
+        windows.append(pl)
+        assert len(done) == C and all(
+            len(r.generated) == cell.new and
+            0 <= min(r.generated) and max(r.generated) < cfg.vocab
+            for r in done), [len(r.generated) for r in done]
+        want_pool = cfg.n_layers * (C + 1)
+        log(f"[main] {cell.name} pool: {C} requests in {cell.pool_slots} "
+            f"slots, {pool.n_decode_steps} ragged steps, {wall:.2f} s "
+            f"({1e3 * wall / pool.n_decode_steps:.3f} ms a step, slot "
+            f"prefills included); launches {pl}, flash's expected device "
+            f"count {cfg.n_layers} layers x ({C} slot prefills + the "
+            f"warm-up) = {want_pool} (the ragged step is on the einsum "
+            f"path); graph captures {before} -> "
+            f"{be.engine.compiles_by_cause()}")
+        assert pl["flash_attention"]["device"] == want_pool, pl
+        del pool, done
+
+    # the einsum attention path on the same weights and chunks (an MoE
+    # call's capacity counts its batch), once the kernel path's graphs and
+    # their memory pools are gone: first layer by layer on the first
+    # chunk's prompts, each layer's attention from the kernel path's input
+    del be, res, gen_prog, dec_prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    layers = attention_layer_by_layer(cfg, lm, prompts)
+    log(f"{tag} layer by layer on the first chunk ({time.perf_counter() - t0:.1f}"
+        f" s): per layer (chunk, max abs diff kernel vs einsum attention "
+        f"output, largest magnitude, share of tokens whose {m.top_k} experts"
+        f" are picked alike after each): "
+        f"{[(c, round(d, 4), round(a, 2), round(r, 4)) for c, d, a, r in layers]}")
+    for c, d, a, _ in layers:
+        assert d <= 0.03 * a, (cell.name, c, d, a)
+    cfg_x = dataclasses.replace(cfg, attn_impl="xla")
+    bx = rt.TorchBackend(index, state["dense"], default_k=1000,
+                         bucket_ladder=(C,), device=DEVICE)
+    bx.register_lm(f"{cfg.name}-einsum", cfg_x, lm)
+    t0 = time.perf_counter()
+    ne = cell.einsum_topics or nq
+    Ax = rt.run_pipeline(rag(f"{cfg.name}-einsum"),
+                         {key: val[:ne] for key, val in Q.items()}, backend=bx)
+    torch.cuda.synchronize()
+    docs = float((Ax["docids"] == A["docids"][:ne]).all(1).float().mean())
+    agree = Ax["tokens"][:, 0] == tokens[:ne, 0]
+    first = float(agree.float().mean())
+    whole = float((Ax["tokens"] == tokens[:ne]).all(1).float().mean())
+    same = (Ax["tokens"] == tokens[:ne]).float().mean(0)
+    log(f"{tag} flash kernel vs einsum path end to end "
+        f"({time.perf_counter() - t0:.1f} s; {docs:.4f} of the topics with "
+        f"equal docids): first token agrees on {first:.4f} of {ne} topics "
+        f"(G1's dense LM: >= {G1_FIRST_TOKEN_MIN}), all {cell.new} tokens on"
+        f" {whole:.4f}; per-step agreement "
+        f"{[round(float(x), 3) for x in same]}")
+
+    # the witness: the same prefills walked each way of WALK, chunk by
+    # chunk as the engine pads them, once the einsum path's graphs are gone
+    t0 = time.perf_counter()
+    Qe = {key: val[:ne] for key, val in Q.items()}
+    pe = generate(f"{cfg.name}-einsum").assemble(
+        Context(bx), Qe, {"docids": A["docids"][:ne]})
+    e2e_first = Ax["tokens"][:, 0].long()
+    del bx, Ax
+    gc.collect()
+    torch.cuda.empty_cache()
+    firsts = {way: [] for way in WALK}
+    diffs = dict.fromkeys(WALK, 0.0)
+    alike = {way: [] for way in WALK}
+    scale = 0.0
+    for s0 in range(0, ne, C):
+        n = min(C, ne - s0)
+        pc = torch.cat([pe[s0:s0 + n], pe.new_zeros(C - n, P)])
+        lg, shares = walk_routes(cfg, lm, pc, n)
+        for way, x in lg.items():
+            x = x[:n].float()
+            firsts[way].append(x.argmax(-1))
+            diffs[way] = max(diffs[way],
+                             float((x - lg["einsum"][:n].float()).abs().max()))
+            alike[way].append(shares[way])
+        scale = max(scale, float(lg["einsum"].float().abs().max()))
+        del lg, pc
+    firsts = {way: torch.cat(x) for way, x in firsts.items()}
+    agree = {way: float((x == firsts["einsum"]).float().mean())
+             for way, x in firsts.items()}
+    layers_alike = {way: [round(sum(c) / len(c), 4) for c in zip(*x)]
+                    for way, x in alike.items()}
+    log(f"{tag} the prefills walked layer by layer over {ne} topics "
+        f"({time.perf_counter() - t0:.1f} s; the walk's einsum first tokens "
+        f"vs the einsum Generate's "
+        f"{float((firsts['einsum'] == e2e_first).float().mean()):.4f}): "
+        f"first token as the einsum path's, "
+        f"{ {w: round(agree[w], 4) for w in WALK if w != 'einsum'} }; "
+        f"last-position logits max abs diff vs the einsum path "
+        f"{ {w: round(diffs[w], 4) for w in WALK if w != 'einsum'} } "
+        f"(largest {scale:.4g}); share of tokens routed as the einsum path,"
+        f" per layer (mean over chunks): kernel {layers_alike['kernel']}, "
+        f"plain {layers_alike['plain']}")
+    assert torch.equal(firsts["kernel"].int(), tokens[:ne, 0]), \
+        f"{cell.name}: the walk's kernel path is not the main path's"
+    # the kernel agrees with the einsum path no less often than its plain
+    # version does, routes free or pinned: within three standard errors
+    # of a difference of two shares of ne topics
+    for way in ("kernel", "kernel pinned"):
+        p = agree[way.replace("kernel", "plain")]
+        margin = 3 * math.sqrt(2 * max(p * (1 - p), 1 / ne) / ne)
+        assert agree[way] >= p - margin, (cell.name, way, agree, margin)
+    del lm, pe
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"windows": windows}
 
 
 def phase_rq1(index, forms) -> tuple:
@@ -2189,6 +2873,7 @@ def main() -> int:
 
     rows.update(phase_attention_kernels())
     phase_attention_shapes()
+    phase_moe_layers()
     # the RAG main path (cell G1): its counts are set to zero and read
     # inside phase_generate, around its Experiment
     g1 = phase_generate(index, forms, state)
@@ -2198,6 +2883,17 @@ def main() -> int:
     t0 = time.perf_counter()
     windows.append(phase_serve(index, forms, state, g1))
     log(f"[main] S1 phase {time.perf_counter() - t0:.1f} s")
+    # the MoE cells G2 and G3, each on its own LM once G1's is gone: their
+    # counts are set to zero and read inside phase_generate_moe
+    del g1
+    for cell in (G2, G3):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        windows += phase_generate_moe(index, forms, state, cell)["windows"]
+        log(f"[main] {cell.name} phase {time.perf_counter() - t0:.1f} s; "
+            f"device memory held after it {torch.cuda.memory_allocated()} "
+            f"bytes")
     launches = {}
     for w in windows:
         for name, c in w.items():

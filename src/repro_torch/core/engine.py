@@ -489,13 +489,15 @@ class ShardedQueryEngine:
 
     def run_pinned_chunks(self, program: StageProgram, rows: torch.Tensor,
                           *consts):
-        """``run_pinned(program, *consts, chunk)`` over the chunk plan of
-        ``rows`` (each chunk padded with zero rows to its bucket), the
+        """``run_pinned(program, *consts, chunk, n)`` over the chunk plan
+        of ``rows`` (each chunk padded with zero rows to its bucket; ``n``
+        its count of real rows, a 0-d int64 tensor on the device), the
         outputs concatenated and trimmed: a pinned program per ladder rung,
         as the generate stage runs its greedy decode."""
         plan = self.chunk_plan(int(rows.shape[0]))
-        outs = [self.run_pinned(program, *consts, piece)
-                for piece in self._pieces(rows, plan)]
+        outs = [self.run_pinned(program, *consts, piece, torch.full(
+            (), n, dtype=torch.long, device=piece.device))
+            for piece, (_, n, _) in zip(self._pieces(rows, plan), plan)]
         return self._materialize(outs, plan)
 
     def _run_plan(self, program: StageProgram, args, plan):

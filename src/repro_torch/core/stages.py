@@ -542,19 +542,21 @@ def greedy_generate_fn(cfg, *, max_prompt_len: int, max_new_tokens: int):
     Python loop in place of the JAX package's ``lax.scan``) against a
     [B, P + T] KV cache, updated in place.  The argmax of each step's
     logits (in ``cfg.dtype``) takes the first maximum, as ``jnp.argmax``
-    does."""
+    does.  ``n_rows`` (a 0-d device tensor) counts the real prompts of a
+    block padded to its bucket, which an MoE layer's capacity counts alone
+    (``transformer_lm.prefill``)."""
     from repro_torch.models import transformer_lm as tlm
     P, T = int(max_prompt_len), int(max_new_tokens)
 
-    def gen(lm, prompts):
+    def gen(lm, prompts, n_rows=None):
         cache = tlm.init_kv_cache(cfg, prompts.shape[0], P + T,
                                   device=prompts.device)
-        logits, cache = tlm.prefill(cfg, lm, prompts, cache)
+        logits, cache = tlm.prefill(cfg, lm, prompts, cache, n_rows=n_rows)
         tok = torch.argmax(logits, dim=-1).to(torch.int32)
         out = [tok]
         for t in range(T - 1):
             logits, cache = tlm.decode_step(cfg, lm, tok[:, None], cache,
-                                            P + t)
+                                            P + t, n_rows=n_rows)
             tok = torch.argmax(logits, dim=-1).to(torch.int32)
             out.append(tok)
         return torch.stack(out, dim=1)
@@ -572,8 +574,12 @@ class Generate(Transformer):
     a ``tokens [NQ, max_new_tokens]`` column block; A is terminal, no
     ranking stage may consume it (core/passes.py schema rules).  Prompts
     are prefilled and decoded per chunk of the engine's chunk plan (of
-    ``query_chunk`` queries without an engine); each row's tokens depend
-    on its own prompt alone."""
+    ``query_chunk`` queries without an engine).  A dense LM's row depends
+    on its own prompt alone; an MoE LM's capacity counts the tokens of its
+    chunk's real prompts (not the rows that pad it to its bucket), where
+    the JAX package's Generate routes all NQ prompts in one call, so the
+    two agree where the chunk holds every query, and the reference run
+    chunk by chunk otherwise (ROADMAP §3)."""
     kind = "generate"
     out_kind = "A"
     reads_results = True

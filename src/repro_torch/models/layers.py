@@ -122,16 +122,21 @@ def attention_bias(q_positions: torch.Tensor, k_positions: torch.Tensor, *,
 #: above this many query rows the einsum path runs blocks of q rows, so the
 #: [S, T] score tensor never materialises whole (each row still sees all T)
 Q_CHUNK = 1024
+#: and halves the rows of a block until its fp32 scores [B, n_q, rows, T]
+#: take at most this many bytes (a 16,384-token prompt's cache makes a
+#: block of 1,024 rows 2.7 GB a sequence)
+SCORE_BLOCK_BYTES = 1 << 31
 
 
 def _attn_core(qg, k, v, bias):
     """qg [B, s, n_kv, G, D] vs k/v [B, T, n_kv, D]; bias [..., s, T]."""
     D = qg.shape[-1]
     scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
-                          k.to(torch.float32)) * D ** -0.5
+                          k.to(torch.float32))
     while bias.dim() < scores.dim():
         bias = bias[None]
-    probs = torch.softmax(scores + bias, dim=-1)
+    # scaled and masked in place: two [.., s, T] fp32 tensors at the peak
+    probs = torch.softmax(scores.mul_(D ** -0.5).add_(bias), dim=-1)
     return torch.einsum("bkgst,btkd->bskgd", probs.to(v.dtype), v)
 
 
@@ -152,6 +157,9 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias,
     B, S, n_q, D = q.shape
     n_kv = k.shape[2]
     qg = q.reshape(B, S, n_kv, n_q // n_kv, D)
+    while q_chunk > 1 and B * n_q * q_chunk * k.shape[1] * 4 > \
+            SCORE_BLOCK_BYTES:
+        q_chunk //= 2
     if S <= q_chunk or S % q_chunk:
         return _attn_core(qg, k, v, bias).reshape(B, S, n_q, D)
     outs = [_attn_core(qg[:, i:i + q_chunk], k, v,
@@ -249,7 +257,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     """Returns out [B, S, d].  ``kv_cache`` ([B, T, n_kv, D] k and v) is
     written in place at ``cache_index``.  With ``impl="pallas"``, a pass
     without a cache or a prefill at offset 0 attends over the fresh tokens
-    on the flash-attention kernel (plain causal only); every other pass
+    on the flash-attention kernel, causal and within ``chunk`` as the
+    einsum path masks them (the JAX package's "pallas" path drops the
+    chunk: ROADMAP §3); every other pass
     runs the einsum path, over the whole cache with its slots past the
     fresh tokens masked when there is one (decode, as in the JAX package).
     ``memo`` (a dict, one per pass over the layers) keeps the RoPE tables
@@ -264,12 +274,9 @@ def attn_apply(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
         cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
     if impl in ("pallas", "flash") and \
             (kv_cache is None or (cache_index == 0 and S > 1)):
-        if chunk or not causal:
-            raise NotImplementedError(
-                f"impl={impl!r} runs plain causal attention; chunked-local "
-                f"attention on the kernel is not ported yet: ROADMAP §1, "
-                f"chunked-local attention")
-        return p.out(gqa_attention(q, k, v, None, impl=impl))
+        if impl == "flash":
+            return p.out(gqa_attention(q, k, v, None, impl=impl))  # raises
+        return p.out(flash_attention(q, k, v, causal=causal, chunk=chunk))
     if kv_cache is None:
         bias = _once(memo, ("bias", causal, chunk), lambda: attention_bias(
             positions, positions, causal=causal, chunk=chunk))

@@ -2,19 +2,24 @@
 ``src/repro/models/transformer_lm.py``: its config, parameters, prefill and
 decode against a KV cache).
 
-One implementation covers the dense LMs of the JAX package (qwen2-1.5b:
-QKV bias, tied embeddings).  The JAX package stacks layer parameters on a
-leading ``L`` axis and scans over them; here :class:`TransformerLM` holds
-one :class:`Block` per layer and a Python loop walks them, so a layer's
-attention chunk is a plain int and each layer calls ``layers.attn_apply``
-(the JAX package's ``_attn_with_traced_chunk`` and ``attn_apply`` are one
-function here).  The LM prefill runs its attention on the flash-attention
-kernel when ``attn_impl="pallas"``; decode steps stay on the einsum path,
-as in the JAX package.  :func:`lm_from_arrays` carries a
-JAX ``init_params`` tree across, so both packages compute one function.
+One implementation covers the LMs of the JAX package: the dense ones
+(qwen2-1.5b: QKV bias, tied embeddings; glm4-9b, internlm2-1.8b) and the
+mixture-of-experts ones (olmoe-1b-7b: 64 experts top-8; llama4-scout:
+16 experts top-1 with a shared expert, chunked-local attention on 3 of 4
+layers), whose layers hold a ``models/moe.py`` FFN.  The JAX package
+stacks layer parameters on a leading ``L`` axis and scans over them; here
+:class:`TransformerLM` holds one :class:`Block` per layer and a Python loop
+walks them, so a layer's attention chunk is a plain int and each layer
+calls ``layers.attn_apply`` (the JAX package's ``_attn_with_traced_chunk``
+and ``attn_apply`` are one function here).  The LM prefill runs its
+attention on the flash-attention kernel when ``attn_impl="pallas"``, with
+the layer's chunk (the JAX package's "pallas" path drops it; the port
+computes what its "xla" path does); decode steps stay on the einsum path,
+as in the JAX package.  :func:`lm_from_arrays` carries a JAX
+``init_params`` tree across, so both packages compute one function.
 
-Not ported yet (ROADMAP §1): mixture-of-experts layers, chunked-local
-attention on the kernel, and the training forward and loss.
+Not ported yet (ROADMAP §1): the training forward and loss, and with them
+``attn_impl="flash"``.
 """
 from __future__ import annotations
 
@@ -27,6 +32,7 @@ from torch import nn
 
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.models import layers as L
+from repro_torch.models import moe as moe_lib
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -43,7 +49,7 @@ class LMConfig:
     tie_embeddings: bool = False
     rope_theta: float = 1e6
     norm_eps: float = 1e-6
-    moe: Any = None
+    moe: moe_lib.MoEConfig | None = None
     # per-layer chunked local attention: 0 = all-global; else layers whose
     # index % chunk_every != chunk_every-1 use chunked attention (llama4 iRoPE)
     attn_chunk: int = 0
@@ -61,6 +67,30 @@ class LMConfig:
         mlp = 0 if self.moe else self.n_layers * 3 * d * self.d_ff
         return attn + emb + mlp + 2 * self.n_layers * d
 
+    @property
+    def params_total(self) -> int:
+        n = self.params_dense
+        if self.moe:
+            m = self.moe
+            n += self.n_layers * m.n_experts * 3 * self.d_model * \
+                m.d_ff_expert
+            n += self.n_layers * self.d_model * m.n_experts
+            if m.n_shared:
+                n += self.n_layers * 3 * self.d_model * \
+                    (m.d_ff_shared or m.d_ff_expert)
+        return n
+
+    @property
+    def params_active(self) -> int:
+        n = self.params_dense
+        if self.moe:
+            m = self.moe
+            n += self.n_layers * m.top_k * 3 * self.d_model * m.d_ff_expert
+            if m.n_shared:
+                n += self.n_layers * 3 * self.d_model * \
+                    (m.d_ff_shared or m.d_ff_expert)
+        return n
+
     def attn_dims(self) -> L.AttnDims:
         return L.AttnDims(d_model=self.d_model, n_q=self.n_q, n_kv=self.n_kv,
                           d_head=self.d_head, qkv_bias=self.qkv_bias,
@@ -69,14 +99,11 @@ class LMConfig:
 
 def check_supported(cfg: LMConfig) -> None:
     """Raise for the configurations whose slice is not ported yet."""
-    if cfg.moe is not None:
+    if cfg.attn_impl == "flash":
         raise NotImplementedError(
-            f"{cfg.name}: mixture-of-experts layers (models/moe.py) are not "
-            f"ported yet: ROADMAP §1, MoE")
-    if cfg.attn_chunk and cfg.attn_impl == "pallas":
-        raise NotImplementedError(
-            f"{cfg.name}: chunked-local attention on the flash-attention "
-            f"kernel is not ported yet: ROADMAP §1, chunked-local attention")
+            f"{cfg.name}: attn_impl='flash' (flash_attention_xla, the "
+            f"q-chunked training path) is not ported yet: ROADMAP §1, "
+            f"training")
 
 
 # ---------------------------------------------------------------------------
@@ -85,13 +112,17 @@ def check_supported(cfg: LMConfig) -> None:
 
 class Block(nn.Module):
     """One transformer layer's parameters, on ``device`` (``None`` = the
-    card)."""
+    card): ``attn``, then ``moe`` (a :class:`~repro_torch.models.moe.MoE`)
+    with ``cfg.moe``, else ``mlp``."""
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
         device = resolve_device(device)
         self.attn = L.Attention(cfg.attn_dims(), cfg.dtype, device)
-        self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
+        if cfg.moe:
+            self.moe = moe_lib.MoE(cfg.d_model, cfg.moe, cfg.dtype, device)
+        else:
+            self.mlp = L.MLP(cfg.d_model, cfg.d_ff, cfg.dtype, device)
         self.ln_attn = nn.Parameter(
             torch.ones(cfg.d_model, dtype=torch.float32, device=device),
             requires_grad=False)
@@ -128,14 +159,20 @@ class TransformerLM(nn.Module):
 
 def init_params(cfg: LMConfig, generator: torch.Generator) -> TransformerLM:
     """A fresh draw of every weight (the JAX package's ``init_params``
-    distribution), on the generator's device."""
+    distribution), on the generator's device; an MoE layer's experts are
+    drawn one at a time (``moe_init``)."""
     lm = TransformerLM(cfg, device=generator.device)
     with torch.no_grad():
         lm.embed.copy_(L.dense_init(generator, (cfg.vocab, cfg.d_model),
                                     cfg.dtype, scale=1.0))
         for blk in lm.layers:
             blk.attn = L.attn_init(generator, cfg.attn_dims(), cfg.dtype)
-            blk.mlp = L.mlp_init(generator, cfg.d_model, cfg.d_ff, cfg.dtype)
+            if cfg.moe:
+                blk.moe = moe_lib.moe_init(generator, cfg.d_model, cfg.moe,
+                                           cfg.dtype)
+            else:
+                blk.mlp = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
+                                     cfg.dtype)
         if lm.unembed is not None:
             lm.unembed.copy_(L.dense_init(generator, (cfg.d_model, cfg.vocab),
                                           cfg.dtype))
@@ -144,9 +181,10 @@ def init_params(cfg: LMConfig, generator: torch.Generator) -> TransformerLM:
 
 def lm_from_arrays(cfg: LMConfig, tree: dict, device=None) -> TransformerLM:
     """The LM whose weights are ``tree``, the JAX ``init_params`` tree with
-    numpy (or array-like) leaves, layer leaves stacked on a leading L axis;
-    each is cast to its parameter's dtype on ``device`` (``None`` = the
-    card)."""
+    numpy (or array-like) leaves, layer leaves stacked on a leading L axis
+    (an MoE layer's under ``layers["moe"]``: router, experts and
+    ``shared``); each is cast to its parameter's dtype on ``device``
+    (``None`` = the card)."""
     lm = TransformerLM(cfg, device=resolve_device(device))
 
     def put(param, a):
@@ -163,8 +201,17 @@ def lm_from_arrays(cfg: LMConfig, tree: dict, device=None) -> TransformerLM:
         for i, blk in enumerate(lm.layers):
             for name in attn_names:
                 put(getattr(blk.attn, name), lay["attn"][name][i])
-            for name in ("w_gate", "w_up", "w_down"):
-                put(getattr(blk.mlp, name), lay["mlp"][name][i])
+            if cfg.moe:
+                moe = lay["moe"]
+                for name in ("router", "w_gate", "w_up", "w_down"):
+                    put(getattr(blk.moe, name), moe[name][i])
+                if cfg.moe.n_shared:
+                    for name in ("w_gate", "w_up", "w_down"):
+                        put(getattr(blk.moe.shared, name),
+                            moe["shared"][name][i])
+            else:
+                for name in ("w_gate", "w_up", "w_down"):
+                    put(getattr(blk.mlp, name), lay["mlp"][name][i])
             put(blk.ln_attn, lay["ln_attn"][i])
             put(blk.ln_mlp, lay["ln_mlp"][i])
     return lm
@@ -183,12 +230,21 @@ def _layer_chunks(cfg: LMConfig) -> list[int]:
             for i in range(cfg.n_layers)]
 
 
-def _block(cfg: LMConfig, p: Block, x, attend) -> torch.Tensor:
+def _block(cfg: LMConfig, p: Block, x, attend, metrics: list | None = None,
+           **route) -> torch.Tensor:
     """One transformer layer: x [B, S, d] -> x'; ``attend(attn, h)`` is
-    the attention sublayer's output for the normalised ``h``."""
+    the attention sublayer's output for the normalised ``h``.  An MoE
+    layer passes ``route`` (``n_rows``, ``expert_idx``) to
+    :func:`~repro_torch.models.moe.moe_apply` and appends its metrics to
+    ``metrics`` when that is a list."""
     h = L.rmsnorm(x, p.ln_attn, cfg.norm_eps)
     x = x + attend(p.attn, h)
     h = L.rmsnorm(x, p.ln_mlp, cfg.norm_eps)
+    if cfg.moe:
+        out, m = moe_lib.moe_apply(p.moe, h, cfg.moe, **route)
+        if metrics is not None:
+            metrics.append(m)
+        return x + out
     return x + L.mlp_apply(p.mlp, h)
 
 
@@ -209,10 +265,15 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
 
 
 def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
-                cache: dict, start_pos: int):
+                cache: dict, start_pos: int, n_rows=None,
+                metrics: list | None = None):
     """Shared prefill/decode pass: runs tokens [B, S] at absolute offset
     ``start_pos`` against the cache, which it updates in place; returns
-    (logits of the last position [B, vocab] in ``cfg.dtype``, cache)."""
+    (logits of the last position [B, vocab] in ``cfg.dtype``, cache).
+    ``n_rows`` (a 0-d integer tensor on the device; None: B): the first
+    rows are the real ones, the rest pad a bucket, and an MoE layer's
+    capacity counts the real rows alone; each MoE layer's metrics are
+    appended to ``metrics`` when that is a list."""
     S = tokens.shape[1]
     x = lm.embed.to(cfg.dtype)[tokens.long()]
     positions = start_pos + torch.arange(S, device=tokens.device)
@@ -223,22 +284,24 @@ def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
                                 kv_cache=(cache["k"][i], cache["v"][i]),
                                 cache_index=start_pos, chunk=chunk,
                                 impl=cfg.attn_impl, memo=memo)
-        x = _block(cfg, blk, x, attend)
+        x = _block(cfg, blk, x, attend, metrics, n_rows=n_rows)
     return _last_logits(cfg, lm, x), cache
 
 
 def prefill(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
-            cache: dict):
-    """tokens [B, P] at offset 0 -> (logits [B, vocab], cache)."""
-    return _serve_pass(cfg, lm, tokens, cache, 0)
+            cache: dict, *, n_rows=None, metrics: list | None = None):
+    """tokens [B, P] at offset 0 -> (logits [B, vocab], cache); ``n_rows``
+    and ``metrics`` as in :func:`_serve_pass`."""
+    return _serve_pass(cfg, lm, tokens, cache, 0, n_rows, metrics)
 
 
 def decode_step(cfg: LMConfig, lm: TransformerLM, token: torch.Tensor,
-                cache: dict, pos: int):
+                cache: dict, pos: int, *, n_rows=None,
+                metrics: list | None = None):
     """token [B, 1] at absolute position ``pos`` -> (logits, cache); every
     row at one position (:func:`decode_step_ragged` takes a position per
-    row)."""
-    return _serve_pass(cfg, lm, token, cache, pos)
+    row); ``n_rows`` and ``metrics`` as in :func:`_serve_pass`."""
+    return _serve_pass(cfg, lm, token, cache, pos, n_rows, metrics)
 
 
 def decode_step_ragged(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
@@ -247,23 +310,37 @@ def decode_step_ragged(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
     [B] (a device tensor) -> (logits [B, vocab], cache): the decode pool's
     step, whose slots sit at different depths.  Each row's k and v are
     scattered into the cache at its position, in place, and its attention
-    reads the cache up to that position; the einsum path, as the JAX
-    package's ragged decode (``serve/batching.py``) takes it.  No value
-    leaves the device, so the step can be captured as a CUDA graph."""
+    reads the cache up to that position, within the layer's chunk as
+    :func:`decode_step` reads it (the JAX package's ragged decode,
+    ``serve/batching.py``, drops the chunk: ROADMAP §3); the einsum path.
+    An MoE layer routes every row, idle slots' included, as the JAX
+    package's step does: capacity is per call.  No value leaves the
+    device, so the step can be captured as a CUDA graph."""
     B = tokens.shape[0]
     pos = positions.long()
     x = lm.embed.to(cfg.dtype)[tokens.long()]
     rope = L.rope_cos_sin(pos[:, None], cfg.d_head, cfg.rope_theta)
     T = cache["k"].shape[2]
-    valid = torch.arange(T, device=pos.device)[None, :] <= pos[:, None]
-    bias = torch.where(valid, 0.0, L.NEG_INF)[:, None, None, None, :]
+    k_pos = torch.arange(T, device=pos.device)[None, :]
+    biases = {}                 # chunk -> [B, 1, 1, 1, T], made once
+
+    def bias(chunk):
+        if chunk not in biases:
+            ok = k_pos <= pos[:, None]
+            if chunk:
+                ok &= (k_pos // chunk) == (pos[:, None] // chunk)
+            biases[chunk] = torch.where(ok, 0.0, L.NEG_INF)[
+                :, None, None, None, :]
+        return biases[chunk]
+
     at = pos[:, None, None, None].expand(B, 1, cfg.n_kv, cfg.d_head)
-    for i, blk in enumerate(lm.layers):
-        def attend(attn, h, i=i):
+    for i, (blk, chunk) in enumerate(zip(lm.layers, _layer_chunks(cfg))):
+        def attend(attn, h, i=i, chunk=chunk):
             q, k, v = attn.project(h, pos[:, None], rope)
             ck, cv = cache["k"][i], cache["v"][i]
             ck.scatter_(1, at, k.to(ck.dtype))
             cv.scatter_(1, at, v.to(cv.dtype))
-            return attn.out(L.gqa_attention(q, ck, cv, bias, impl="xla"))
+            return attn.out(L.gqa_attention(q, ck, cv, bias(chunk),
+                                            impl="xla"))
         x = _block(cfg, blk, x, attend)
     return _last_logits(cfg, lm, x), cache

@@ -5,6 +5,10 @@ A fixed pool of B decode slots over one shared KV cache; finished or empty
 slots are refilled from the request queue between steps (a prefill writes
 the new request's rows of the cache).  One decode step serves the whole
 pool; per-slot positions, a device tensor, make the ragged decode exact.
+The step runs every slot, idle ones included: an MoE LM routes all of
+them, and its capacity is per call, so a pool's tokens depend on its slot
+count (as the JAX package's pool's do) and are held to ``Generate``'s only
+at the same batch.
 
 With an engine, the prefill and the step run through ``engine.run_pinned``:
 on the card each is one captured CUDA graph, replayed every call, and the

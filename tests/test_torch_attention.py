@@ -256,11 +256,32 @@ def test_attn_apply_matches_reference(cached, start, S, impl):
                                    rtol=1e-6, atol=1e-6)
 
 
-def test_attn_apply_kernel_path_takes_plain_causal_only():
-    _, _, tp, rng = _attn_pair(1)
-    x = torch.tensor(rng.standard_normal((1, 6, 32)).astype(np.float32))
-    pos = torch.arange(6)
-    for kw in (dict(chunk=4), dict(causal=False)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TL.attn_apply(tp, x, positions=pos, impl="pallas", **kw)
-    TL.attn_apply(tp, x, positions=pos, impl="xla", chunk=4)
+@pytest.mark.parametrize("cached", [False, True])
+def test_attn_apply_kernel_path_takes_plain_causal_only(cached):
+    """The kernel path takes a chunk and non-causal masks as the einsum path
+    does (chunked-local attention on the kernel is ported; the JAX
+    package's "pallas" path drops the chunk, so the reference is its "xla"
+    path), with or without a prefill cache; ``impl="flash"`` (the training
+    path) still raises."""
+    dims, jp, tp, rng = _attn_pair(1)
+    x = rng.standard_normal((2, 11, 32)).astype(np.float32)
+    pos = np.arange(11, dtype=np.int32)
+    for kw in (dict(chunk=4), dict(causal=False), dict(chunk=3,
+                                                       causal=False)):
+        jkw, tkw = {}, {}
+        if cached:
+            c = np.zeros((2, 16, 2, 8), np.float32)
+            jkw = dict(kv_cache=(jnp.asarray(c), jnp.asarray(c)),
+                       cache_index=0)
+            tkw = dict(kv_cache=(torch.tensor(c), torch.tensor(c)),
+                       cache_index=0)
+        want = JL.attn_apply(jp, jnp.asarray(x), dims,
+                             positions=jnp.asarray(pos), impl="xla", **jkw,
+                             **kw)
+        got = TL.attn_apply(tp, torch.tensor(x), positions=torch.tensor(pos),
+                            impl="pallas", **tkw, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want[0]),
+                                   rtol=1e-5, atol=1e-5, err_msg=str(kw))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        TL.attn_apply(tp, torch.tensor(x), positions=torch.tensor(pos),
+                      impl="flash", chunk=4)

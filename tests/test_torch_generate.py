@@ -17,12 +17,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro.configs import glm4_9b as jglm4
+from repro.configs import internlm2_1_8b as jinternlm2
 from repro.configs import qwen2_1_5b as jqwen
 from repro.core.stages import greedy_generate_fn as jgreedy
 from repro.models import transformer_lm as JT
+from repro_torch.configs import glm4_9b as tglm4
+from repro_torch.configs import internlm2_1_8b as tinternlm2
 from repro_torch.configs import qwen2_1_5b as tqwen
 from repro_torch.core.stages import greedy_generate_fn
 from repro_torch.models import layers as TL
+from repro_torch.models import moe as TM
 from repro_torch.models import transformer_lm as TT
 
 DT = {"float32": (jnp.float32, torch.float32),
@@ -36,11 +41,15 @@ def _tiny_jcfg(dtype="float32", impl="xla"):
 
 
 def _port_cfg(jcfg):
-    """The port's LMConfig with the same fields as a JAX one."""
+    """The port's LMConfig with the same fields as a JAX one (its
+    MoEConfig too)."""
     kw = {f.name: getattr(jcfg, f.name)
           for f in dataclasses.fields(TT.LMConfig)
           if f.name not in ("dtype", "moe")}
-    return TT.LMConfig(**kw, dtype=DT[jnp.dtype(jcfg.dtype).name][1])
+    moe = (None if jcfg.moe is None
+           else TM.MoEConfig(**dataclasses.asdict(jcfg.moe)))
+    return TT.LMConfig(**kw, moe=moe,
+                       dtype=DT[jnp.dtype(jcfg.dtype).name][1])
 
 
 def _carry(jcfg, seed=0):
@@ -58,7 +67,9 @@ def _f32(x):
 
 CASES = {"tiny float32": (lambda: _tiny_jcfg("float32"), 1e-4),
          "tiny bfloat16": (lambda: _tiny_jcfg("bfloat16"), None),
-         "qwen2 reduced": (lambda: jqwen.reduced()[0], None)}
+         "qwen2 reduced": (lambda: jqwen.reduced()[0], None),
+         "glm4 reduced": (lambda: jglm4.reduced()[0], None),
+         "internlm2 reduced": (lambda: jinternlm2.reduced()[0], None)}
 
 
 def _close(got, want, tol):
@@ -118,6 +129,21 @@ def test_qwen2_configs_match_reference():
                                   jqwen.reduced()[1]()["tokens"])
 
 
+@pytest.mark.parametrize("jmod,tmod", [(jglm4, tglm4),
+                                       (jinternlm2, tinternlm2)])
+def test_dense_configs_match_reference(jmod, tmod):
+    """glm4-9b and internlm2-1.8b field by field (the JAX configs' sharding
+    fields have no counterpart in the port), their sizes and reduced
+    batches."""
+    full = tmod.model_cfg()
+    assert _port_cfg(jmod.model_cfg()) == full
+    for prop in ("params_dense", "params_total", "params_active"):
+        assert getattr(full, prop) == getattr(jmod.model_cfg(), prop)
+    assert _port_cfg(jmod.reduced()[0]) == tmod.reduced()[0]
+    np.testing.assert_array_equal(tmod.reduced()[1]()["tokens"],
+                                  jmod.reduced()[1]()["tokens"])
+
+
 def test_lm_modules_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
     """``device=None`` means the card, as at every entry point: without
     CUDA the LM's modules raise ``resolve_device``'s error, and build on
@@ -138,11 +164,20 @@ def test_lm_modules_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_configs_raise():
-    with pytest.raises(NotImplementedError, match="MoE"):
-        TT.TransformerLM(TT.LMConfig(name="m", n_layers=1, d_model=8, n_q=2,
-                                     n_kv=1, d_head=4, d_ff=8, vocab=16,
-                                     moe=object()))
-    with pytest.raises(NotImplementedError, match="chunked-local"):
-        TT.TransformerLM(TT.LMConfig(name="c", n_layers=1, d_model=8, n_q=2,
-                                     n_kv=1, d_head=4, d_ff=8, vocab=16,
-                                     attn_chunk=4, attn_impl="pallas"))
+    """What is still unported raises: ``attn_impl="flash"`` (the training
+    path's flash_attention_xla) at the LM and ``impl="flash"`` at the
+    attention core.  MoE layers and chunked-local attention on the kernel
+    are ported, so their configurations build."""
+    dims = dict(n_layers=1, d_model=8, n_q=2, n_kv=1, d_head=4, d_ff=8,
+                vocab=16)
+    with pytest.raises(NotImplementedError, match="attn_impl='flash'"):
+        TT.TransformerLM(TT.LMConfig(name="f", attn_impl="flash", **dims),
+                         device="cpu")
+    q = torch.zeros(1, 4, 2, 4)
+    with pytest.raises(NotImplementedError, match="impl='flash'"):
+        TL.gqa_attention(q, q[:, :, :1], q[:, :, :1], None, impl="flash")
+    moe = TM.MoEConfig(n_experts=2, top_k=1, d_ff_expert=8)
+    for cfg in (TT.LMConfig(name="m", moe=moe, **dims),
+                TT.LMConfig(name="c", attn_chunk=4, attn_impl="pallas",
+                            **dims)):
+        TT.TransformerLM(cfg, device="cpu")

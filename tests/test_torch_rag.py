@@ -7,6 +7,8 @@ tiny float32 LM (the JAX ``init_params`` draw carried across with
 ``lm_from_arrays``); the pipeline runs through ``run_pipeline`` on each,
 the JAX "pallas" path in interpret mode.  Prompts are equal exactly,
 rankings at the reference tolerances, tokens equal."""
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -14,6 +16,8 @@ import pytest
 import torch
 
 import repro_torch as rt
+from repro.configs import llama4_scout_17b_a16e as jllama4
+from repro.configs import olmoe_1b_7b as jolmoe
 from repro.core import DenseRerank as JDenseRerank
 from repro.core import Generate as JGenerate
 from repro.core import Retrieve as JRetrieve
@@ -37,6 +41,9 @@ from torch_parity import (assert_ranking_parity, jax_queries, small_env,
 # the RAG pipeline against the reference backend
 # ---------------------------------------------------------------------------
 
+MOE_LMS = {"olmoe-smoke": jolmoe.reduced, "llama4-smoke": jllama4.reduced}
+
+
 @pytest.fixture(scope="module")
 def env():
     corpus, topics, _ = small_env()
@@ -51,7 +58,21 @@ def env():
         params, lm = _carry(jcfg, seed=2)
         jbe.register_lm(f"tiny-{impl}", jcfg, params)
         tbe.register_lm(f"tiny-{impl}", _port_cfg(jcfg), lm)
-    return {"jbe": jbe, "tbe": tbe, "jQ": jax_queries(topics),
+    # the MoE LMs in float32: the reference on its "xla" path (its
+    # "pallas" path drops llama4's chunk), the port on both; tbe8 decodes
+    # all 8 topics in one chunk, as the reference's Generate does
+    tbe8 = rt.TorchBackend(tbe.index, tbe.dense, default_k=60,
+                           query_chunk=8, device="cpu")
+    for name, reduced in MOE_LMS.items():
+        jcfg = dataclasses.replace(reduced()[0], dtype=jnp.float32,
+                                   remat=False)
+        params, lm = _carry(jcfg, seed=3)
+        jbe.register_lm(name, jcfg, params)
+        for impl in ("xla", "pallas"):
+            for be in (tbe, tbe8):
+                be.register_lm(f"{name}-{impl}", dataclasses.replace(
+                    _port_cfg(jcfg), attn_impl=impl), lm)
+    return {"jbe": jbe, "tbe": tbe, "tbe8": tbe8, "jQ": jax_queries(topics),
             "tQ": torch_queries(topics)}
 
 
@@ -76,6 +97,52 @@ def test_rag_pipeline_matches_reference(env, impl):
     assert got["tokens"].shape == (8, 6)
     np.testing.assert_array_equal(got["tokens"].numpy(),
                                   np.asarray(want["tokens"]))
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("name", list(MOE_LMS))
+def test_rag_pipeline_on_moe_lms_matches_reference(env, name, impl):
+    """The RAG leaf on olmoe-smoke and llama4-smoke: prompts of 48 tokens
+    cross llama4's chunk of 16 twice.  The reference's Generate routes all
+    8 prompts in one MoE call; the port's decodes each chunk of its plan
+    as one batch, here one chunk of 8: tokens equal."""
+    want = jrun(_rag("jax", name, P=48), env["jQ"], backend=env["jbe"])
+    got = rt.run_pipeline(_rag("torch", f"{name}-{impl}", P=48), env["tQ"],
+                          backend=env["tbe8"])
+    np.testing.assert_array_equal(got["docids"][:, :3].numpy(),
+                                  np.asarray(want["docids"])[:, :3])
+    assert got["tokens"].shape == (8, 6)
+    np.testing.assert_array_equal(got["tokens"].numpy(),
+                                  np.asarray(want["tokens"]))
+
+
+@pytest.mark.parametrize("name", list(MOE_LMS))
+def test_moe_generate_routes_each_chunk_as_one_batch(env, name):
+    """The recorded deviation (ROADMAP §3): with chunks of 4 the port's
+    tokens equal the reference's run chunk by chunk, since an MoE call's
+    capacity counts the tokens of its own batch."""
+    got = rt.run_pipeline(_rag("torch", f"{name}-pallas", P=48), env["tQ"],
+                          backend=env["tbe"])
+    want = np.concatenate([np.asarray(jrun(
+        _rag("jax", name, P=48), {k: v[i:i + 4] for k, v in env["jQ"].items()},
+        backend=env["jbe"])["tokens"]) for i in (0, 4)])
+    np.testing.assert_array_equal(got["tokens"].numpy(), want)
+
+
+@pytest.mark.parametrize("name", list(MOE_LMS))
+def test_moe_generate_pads_the_last_chunk_without_rerouting(env, name):
+    """6 topics in chunks of 4: the last chunk's 2 prompts are padded with
+    2 zero rows to the bucket of 4, and the MoE layers' capacity counts
+    the 2 real prompts alone, so the tokens equal the reference's run
+    chunk by chunk (4, then 2): the bucket ladder changes no answer."""
+    Q6 = {k: v[:6] for k, v in env["tQ"].items()}
+    got = rt.run_pipeline(_rag("torch", f"{name}-pallas", P=48, T=8), Q6,
+                          backend=env["tbe"])
+    want = np.concatenate([np.asarray(jrun(
+        _rag("jax", name, P=48, T=8), {k: v[i:j] for k, v in
+                                       env["jQ"].items()},
+        backend=env["jbe"])["tokens"]) for i, j in ((0, 4), (4, 6))])
+    np.testing.assert_array_equal(got["tokens"].numpy(), want)
 
 
 @pytest.mark.parametrize("P,docs", [(32, 3), (100, 1), (4096, 4)])

@@ -487,6 +487,84 @@ def test_pool_through_engine_equals_eager_pool(env):
     assert pools[0].n_decode_steps == pools[1].n_decode_steps
 
 
+def _moe_lm(reduced, seed):
+    """(JAX cfg in float32, its params, the port's cfg, the port's LM)."""
+    import dataclasses
+    jcfg = dataclasses.replace(reduced()[0], dtype=jnp.float32, remat=False)
+    params, lm = _carry(jcfg, seed=seed)
+    return jcfg, params, _port_cfg(jcfg), lm
+
+
+def _pool_tokens(pool, prompts, new):
+    for i, p in enumerate(prompts):
+        pool.submit(Request(rid=i, prompt=p, max_new_tokens=new[i]))
+    return {r.rid: r.generated for r in pool.run_to_completion()}
+
+
+def test_moe_pool_equals_reference_pool():
+    """An olmoe-smoke pool of 3 slots against the JAX pool over one request
+    sequence: each step routes all 3 slots, idle ones included, on both
+    sides, so the tokens are equal (float32)."""
+    from repro.configs import olmoe_1b_7b as jolmoe
+    jcfg, params, tcfg, lm = _moe_lm(jolmoe.reduced, 4)
+    rng = np.random.default_rng(2)
+    prompts = rng.integers(2, tcfg.vocab, (5, 12)).astype(np.int32)
+    new = [3, 7, 5, 4, 6]
+    want = _pool_tokens(jbatching.ContinuousBatcher(jcfg, params, slots=3,
+                                                    max_len=24), prompts, new)
+    eng = rt.ShardedQueryEngine("cpu")
+    for engine in (None, eng):
+        got = _pool_tokens(ContinuousBatcher(
+            tcfg, lm, slots=3, max_len=24, engine=engine,
+            key=("moe",) if engine else None), prompts, new)
+        assert got == want and [len(got[i]) for i in range(5)] == new
+
+
+def test_chunked_pool_equals_generate_past_the_chunk():
+    """The recorded deviation (ROADMAP §3): llama4-smoke's decode steps at
+    positions 12-23 cross its chunk boundary at 16.  The port's 1-slot pool
+    gives the tokens of ``Generate``'s decode at batch 1, and its ragged
+    step the logits of the one-position step; the JAX package's ragged
+    step drops the chunk, so its logits past the boundary differ from its
+    own ``decode_step``'s."""
+    from repro.configs import llama4_scout_17b_a16e as jllama4
+    from repro.models import transformer_lm as JT
+    from repro_torch.core.stages import greedy_generate_fn
+    jcfg, params, tcfg, lm = _moe_lm(jllama4.reduced, 5)
+    prompt = np.random.default_rng(3).integers(2, tcfg.vocab, (1, 12)).astype(
+        np.int32)
+    want = greedy_generate_fn(tcfg, max_prompt_len=12, max_new_tokens=12)(
+        lm, torch.tensor(prompt))
+    got = _pool_tokens(ContinuousBatcher(tcfg, lm, slots=1, max_len=40),
+                       prompt, [12])
+    assert got[0] == want[0].tolist()
+    # one step at position 20 (chunk 16-31) over a cache of random rows
+    rng = np.random.default_rng(4)
+    shape = (tcfg.n_layers, 1, 40, tcfg.n_kv, tcfg.d_head)
+    k = rng.standard_normal(shape).astype(np.float32)
+    v = rng.standard_normal(shape).astype(np.float32)
+    tok, pos = np.array([[7]], np.int32), 20
+
+    def cache(lib):
+        return {"k": lib(k.copy()), "v": lib(v.copy())}
+
+    with torch.no_grad():
+        ragged = TT.decode_step_ragged(tcfg, lm, torch.tensor(tok),
+                                       cache(torch.tensor),
+                                       torch.tensor([pos]))[0]
+        step = TT.decode_step(tcfg, lm, torch.tensor(tok),
+                              cache(torch.tensor), pos)[0]
+    torch.testing.assert_close(ragged, step, rtol=1e-5, atol=1e-5)
+    jstep = JT.decode_step(jcfg, params, jnp.asarray(tok), cache(jnp.asarray),
+                           pos)[0]
+    np.testing.assert_allclose(step.numpy(), np.asarray(jstep), rtol=1e-4,
+                               atol=1e-4)
+    jragged = jbatching._ragged_decode(jcfg, params, jnp.asarray(tok),
+                                       cache(jnp.asarray),
+                                       jnp.asarray([pos], jnp.int32))[0]
+    assert np.abs(np.asarray(jragged) - np.asarray(jstep)).max() > 1e-2
+
+
 def _recorder_script(S, M, be, Q, clock):
     server = S.PipelineServer(M.Retrieve("BM25") % 10, be,
                               S.ServeConfig.default().with_observability())
