@@ -32,13 +32,19 @@ cuts D2's store into 1, 2, 4 and 8 doc shards, merged bit-equal to the
 unsharded search.  Last come the mixture-of-experts LMs: the flash kernel
 at their prefill shapes (OLMoE's MHA; Llama-4's 40-over-8 heads at 16,384
 tokens, chunked at 8,192 and global), one full-width MoE layer of each on
-the card against the CPU, then cells G2 (G1's pipeline on OLMoE-1B-7B at
-full width, 250 T topics, then an 8-slot decode pool) and G3
-(Llama-4-Scout at full width and 8 of 48 layers, 16 T topics with
-16,384-token prompts of 64 documents), each freed before the next LM is
-drawn, with their routing, their tokens through the graphs held to the
+the card against the CPU (outputs and gradients), then cells G2 (G1's
+pipeline on OLMoE-1B-7B at full width, 250 T topics, then an 8-slot decode
+pool) and G3 (Llama-4-Scout at full width and 8 of 48 layers, 16 T topics
+with 16,384-token prompts of 64 documents), each freed before the next LM
+is drawn, with their routing, their tokens through the graphs held to the
 eager run, and each layer's attention on the kernel held to the einsum
-path.
+path.  Then the training path: ``flash_attention_xla`` (the kernel's
+forward under an ``autograd.Function`` with a plain backward) against
+autograd through the plain version at Qwen2's and Llama-4's heads, cell T1
+(Qwen2-1.5B at full width trained through ``launch.train.train_lm``: bf16,
+remat, 4 x 4,096 tokens a step in 2 micro-batches, steps timed by CUDA
+events, one profiled), and a StepGuard replay after an injected failure,
+bit-equal to the run without it.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -239,8 +245,12 @@ def ptxas_report(log: str) -> dict:
 def same_bits(a, b) -> bool:
     """Equal tensors, bit for bit: -0.0 and +0.0 differ."""
     import torch
+    if a.dtype != b.dtype:
+        return False
     if a.dtype == torch.float32:
         a, b = a.view(torch.int32), b.view(torch.int32)
+    elif a.dtype == torch.bfloat16:
+        a, b = a.view(torch.int16), b.view(torch.int16)
     return torch.equal(a, b)
 
 
@@ -1441,7 +1451,9 @@ def phase_moe_layers() -> None:
     where the top-k margin lies within a bf16 rounding of the scores; the
     outputs of the tokens routed alike agree within 3 % of the largest
     magnitude (the bf16 rule); with room for every assignment, scatter and
-    einsum dispatch agree on the card by the same rule."""
+    einsum dispatch agree on the card by the same rule; and the gradients
+    of sum(out^2) + moe_aux + moe_z, routes pinned to the card's, agree on
+    every parameter (router, experts, shared expert) by the same rule."""
     import importlib
     import torch
     from repro_torch.models import moe
@@ -1485,6 +1497,18 @@ def phase_moe_layers() -> None:
         torch.cuda.synchronize()
         d_disp = float((a - b.float()).abs().max())
         assert d_disp <= 0.03 * float(a.abs().max()), (mod, d_disp)
+        t0 = time.perf_counter()
+        grads = {dev: moe_layer_grads(pp, x.to(pp.router.device), m,
+                                      i_c.to(pp.router.device))
+                 for dev, pp in (("card", p), ("cpu", p_cpu))}
+        d_grad = {}
+        for name, g in grads["card"].items():
+            want = grads["cpu"][name].to(DEVICE).float()
+            scale = float(want.abs().max())
+            d_grad[name] = float((g.float() - want).abs().max()) / scale
+            assert bool(torch.isfinite(g).all()) and scale > 0, (mod, name)
+            assert d_grad[name] <= 0.03, (mod, name, d_grad[name])
+        grad_s = time.perf_counter() - t0
         log(f"[moe layers] {cfg.name}: {m.n_experts} experts of d_ff "
             f"{m.d_ff_expert}, top-{m.top_k} {m.router_act}"
             f"{', 1 shared expert' if m.n_shared else ''}, d_model "
@@ -1493,9 +1517,30 @@ def phase_moe_layers() -> None:
             f"rest within a bf16 rounding of the top-k margin); their outputs"
             f" within {d_out:.4g} of each other (largest {scale:.4g}); "
             f"scatter vs einsum dispatch on the card {d_disp:.4g} (largest "
-            f"{float(a.abs().max()):.4g}); CPU side {cpu_s:.2f} s")
-        del p, p_cpu, x, a, b
+            f"{float(a.abs().max()):.4g}); CPU side {cpu_s:.2f} s; "
+            f"gradients card vs CPU, routes pinned, largest difference over "
+            f"largest magnitude per parameter "
+            f"{ {n: round(v, 5) for n, v in d_grad.items()} } (<= 0.03), "
+            f"{grad_s:.2f} s")
+        del p, p_cpu, x, a, b, grads
         torch.cuda.empty_cache()
+
+
+def moe_layer_grads(p, x, cfg, expert_idx) -> dict:
+    """The gradients of sum(out^2) + moe_aux + moe_z of one MoE layer with
+    its routes pinned to ``expert_idx``, by parameter name; the layer's
+    parameters require grad only inside."""
+    import torch
+    from repro_torch.models import moe
+    p.requires_grad_(True)
+    try:
+        out, met = moe.moe_apply(p, x, cfg, expert_idx=expert_idx)
+        loss = out.float().square().sum() + met["moe_aux"] + met["moe_z"]
+        names = [n for n, _ in p.named_parameters()]
+        return dict(zip(names, torch.autograd.grad(loss,
+                                                   list(p.parameters()))))
+    finally:
+        p.requires_grad_(False)
 
 
 def attention_layer_by_layer(cfg, lm, prompts) -> list:
@@ -1931,6 +1976,384 @@ def phase_generate_moe(index, forms, state, cell: RagCell) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"windows": windows}
+
+
+# ---------------------------------------------------------------------------
+# the training path: the flash Function, cell T1, StepGuard
+# ---------------------------------------------------------------------------
+
+#: the flash training path's checks: (name, B, S, H, Hkv, D, chunk).  Qwen2's
+#: training shape (T1's micro-batch); Llama-4's heads at 4,096 tokens with
+#: its chunk cut from 8,192 to 1,024 (a reduction), so that the fp32
+#: reference's [S, T] scores fit and the chunked mask is exercised
+FLASH_TRAIN_SHAPES = [("Qwen2 train", 2, 4096, 12, 2, 128, 0),
+                      ("Llama-4 heads", 1, 4096, 40, 8, 128, 1024)]
+#: relative Frobenius error of o and (dq, dk, dv) against autograd through
+#: the plain version in fp32, by input dtype
+FLASH_TRAIN_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+#: cell T1 (its sequence is the arch's train_4k shape's): global batch,
+#: micro-batches, warm-up steps, timed steps (one profiled step follows)
+T1_BATCH, T1_MICRO, T1_WARM, T1_TIMED = 4, 2, 2, 8
+#: T1's peak learning rate.  From the seed-0 draw (tied N(0, 1)
+#: embeddings: logits of RMS ~39, ce 164.6) train_lm's default 3e-3 takes
+#: ce to 425.2 by step 5 and AdamWConfig's default 3e-4 to 306.3 by step 4,
+#: 169.8 at step 11; 1e-4 ends below the start (PERF.md, cell T1).  The
+#: reference's own driver lifts ce above its start under 3e-3 at Qwen2's
+#: d_model, and the port follows it (tests/test_torch_train_witness.py)
+T1_LR = 1e-4
+#: examples/train_lm.py's 100m preset (d_head 64, a kernel shape), for the
+#: StepGuard check: steps, checkpoint interval, the step that fails
+PRESET_100M = dict(n_layers=12, d_model=768, n_q=12, n_kv=4, d_head=64,
+                   d_ff=2048, vocab=32768, batch=8, seq=256)
+GUARD_STEPS, GUARD_EVERY, GUARD_FAIL = 8, 4, 7
+
+
+def rel_fro(a, ref) -> float:
+    import torch
+    return float(torch.linalg.vector_norm(a.float() - ref) /
+                 torch.linalg.vector_norm(ref))
+
+
+def flash_train_bound(B, S, H, HKV, D, chunk) -> tuple[float, str]:
+    """The least ms of the flash forward + backward in bf16: 4 x D flops
+    a visible (query, key) pair and head forward, 10 backward (scores
+    again, dP, dS to dQ and dK, P to dV), at 989 TFLOP/s; or q, k, v, o,
+    dO read and dq, dk, dv written once at 3.35 TB/s."""
+    ops = 14 * D * B * H * _visible_pairs(S, chunk)
+    nbytes = 2 * B * S * D * 4 * (H + HKV)
+    b_ops = 1e3 * ops / BF16_TC_OPS_PER_S
+    b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    return max(b_ops, b_bytes), "operations" if b_ops >= b_bytes else "bytes"
+
+
+def phase_flash_train(g, smi: str) -> dict:
+    """``flash_attention_xla`` on the card, each shape of
+    FLASH_TRAIN_SHAPES in fp32 and bf16: o and (dq, dk, dv) against
+    autograd through ``flash_attention_ref`` in fp32 on the same values
+    (bf16 inputs widened), relative Frobenius error within
+    FLASH_TRAIN_TOL; one kernel launch a forward, none in the backward.
+    At Qwen2's shape in bf16 it times the kernel's forward, the Function's
+    forward + backward, the plain version's (the q-chunked forward and the
+    same backward) and the library's (``scaled_dot_product_attention``,
+    GQA, forward + backward).  Returns the timed row."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    for name, B, S, H, HKV, D, chunk in FLASH_TRAIN_SHAPES:
+        base = [torch.randn(B, S, h, D, device=DEVICE, generator=g)
+                for h in (H, HKV, HKV, H)]
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v, do = (t.to(dtype) for t in base)
+            leaves = [t.float().requires_grad_() for t in (q, k, v)]
+            o_ref = flash_attention_ref(*leaves, causal=True, chunk=chunk)
+            refs = [o_ref.detach(), *torch.autograd.grad(o_ref, leaves,
+                                                         do.float())]
+            del o_ref, leaves
+            q, k, v = (t.requires_grad_() for t in (q, k, v))
+            before = ops.flash_attention.launches
+            o = ops.flash_attention_xla(q, k, v, causal=True, chunk=chunk)
+            fwd_launches = ops.flash_attention.launches - before
+            got = [o.detach(), *torch.autograd.grad(o, (q, k, v), do)]
+            assert ops.flash_attention.launches - before == fwd_launches == 1
+            errs = [rel_fro(a, r) for a, r in zip(got, refs)]
+            tol = FLASH_TRAIN_TOL[str(dtype).split(".")[1]]
+            assert all(e <= tol for e in errs), (name, dtype, errs)
+            assert all(a.dtype == dtype for a in got), (name, dtype)
+            log(f"[flash train] {name}: q [{B}, {S}, {H}, {D}] k/v [{B}, "
+                f"{S}, {HKV}, {D}] {dtype} causal chunk={chunk}: relative "
+                f"Frobenius error vs autograd through the plain version in "
+                f"fp32: o {errs[0]:.3e}, dq {errs[1]:.3e}, dk {errs[2]:.3e}"
+                f", dv {errs[3]:.3e} (<= {tol}); 1 kernel launch, forward "
+                f"only")
+            del got, refs, o
+        del base
+        torch.cuda.empty_cache()
+    name, B, S, H, HKV, D, chunk = FLASH_TRAIN_SHAPES[0]
+    q, k, v, do = (torch.randn(B, S, h, D, device=DEVICE, generator=g)
+                   .to(torch.bfloat16) for h in (H, HKV, HKV, H))
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+
+    def function():
+        o = ops.flash_attention_xla(qg, kg, vg, causal=True)
+        return torch.autograd.grad(o, (qg, kg, vg), do)
+
+    def plain():
+        o = ops._flash_chunked_fwd(q, k, v, True, 0, ops.FLASH_BQ)
+        return ops._flash_chunked_bwd(q, k, v, o, do, True, 0, ops.FLASH_BQ)
+
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_()
+                  for t in (q, k, v))
+    dot = do.transpose(1, 2)
+
+    def library():
+        o = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                           enable_gqa=True)
+        return torch.autograd.grad(o, (qt, kt, vt), dot)
+
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ops.flash_attention(q, k, v, causal=True))
+    fb = (time_ms(function), time_ms(function))
+    plain_ms = time_ms(plain, iters=3)
+    lib_ms = time_ms(library)
+    bound_ms, bound_by = flash_train_bound(B, S, H, HKV, D, 0)
+    row = {"shape": f"q [{B}, {S}, {H}, {D}], k/v [{B}, {S}, {HKV}, {D}] "
+                    f"bf16 causal, forward + backward",
+           "forward_ms": fwd_ms, "ms": sum(fb) / 2, "readings": fb,
+           "plain_ms": plain_ms, "library_ms": lib_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by}
+    log(f"[flash train] {name} bf16: kernel forward {fwd_ms:.4f} ms; the "
+        f"Function's forward + backward {fb[0]:.4f} / {fb[1]:.4f} ms "
+        f"(the backward plain torch in fp32); plain forward + backward "
+        f"{plain_ms:.4f} ms; library (scaled_dot_product_attention, GQA) "
+        f"forward + backward {lib_ms:.4f} ms; bound {bound_ms:.4f} ms "
+        f"({bound_by}), {bound_ms / row['ms']:.4f} of the Function's; {smi}")
+    del q, k, v, do, qg, kg, vg, qt, kt, vt, dot
+    torch.cuda.empty_cache()
+    return row
+
+
+def t1_flops(cfg, batch: int, seq: int) -> float:
+    """Model FLOPs of one T1 step: 6 x the matmul parameters (layers and
+    unembedding) x tokens, plus causal attention 6 L B S^2 n_q d_head."""
+    per_layer = cfg.d_model * cfg.d_head * 2 * (cfg.n_q + cfg.n_kv) + \
+        3 * cfg.d_model * cfg.d_ff
+    n = cfg.n_layers * per_layer + cfg.vocab * cfg.d_model
+    return 6 * n * batch * seq + \
+        6 * cfg.n_layers * batch * seq ** 2 * cfg.n_q * cfg.d_head
+
+
+def phase_train_t1(smi: str, flash_row: dict) -> dict:
+    """Cell T1: Qwen2-1.5B at full width trained through
+    ``launch.train.train_lm`` (bf16, remat, ``attn_impl="flash"``, AdamW as
+    train_lm sets it but for T1_LR, seed-0 weights, ``lm_batch_fn`` data):
+    T1_WARM steps, T1_TIMED timed by CUDA events between step ends, one
+    profiled.
+    Holds ce falling, 2 x layers x micro-batches flash launches a step
+    (forward and the remat recompute), step 1's ce within 1e-2 of the same
+    weights and batch on the einsum path; prints step ms, tokens/s, the
+    share of the bf16 FLOP bound, peak memory, the plain fp32 attention
+    backward's share of the timed steps (CUDA events around it) and the
+    profiled step's device time by operator.  Returns the launch window."""
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.kernels.flash_attention import ops
+    from repro_torch.launch.train import train_lm
+    from repro_torch.models import transformer_lm as tlm
+    from repro_torch.train.data import lm_batch_fn
+    arch = get_arch("qwen2-1.5b")
+    cfg = dataclasses.replace(arch.model_cfg("train_4k"), attn_impl="flash")
+    seq = arch.shapes["train_4k"]["seq"]
+    steps = T1_WARM + T1_TIMED + 1
+    per_step = 2 * cfg.n_layers * T1_MICRO
+    # step 1 on the einsum path: the seed-0 draw train_lm makes, its
+    # first batch, the mean of the micro-batches' ce
+    lm = tlm.init_params(cfg, torch.Generator(DEVICE).manual_seed(0))
+    first = lm_batch_fn(cfg.vocab, T1_BATCH, seq)(0)
+    b = T1_BATCH // T1_MICRO
+    xcfg = dataclasses.replace(cfg, attn_impl="xla")
+    with torch.no_grad():
+        xla_ce = sum(float(tlm.loss_fn(xcfg, lm, {
+            key: torch.as_tensor(a[i * b:(i + 1) * b], device=DEVICE)
+            for key, a in first.items()})[1]["ce"])
+            for i in range(T1_MICRO)) / T1_MICRO
+    del lm
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ends, at_end, bwd, prof = [], [], [], {}
+    real_bwd = ops._flash_chunked_bwd
+
+    def timed_bwd(*args):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = real_bwd(*args)
+        ev[1].record()
+        bwd.append(ev)
+        return out
+
+    def on_step(n, metrics):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        ends.append(ev)
+        at_end.append(ops.flash_attention.launches)
+        if n == T1_WARM:
+            ops._flash_chunked_bwd = timed_bwd
+        elif n == T1_WARM + T1_TIMED:
+            ops._flash_chunked_bwd = real_bwd
+            prof["p"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA])
+            prof["p"].__enter__()
+            prof["t0"] = time.perf_counter()
+        elif n == steps:
+            torch.cuda.synchronize()
+            prof["wall"] = 1e3 * (time.perf_counter() - prof["t0"])
+            prof["p"].__exit__(None, None, None)
+
+    zero_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        state, ce = train_lm(
+            "qwen2-1.5b", reduced=False, steps=steps, batch=T1_BATCH,
+            seq=seq, n_micro=T1_MICRO, attn_impl="flash", lr=T1_LR,
+            ckpt_dir=str(Path(__file__).resolve().parent / "build" /
+                         "t1_ckpt"),
+            ckpt_every=steps + 1, log_every=steps + 1, on_step=on_step,
+            device=DEVICE)
+    finally:
+        ops._flash_chunked_bwd = real_bwd
+    window = read_launches("flash_attention")
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    step_ms = ends[T1_WARM - 1].elapsed_time(ends[T1_WARM + T1_TIMED - 1]) \
+        / T1_TIMED
+    bwd_ms = sum(a.elapsed_time(z) for a, z in bwd) / T1_TIMED
+    launches = [b - a for a, b in zip([0] + at_end, at_end)]
+    flops = t1_flops(cfg, T1_BATCH, seq)
+    bound_ms = 1e3 * flops / BF16_TC_OPS_PER_S
+    tokens = T1_BATCH * seq
+    assert all(math.isfinite(x) for x in ce), ce
+    assert ce[-1] < ce[0] and sum(ce[-3:]) < sum(ce[:3]), ce
+    assert launches == [per_step] * steps, launches
+    assert window["flash_attention"]["device"] == \
+        window["flash_attention"]["host"] == per_step * steps, window
+    assert abs(ce[0] - xla_ce) <= 1e-2 * abs(xla_ce), (ce[0], xla_ce)
+    assert len(bwd) == per_step // 2 * T1_TIMED, len(bwd)
+    log(f"[T1] Qwen2-1.5B train ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q}/{cfg.n_kv} heads of {cfg.d_head}, bf16, "
+        f"remat, flash), batch {T1_BATCH} x {seq} tokens in {T1_MICRO} "
+        f"micro-batches, AdamW (lr {T1_LR}, warm-up 1 step, cosine): step "
+        f"{step_ms:.2f} ms (mean of {T1_TIMED} "
+        f"after {T1_WARM} warm-up, CUDA events between step ends), "
+        f"{tokens / step_ms * 1e3:.1f} tokens/s, {flops / step_ms / 1e9:.1f}"
+        f" TFLOP/s of model FLOPs ({flops / 1e12:.2f} TFLOP a step), "
+        f"{bound_ms / step_ms:.4f} of the bf16 bound ({bound_ms:.2f} ms at "
+        f"989 TFLOP/s); peak device memory {peak} bytes; ce by step "
+        f"{[round(x, 4) for x in ce]}; step 1 ce {ce[0]:.5f} vs "
+        f"{xla_ce:.5f} on the einsum path (relative "
+        f"{abs(ce[0] - xla_ce) / abs(xla_ce):.2e}); flash launches a step "
+        f"{launches[0]} (device {window['flash_attention']['device']} in "
+        f"{steps} steps); plain fp32 attention backward {bwd_ms:.2f} ms a "
+        f"step, {bwd_ms / step_ms:.4f} of it ({len(bwd) // T1_TIMED} calls "
+        f"a step); {wall:.1f} s in all; {smi}")
+    keys = prof["p"].key_averages()
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    # kernels are the device's events; an operator's self device time is
+    # that of the kernels it launched itself (the flash kernel, launched
+    # through ctypes, has no operator above it)
+    on_card = [e for e in keys if getattr(e, "device_type", None) ==
+               torch.autograd.DeviceType.CUDA]
+    ops_ = [e for e in keys if e not in on_card and dev_ms(e) > 0]
+    total = sum(dev_ms(e) for e in on_card)
+    flash = sum(dev_ms(e) for e in on_card if "flash" in e.key)
+    log(f"[T1 profile] step {steps}: wall {prof['wall']:.1f} ms, device "
+        f"{total:.1f} ms (idle share {1 - total / prof['wall']:.4f}), flash "
+        f"kernel {flash:.1f} ms; by operator (self device ms, calls): " +
+        "; ".join(f"{e.key[:48]} {dev_ms(e):.1f} ({e.count})" for e in
+                  sorted(ops_, key=dev_ms, reverse=True)[:12]) +
+        "; top kernels: " + "; ".join(
+            f"{e.key[:48]} {dev_ms(e):.1f} ({e.count})" for e in
+            sorted(on_card, key=dev_ms, reverse=True)[:6]))
+    row = {**flash_row, "launches": window["flash_attention"]["device"],
+           "launches_a_step": per_step}
+    log(f"[flash train row] {json.dumps(row)}")
+    del state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return window
+
+
+def _state_bits(state) -> dict:
+    """A host copy of every tensor of a train state, by dotted name."""
+    from repro_torch.train.optimizer import named_leaves
+    return {n: t.detach().to("cpu", copy=True)
+            for n, t in named_leaves(state).items()}
+
+
+def phase_stepguard(smi: str) -> None:
+    """StepGuard on the card: examples/train_lm.py's 100m preset (bf16,
+    flash, n_micro 2) for GUARD_STEPS steps with a checkpoint every
+    GUARD_EVERY under build/, once as it is and once with a failure
+    injected at step GUARD_FAIL; the guard restores the last checkpoint
+    and replays.  Holds each step's ce bit-equal between the runs (the
+    replayed steps too), and the state the replay starts from bit-equal
+    to the state saved."""
+    import functools
+    import shutil
+    import torch
+    from repro_torch.models import transformer_lm as tlm
+    from repro_torch.train import data as data_lib
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    from repro_torch.train.fault import StepGuard
+    p = PRESET_100M
+    cfg = tlm.LMConfig(name="lm-100m", tie_embeddings=True,
+                       attn_impl="flash", **{k: v for k, v in p.items()
+                                             if k not in ("batch", "seq")})
+    opt_cfg = opt_lib.AdamWConfig(lr=3e-3, warmup_steps=1,
+                                  total_steps=GUARD_STEPS)
+    step_fn = ts.make_train_step(functools.partial(tlm.loss_fn, cfg),
+                                 opt_cfg, n_micro=2)
+    root = Path(__file__).resolve().parent / "build" / "stepguard"
+
+    def run(fail_at: int | None):
+        ckdir = root / ("failed" if fail_at else "clean")
+        shutil.rmtree(ckdir, ignore_errors=True)
+        state = ts.init_state(tlm.init_params(
+            cfg, torch.Generator(DEVICE).manual_seed(0)))
+        ce, seen = {}, {}
+        calls = [0]
+
+        def step(state, batch):
+            calls[0] += 1
+            if calls[0] == fail_at:
+                raise RuntimeError("injected device loss")
+            if fail_at and calls[0] == fail_at + 1:
+                seen["restored"] = _state_bits(state)
+            state, m = step_fn(state, batch)
+            n = int(state["opt"]["step"])
+            ce.setdefault(n, []).append(float(m["ce"]))
+            if n == GUARD_EVERY * ((GUARD_FAIL - 1) // GUARD_EVERY):
+                seen["saved"] = _state_bits(state)
+            return state, m
+
+        guard = StepGuard(ckdir, ckpt_every=GUARD_EVERY, max_retries=1)
+        pipeline = data_lib.DataPipeline(
+            data_lib.lm_batch_fn(cfg.vocab, p["batch"], p["seq"]))
+        _, _, n = guard.run(state, pipeline.iter_from, step, GUARD_STEPS)
+        assert n == GUARD_STEPS
+        return ce, seen, guard.replays
+
+    t0 = time.perf_counter()
+    clean, _, replays = run(None)
+    assert replays == 0 and all(len(v) == 1 for v in clean.values())
+    failed, seen, replays = run(GUARD_FAIL)
+    assert replays == 1
+    assert set(failed) == set(clean) == set(range(1, GUARD_STEPS + 1))
+    replayed = [n for n, v in failed.items() if len(v) > 1]
+    for n, v in failed.items():
+        assert all(x == clean[n][0] for x in v), (n, v, clean[n])
+    saved, restored = seen["saved"], seen["restored"]
+    assert saved.keys() == restored.keys()
+    for name, t in saved.items():
+        assert same_bits(t, restored[name]), name
+    log(f"[stepguard] 100m preset ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, {cfg.n_q}/{cfg.n_kv} heads of {cfg.d_head}, "
+        f"vocab {cfg.vocab}, bf16, flash, n_micro 2), {GUARD_STEPS} steps, "
+        f"a checkpoint every {GUARD_EVERY}, a failure injected at step "
+        f"{GUARD_FAIL}: 1 replay from step "
+        f"{GUARD_EVERY * ((GUARD_FAIL - 1) // GUARD_EVERY)}; ce by step "
+        f"{[round(clean[n][0], 5) for n in sorted(clean)]} bit-equal in "
+        f"both runs, the replayed steps {replayed} too; the restored state "
+        f"({len(saved)} tensors) bit-equal to the saved one; "
+        f"{time.perf_counter() - t0:.1f} s; {smi}")
 
 
 def phase_rq1(index, forms) -> tuple:
@@ -2894,6 +3317,17 @@ def main() -> int:
         log(f"[main] {cell.name} phase {time.perf_counter() - t0:.1f} s; "
             f"device memory held after it {torch.cuda.memory_allocated()} "
             f"bytes")
+    # the training path once G3's LM is gone: the flash Function against
+    # its plain version, then cell T1 (its counts set to zero and read
+    # inside phase_train_t1, around train_lm), then StepGuard's replay
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    flash_row = phase_flash_train(torch.Generator(DEVICE).manual_seed(21),
+                                  smi)
+    windows.append(phase_train_t1(smi, flash_row))
+    phase_stepguard(smi)
+    log(f"[main] training phases {time.perf_counter() - t0:.1f} s")
     launches = {}
     for w in windows:
         for name, c in w.items():

@@ -35,7 +35,7 @@ def card() -> str:
 
 
 class Registry:
-    """Minimal name → factory registry (weighting models, ...)."""
+    """Minimal name → factory registry (weighting models, archs, ...)."""
 
     def __init__(self, kind: str):
         self.kind = kind
@@ -60,6 +60,9 @@ class Registry:
 
     def __contains__(self, name: str) -> bool:
         return name in self._entries
+
+    def names(self) -> list[str]:
+        return sorted(self._entries)
 
 
 # ---------------------------------------------------------------------------

@@ -6,6 +6,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.configs import shapes
+from repro_torch.configs.registry import ArchDef, register
 from repro_torch.models.moe import MoEConfig
 from repro_torch.models.transformer_lm import LMConfig
 
@@ -36,3 +38,9 @@ def reduced():
         return {"tokens": t, "targets": t}
 
     return cfg, batch
+
+
+register(ArchDef(
+    arch_id="llama4-scout-17b-a16e", shapes=shapes.LM_SHAPES,
+    model_cfg=model_cfg, reduced=reduced,
+))

@@ -5,6 +5,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from repro_torch.configs import shapes
+from repro_torch.configs.registry import ArchDef, register
 from repro_torch.models.transformer_lm import LMConfig
 
 
@@ -28,3 +30,9 @@ def reduced():
         return {"tokens": t, "targets": t}
 
     return cfg, batch
+
+
+register(ArchDef(
+    arch_id="qwen2-1.5b", shapes=shapes.LM_SHAPES,
+    model_cfg=model_cfg, reduced=reduced,
+))

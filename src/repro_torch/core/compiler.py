@@ -127,8 +127,6 @@ class TorchBackend:
         if params is None:
             gen = torch.Generator(device=self.device).manual_seed(seed)
             params = tlm.init_params(cfg, gen)
-        else:
-            tlm.check_supported(cfg)
         dev = params.embed.device
         if dev.type != self.device.type:
             raise ValueError(f"LM {name!r} lies on {dev}, the backend on "

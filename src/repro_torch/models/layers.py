@@ -11,11 +11,15 @@ v's dtype before the PV product.  Attention takes one of two paths, by
 
 * ``"xla"``    — the einsum formulation (an additive bias carries the masks);
 * ``"pallas"`` — the flash-attention kernel (``kernels/flash_attention``),
-                 causal over the fresh tokens.
+                 causal over the fresh tokens; inference only (the kernel
+                 has no backward);
+* ``"flash"``  — ``flash_attention_xla``, the training path: the same
+                 kernel forward under an ``autograd.Function`` whose
+                 backward recomputes the scores in blocks of q rows.
 
-``"flash"`` (the JAX package's q-chunked training path) waits for the
-training slice.  Parameters are created with ``requires_grad=False``: the
-port serves these models and does not train them yet.
+Parameters are created with ``requires_grad=False``, which the serving
+paths (CUDA-graph captures included) rely on; the trainer
+(``train.train_step.init_state``) switches them on.
 """
 from __future__ import annotations
 
@@ -25,7 +29,8 @@ import torch
 from torch import nn
 
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
-from repro_torch.kernels.flash_attention.ops import flash_attention
+from repro_torch.kernels.flash_attention.ops import flash_attention, \
+    flash_attention_xla
 
 NEG_INF = -1e30
 
@@ -144,12 +149,10 @@ def gqa_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, bias,
                   *, impl: str = "xla", q_chunk: int = Q_CHUNK):
     """Grouped-query attention, softmax in fp32.  q [B, S, n_q, D], k/v
     [B, T, n_kv, D]; bias broadcastable to [B, n_kv, G, S, T] from
-    [.., S, T] (unused by ``impl="pallas"``, whose masks are causal by
-    construction).  Returns [B, S, n_q, D]."""
+    [.., S, T] (unused by ``impl="pallas"`` and ``"flash"``, whose masks
+    are causal by construction).  Returns [B, S, n_q, D]."""
     if impl == "flash":
-        raise NotImplementedError(
-            "impl='flash' (flash_attention_xla, the q-chunked training path) "
-            "is not ported yet: ROADMAP §1, flash_attention_xla and training")
+        return flash_attention_xla(q, k, v, causal=True)
     if impl == "pallas":
         return flash_attention(q, k, v, causal=True)
     if impl != "xla":
@@ -259,7 +262,8 @@ def attn_apply(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
     without a cache or a prefill at offset 0 attends over the fresh tokens
     on the flash-attention kernel, causal and within ``chunk`` as the
     einsum path masks them (the JAX package's "pallas" path drops the
-    chunk: ROADMAP §3); every other pass
+    chunk: ROADMAP §3); ``impl="flash"`` takes ``flash_attention_xla`` there
+    (the same masks, differentiable); every other pass
     runs the einsum path, over the whole cache with its slots past the
     fresh tokens masked when there is one (decode, as in the JAX package).
     ``memo`` (a dict, one per pass over the layers) keeps the RoPE tables
@@ -274,9 +278,8 @@ def attn_apply(p: Attention, x: torch.Tensor, *, positions: torch.Tensor,
         cv[:, cache_index:cache_index + S] = v.to(cv.dtype)
     if impl in ("pallas", "flash") and \
             (kv_cache is None or (cache_index == 0 and S > 1)):
-        if impl == "flash":
-            return p.out(gqa_attention(q, k, v, None, impl=impl))  # raises
-        return p.out(flash_attention(q, k, v, causal=causal, chunk=chunk))
+        attend = flash_attention_xla if impl == "flash" else flash_attention
+        return p.out(attend(q, k, v, causal=causal, chunk=chunk))
     if kv_cache is None:
         bias = _once(memo, ("bias", causal, chunk), lambda: attention_bias(
             positions, positions, causal=causal, chunk=chunk))

@@ -1,6 +1,6 @@
-"""Decoder-only GQA transformer LM, the serving half (the port of
-``src/repro/models/transformer_lm.py``: its config, parameters, prefill and
-decode against a KV cache).
+"""Decoder-only GQA transformer LM (the port of
+``src/repro/models/transformer_lm.py``: its config, parameters, the
+training forward and loss, prefill and decode against a KV cache).
 
 One implementation covers the LMs of the JAX package: the dense ones
 (qwen2-1.5b: QKV bias, tied embeddings; glm4-9b, internlm2-1.8b) and the
@@ -15,11 +15,14 @@ and ``attn_apply`` are one function here).  The LM prefill runs its
 attention on the flash-attention kernel when ``attn_impl="pallas"``, with
 the layer's chunk (the JAX package's "pallas" path drops it; the port
 computes what its "xla" path does); decode steps stay on the einsum path,
-as in the JAX package.  :func:`lm_from_arrays` carries a JAX
-``init_params`` tree across, so both packages compute one function.
-
-Not ported yet (ROADMAP §1): the training forward and loss, and with them
-``attn_impl="flash"``.
+as in the JAX package.  Training (:func:`forward`, :func:`loss_fn`) takes
+``attn_impl="flash"``, the kernel under an ``autograd.Function``, or
+``"xla"``; with ``remat`` each layer is recomputed in the backward
+(``torch.utils.checkpoint``, as the JAX package checkpoints its scan
+body).  :func:`lm_from_arrays` carries a JAX ``init_params`` tree across
+and :func:`lm_to_arrays` carries it back, so both packages compute one
+function.  The JAX config's mesh knobs (``sharding_profile``,
+``seq_parallel``) have no field here: one card has no mesh.
 """
 from __future__ import annotations
 
@@ -28,6 +31,7 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 from torch import nn
 
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
@@ -55,7 +59,8 @@ class LMConfig:
     attn_chunk: int = 0
     attn_chunk_every: int = 4
     # execution knobs
-    attn_impl: str = "xla"           # "xla" | "pallas"
+    attn_impl: str = "xla"           # "xla" | "pallas" | "flash"
+    remat: bool = True               # recompute each layer in the backward
     dtype: Any = DEFAULT_DTYPE
 
     @property
@@ -97,15 +102,6 @@ class LMConfig:
                           rope_theta=self.rope_theta)
 
 
-def check_supported(cfg: LMConfig) -> None:
-    """Raise for the configurations whose slice is not ported yet."""
-    if cfg.attn_impl == "flash":
-        raise NotImplementedError(
-            f"{cfg.name}: attn_impl='flash' (flash_attention_xla, the "
-            f"q-chunked training path) is not ported yet: ROADMAP §1, "
-            f"training")
-
-
 # ---------------------------------------------------------------------------
 # params
 # ---------------------------------------------------------------------------
@@ -140,7 +136,6 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
-        check_supported(cfg)
         device = resolve_device(device)
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
@@ -215,6 +210,88 @@ def lm_from_arrays(cfg: LMConfig, tree: dict, device=None) -> TransformerLM:
             put(blk.ln_attn, lay["ln_attn"][i])
             put(blk.ln_mlp, lay["ln_mlp"][i])
     return lm
+
+
+def lm_to_arrays(cfg: LMConfig, lm: TransformerLM) -> dict:
+    """The JAX ``init_params`` tree of ``lm``'s weights as float32 numpy
+    arrays, each layer leaf stacked on a leading L axis (the inverse of
+    :func:`lm_from_arrays`)."""
+    tree: dict = {}
+    for name, p in lm.named_parameters():
+        *path, leaf = name.split(".")
+        a = p.detach().float().cpu().numpy()
+        if path[:1] == ["layers"]:
+            i, path = int(path[1]), ["layers", *path[2:]]
+        node = tree
+        for part in path:
+            node = node.setdefault(part, {})
+        if path[:1] == ["layers"]:
+            node.setdefault(leaf, [None] * cfg.n_layers)[i] = a
+        else:
+            node[leaf] = a
+
+    def stack(node):
+        return {k: np.stack(v) if isinstance(v, list) else
+                (stack(v) if isinstance(v, dict) else v)
+                for k, v in node.items()}
+
+    return stack(tree)
+
+
+# ---------------------------------------------------------------------------
+# the training forward and loss
+# ---------------------------------------------------------------------------
+
+def forward(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor, *,
+            metrics: list | None = None):
+    """Training forward: tokens [B, S] -> (logits [B, S, vocab] in
+    ``cfg.dtype``, aux {"moe_aux", "moe_z"}: each summed over the layers;
+    empty for a dense LM).  With ``cfg.remat`` each layer runs under
+    ``torch.utils.checkpoint`` and is recomputed in the backward; its MoE
+    metrics are returned from the checkpointed function, so a recompute
+    adds none.  Each MoE layer's metrics (``expert_idx`` and the rest) are
+    appended to ``metrics`` when that is a list."""
+    x = lm.embed.to(cfg.dtype)[tokens.long()]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    memo = {}          # RoPE tables and masks, made once for all layers
+    aux = {}
+    for blk, chunk in zip(lm.layers, _layer_chunks(cfg)):
+        def layer(x, blk=blk, chunk=chunk):
+            def attend(attn, h):
+                return L.attn_apply(attn, h, positions=positions,
+                                    chunk=chunk, impl=cfg.attn_impl,
+                                    memo=memo)
+            met = []
+            return _block(cfg, blk, x, attend, met), met
+
+        if cfg.remat:
+            x, met = torch.utils.checkpoint.checkpoint(layer, x,
+                                                       use_reentrant=False)
+        else:
+            x, met = layer(x)
+        for m in met:
+            for key in ("moe_aux", "moe_z"):
+                aux[key] = aux[key] + m[key] if key in aux else m[key]
+            if metrics is not None:
+                metrics.append(m)
+    x = L.rmsnorm(x, lm.ln_final, cfg.norm_eps)
+    unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
+    return x @ unembed.to(cfg.dtype), aux
+
+
+def loss_fn(cfg: LMConfig, lm: TransformerLM, batch: dict, *,
+            metrics: list | None = None):
+    """Next-token cross-entropy (fp32 logsumexp, the mean over targets
+    >= 0) plus the MoE aux losses: (total, {"ce", **aux}).  ``batch``
+    holds "tokens" and "targets" [B, S] on the LM's device."""
+    logits, aux = forward(cfg, lm, batch["tokens"], metrics=metrics)
+    logits = logits.float()
+    targets = batch["targets"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+    mask = (targets >= 0).float()
+    ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    return ce + sum(aux.values(), 0.0), {"ce": ce, **aux}
 
 
 # ---------------------------------------------------------------------------

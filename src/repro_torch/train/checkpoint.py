@@ -1,0 +1,196 @@
+"""Checkpoints in the JAX package's on-disk format (the port of
+``src/repro/train/checkpoint.py``), so either package restores what the
+other wrote.
+
+* **layout**: every leaf is its own ``.npy`` under ``step_<8 digits>/``,
+  named by its JAX tree path ("params/layers/attn/wq" ->
+  ``params__layers__attn__wq.npy``).  A tree is nested dicts of tensors, with ``nn.Module``s and dicts keyed by dotted parameter names
+  (the optimizer's moments) inside; a dotted name's layer index
+  ("layers.3.attn.wq") stacks that leaf on a leading L axis, as the JAX
+  package stacks an LM's layers.
+* **bfloat16**: numpy has no bf16 without ``ml_dtypes``, which the port
+  does not need: a bf16 leaf is written as the JAX package writes it, raw
+  2-byte words under the header type ``'<V2'`` and the manifest dtype
+  ``"bfloat16"``, and read back through ``int16``.
+* **integrity manifest**: per-leaf SHA-256 of the raw bytes, dtype and
+  shape; :func:`restore` checks them before any leaf reaches the tree.
+* **atomicity**: writes go to ``<step>.tmp``, renamed once the manifest is
+  written, so a crashed save never shadows the latest good one.
+* **async**: :class:`AsyncCheckpointer` copies the leaves to host memory
+  when called and hashes and writes them on a background thread.
+"""
+from __future__ import annotations
+
+import hashlib
+import json
+import shutil
+import threading
+from pathlib import Path
+from typing import Any
+
+import numpy as np
+import torch
+from torch import nn
+
+#: the header type ``ml_dtypes``' bfloat16 gives an ``.npy`` file
+BF16_DESCR = "<V2"
+
+
+def _leaves(tree: Any, prefix: tuple = ()):
+    """(path parts, leaf) of every leaf; dotted names split into parts."""
+    if isinstance(tree, nn.Module):
+        items = tree.named_parameters()
+    elif isinstance(tree, dict):
+        items = tree.items()
+    else:
+        yield prefix, tree
+        return
+    for name, sub in items:
+        yield from _leaves(sub, prefix + tuple(str(name).split(".")))
+
+
+def _keyed(tree: Any) -> dict[str, list]:
+    """JAX tree path -> [(layer index or None, leaf)]: a layer index in a
+    path is taken out of it, and the leaves of one path are that leaf's
+    layers."""
+    out: dict[str, list] = {}
+    for parts, leaf in _leaves(tree):
+        layer = next((i for i, p in enumerate(parts) if p.isdigit()), None)
+        if layer is not None:
+            parts, layer = parts[:layer] + parts[layer + 1:], int(parts[layer])
+        out.setdefault("/".join(parts), []).append((layer, leaf))
+    return out
+
+
+def _host(leaf: torch.Tensor) -> tuple[np.ndarray, str]:
+    """A host copy of a tensor and its dtype's name; bf16 as raw words."""
+    t = leaf.detach().to("cpu", copy=True)
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+    return t.numpy(), str(t.numpy().dtype)
+
+
+def _snapshot(tree: Any) -> dict[str, tuple[np.ndarray, str]]:
+    """JAX tree path -> (host array, dtype name), layers stacked."""
+    flat = {}
+    for key, entries in _keyed(tree).items():
+        if entries[0][0] is None:
+            flat[key] = _host(entries[0][1])
+        else:
+            arrs = [_host(leaf) for _, leaf in sorted(entries,
+                                                      key=lambda e: e[0])]
+            flat[key] = (np.stack([a for a, _ in arrs]), arrs[0][1])
+    return flat
+
+
+def _write_npy(path: Path, arr: np.ndarray, dtype: str) -> None:
+    if dtype != "bfloat16":
+        np.save(path, arr)
+        return
+    with open(path, "wb") as f:
+        np.lib.format.write_array_header_1_0(f, {
+            "descr": BF16_DESCR, "fortran_order": False, "shape": arr.shape})
+        f.write(np.ascontiguousarray(arr).tobytes())
+
+
+def _write(ckpt_dir: str | Path, step: int, flat: dict) -> Path:
+    ckpt_dir = Path(ckpt_dir)
+    final = ckpt_dir / f"step_{step:08d}"
+    tmp = ckpt_dir / f"step_{step:08d}.tmp"
+    if tmp.exists():
+        shutil.rmtree(tmp)
+    tmp.mkdir(parents=True)
+    manifest = {"step": step, "leaves": {}}
+    for key, (arr, dtype) in flat.items():
+        fname = key.replace("/", "__") + ".npy"
+        _write_npy(tmp / fname, arr, dtype)
+        manifest["leaves"][key] = {
+            "file": fname, "shape": list(arr.shape), "dtype": dtype,
+            "sha256": hashlib.sha256(arr.tobytes()).hexdigest(),
+        }
+    with open(tmp / "manifest.json", "w") as f:
+        json.dump(manifest, f)
+        f.flush()
+    if final.exists():
+        shutil.rmtree(final)
+    tmp.rename(final)
+    return final
+
+
+def save(ckpt_dir: str | Path, step: int, tree: Any) -> Path:
+    """Synchronous atomic save. Returns the final directory."""
+    return _write(ckpt_dir, step, _snapshot(tree))
+
+
+class AsyncCheckpointer:
+    """Snapshot-on-call, write-in-background. One outstanding save at a time
+    (the next save waits — bounded memory)."""
+
+    def __init__(self, ckpt_dir: str | Path, keep: int = 3):
+        self.ckpt_dir = Path(ckpt_dir)
+        self.keep = keep
+        self._thread: threading.Thread | None = None
+        self.last_error: Exception | None = None
+
+    def save_async(self, step: int, tree: Any):
+        self.wait()
+        flat = _snapshot(tree)                      # device->host copy
+
+        def work():
+            try:
+                _write(self.ckpt_dir, step, flat)
+                self._gc()
+            except Exception as e:  # noqa: BLE001
+                self.last_error = e
+
+        self._thread = threading.Thread(target=work, daemon=True)
+        self._thread.start()
+
+    def wait(self):
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self.last_error:
+            err, self.last_error = self.last_error, None
+            raise err
+
+    def _gc(self):
+        steps = sorted(self.ckpt_dir.glob("step_????????"))
+        for old in steps[:-self.keep]:
+            shutil.rmtree(old, ignore_errors=True)
+
+
+def latest_step(ckpt_dir: str | Path) -> int | None:
+    steps = sorted(Path(ckpt_dir).glob("step_????????"))
+    return int(steps[-1].name.split("_")[1]) if steps else None
+
+
+def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
+    if dtype == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(arr)
+
+
+@torch.no_grad()
+def restore(ckpt_dir: str | Path, step: int, target: Any) -> Any:
+    """Restore into ``target``'s tensors, in place, after checking every
+    leaf's digest and shape; returns ``target``."""
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    with open(d / "manifest.json") as f:
+        leaves = json.load(f)["leaves"]
+    for key, entries in _keyed(target).items():
+        meta = leaves[key]
+        arr = np.load(d / meta["file"])
+        if hashlib.sha256(arr.tobytes()).hexdigest() != meta["sha256"]:
+            raise IOError(f"checkpoint corruption in leaf {key!r}")
+        stacked = entries[0][0] is not None
+        want = tuple(entries[0][1].shape)
+        if stacked:
+            want = (len(entries), *want)
+        if tuple(arr.shape) != want:
+            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
+                             f"{want}")
+        src = _tensor(arr, meta["dtype"])
+        for layer, leaf in entries:
+            leaf.copy_(src[layer] if stacked else src)
+    return target

@@ -199,8 +199,8 @@ def test_gqa_attention_pallas_path_is_the_flash_wrapper():
     want = _f32(JL.gqa_attention(jq, jk, jv, None, impl="pallas"))
     got = TL.gqa_attention(tq, tk, tv, None, impl="pallas")
     np.testing.assert_allclose(_f32(got), want, atol=2e-6)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.gqa_attention(tq, tk, tv, None, impl="flash")
+    flash = TL.gqa_attention(tq, tk, tv, None, impl="flash")
+    np.testing.assert_allclose(_f32(flash), want, atol=2e-6)
     with pytest.raises(ValueError, match="unknown attention impl"):
         TL.gqa_attention(tq, tk, tv, None, impl="ref")
 
@@ -261,8 +261,8 @@ def test_attn_apply_kernel_path_takes_plain_causal_only(cached):
     """The kernel path takes a chunk and non-causal masks as the einsum path
     does (chunked-local attention on the kernel is ported; the JAX
     package's "pallas" path drops the chunk, so the reference is its "xla"
-    path), with or without a prefill cache; ``impl="flash"`` (the training
-    path) still raises."""
+    path), with or without a prefill cache; so does ``impl="flash"`` (the
+    training path, ``flash_attention_xla``)."""
     dims, jp, tp, rng = _attn_pair(1)
     x = rng.standard_normal((2, 11, 32)).astype(np.float32)
     pos = np.arange(11, dtype=np.int32)
@@ -278,10 +278,10 @@ def test_attn_apply_kernel_path_takes_plain_causal_only(cached):
         want = JL.attn_apply(jp, jnp.asarray(x), dims,
                              positions=jnp.asarray(pos), impl="xla", **jkw,
                              **kw)
-        got = TL.attn_apply(tp, torch.tensor(x), positions=torch.tensor(pos),
-                            impl="pallas", **tkw, **kw)
-        np.testing.assert_allclose(got.numpy(), np.asarray(want[0]),
-                                   rtol=1e-5, atol=1e-5, err_msg=str(kw))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TL.attn_apply(tp, torch.tensor(x), positions=torch.tensor(pos),
-                      impl="flash", chunk=4)
+        for impl in ("pallas", "flash"):
+            got = TL.attn_apply(tp, torch.tensor(x),
+                                positions=torch.tensor(pos), impl=impl,
+                                **tkw, **kw)
+            np.testing.assert_allclose(got.numpy(), np.asarray(want[0]),
+                                       rtol=1e-5, atol=1e-5,
+                                       err_msg=f"{impl} {kw}")

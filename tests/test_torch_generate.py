@@ -164,20 +164,32 @@ def test_lm_modules_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
 
 
 def test_unported_configs_raise():
-    """What is still unported raises: ``attn_impl="flash"`` (the training
-    path's flash_attention_xla) at the LM and ``impl="flash"`` at the
-    attention core.  MoE layers and chunked-local attention on the kernel
-    are ported, so their configurations build."""
+    """What the port has not taken yet raises: the model zoo's archs at the
+    registry, and an attention impl neither package has.  Every LM
+    configuration of the JAX package builds: ``attn_impl="flash"`` (the
+    training path's flash_attention_xla, equal to the JAX package's at the
+    attention core), MoE layers and chunked-local attention on the
+    kernel."""
+    from repro.models import layers as JL
+    from repro_torch.configs import registry
+    for arch_id in registry.UNPORTED:
+        with pytest.raises(NotImplementedError, match="not ported yet"):
+            registry.get_arch(arch_id)
     dims = dict(n_layers=1, d_model=8, n_q=2, n_kv=1, d_head=4, d_ff=8,
                 vocab=16)
-    with pytest.raises(NotImplementedError, match="attn_impl='flash'"):
-        TT.TransformerLM(TT.LMConfig(name="f", attn_impl="flash", **dims),
-                         device="cpu")
-    q = torch.zeros(1, 4, 2, 4)
-    with pytest.raises(NotImplementedError, match="impl='flash'"):
-        TL.gqa_attention(q, q[:, :, :1], q[:, :, :1], None, impl="flash")
+    q = np.random.default_rng(0).standard_normal((1, 4, 2, 4), np.float32)
+    kv = q[:, :, :1]
+    tq, tkv = torch.from_numpy(q), torch.from_numpy(kv)
+    np.testing.assert_allclose(
+        TL.gqa_attention(tq, tkv, tkv, None, impl="flash").numpy(),
+        np.asarray(JL.gqa_attention(jnp.asarray(q), jnp.asarray(kv),
+                                    jnp.asarray(kv), None, impl="flash")),
+        atol=1e-6)
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        TL.gqa_attention(tq, tkv, tkv, None, impl="ring")
     moe = TM.MoEConfig(n_experts=2, top_k=1, d_ff_expert=8)
-    for cfg in (TT.LMConfig(name="m", moe=moe, **dims),
+    for cfg in (TT.LMConfig(name="f", attn_impl="flash", **dims),
+                TT.LMConfig(name="m", moe=moe, **dims),
                 TT.LMConfig(name="c", attn_chunk=4, attn_impl="pallas",
                             **dims)):
         TT.TransformerLM(cfg, device="cpu")

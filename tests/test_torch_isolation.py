@@ -68,6 +68,18 @@ row = {k: v[:1] for k, v in Q.items()}
 assert server.submit_wait(row)["docids"].shape == (1, 5)
 assert server.submit_wait(row, pipeline="rag")["tokens"].shape == (1, 3)
 assert server.stats()["recompiles_since_warmup"] == 0
+from repro_torch.configs.registry import all_arch_ids
+from repro_torch.launch.train import train_lm
+from repro_torch.train import checkpoint, compression, fault
+assert len(all_arch_ids()) == 5
+with tempfile.TemporaryDirectory() as d:
+    state, ce = train_lm("olmoe-1b-7b", steps=2, batch=2, seq=16, ckpt_dir=d,
+                         ckpt_every=1, attn_impl="flash", n_micro=2,
+                         device="cpu")
+    assert checkpoint.latest_step(d) == 2 and len(ce) == 2
+ef = compression.ErrorFeedback("topk", 0.5)
+ef.compress_decompress({"w": torch.ones(4)}, ef.init({"w": torch.ones(4)}))
+assert fault.ElasticMesh(1).build(["cpu"]).shape == (1, 1)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -98,6 +110,11 @@ def test_no_source_file_imports_jax_or_reference_package():
     files.append(ROOT / "chip_smoke.py")
     assert len(files) > 20
     assert ROOT / "src" / "repro_torch" / "analysis" / "op_cost.py" in files
+    for mod in ("train/optimizer.py", "train/train_step.py", "train/data.py",
+                "train/checkpoint.py", "train/compression.py",
+                "train/fault.py", "launch/train.py", "configs/registry.py",
+                "configs/shapes.py"):
+        assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         for name in _imports(path):
             top = name.split(".")[0]
@@ -125,3 +142,9 @@ def test_default_device_is_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ShardedQueryEngine()
     assert ShardedQueryEngine("cpu").device.type == "cpu"
+    from repro_torch.launch.train import train_lm
+    from repro_torch.train.fault import ElasticMesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        train_lm("qwen2-1.5b", steps=1, batch=2, seq=8, ckpt_dir="unused")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ElasticMesh(1).build()
