@@ -44,7 +44,12 @@ autograd through the plain version at Qwen2's and Llama-4's heads, cell T1
 (Qwen2-1.5B at full width trained through ``launch.train.train_lm``: bf16,
 remat, 4 x 4,096 tokens a step in 2 micro-batches, steps timed by CUDA
 events, one profiled), and a StepGuard replay after an injected failure,
-bit-equal to the run without it.
+bit-equal to the run without it.  Last, phase Z: the model zoo at its
+published widths in fp32 (each zoo arch's reduced config on the card held
+to the CPU; cell Z1, DCN-v2, AutoInt, DIEN and MIND trained, served and
+scoring a million candidates at the four recsys cells, serve_p99's outputs
+held to the CPU's; cell Z2, gat-cora trained at its four graph cells, the
+Reddit-sized one sampled on the host).
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -2239,28 +2244,8 @@ def phase_train_t1(smi: str, flash_row: dict) -> dict:
         f"{steps} steps); plain fp32 attention backward {bwd_ms:.2f} ms a "
         f"step, {bwd_ms / step_ms:.4f} of it ({len(bwd) // T1_TIMED} calls "
         f"a step); {wall:.1f} s in all; {smi}")
-    keys = prof["p"].key_averages()
-
-    def dev_ms(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)) / 1e3
-
-    # kernels are the device's events; an operator's self device time is
-    # that of the kernels it launched itself (the flash kernel, launched
-    # through ctypes, has no operator above it)
-    on_card = [e for e in keys if getattr(e, "device_type", None) ==
-               torch.autograd.DeviceType.CUDA]
-    ops_ = [e for e in keys if e not in on_card and dev_ms(e) > 0]
-    total = sum(dev_ms(e) for e in on_card)
-    flash = sum(dev_ms(e) for e in on_card if "flash" in e.key)
-    log(f"[T1 profile] step {steps}: wall {prof['wall']:.1f} ms, device "
-        f"{total:.1f} ms (idle share {1 - total / prof['wall']:.4f}), flash "
-        f"kernel {flash:.1f} ms; by operator (self device ms, calls): " +
-        "; ".join(f"{e.key[:48]} {dev_ms(e):.1f} ({e.count})" for e in
-                  sorted(ops_, key=dev_ms, reverse=True)[:12]) +
-        "; top kernels: " + "; ".join(
-            f"{e.key[:48]} {dev_ms(e):.1f} ({e.count})" for e in
-            sorted(on_card, key=dev_ms, reverse=True)[:6]))
+    log(f"[T1 profile] step {steps}: " +
+        profile_text(prof["p"], prof["wall"], mark="flash"))
     row = {**flash_row, "launches": window["flash_attention"]["device"],
            "launches_a_step": per_step}
     log(f"[flash train row] {json.dumps(row)}")
@@ -2354,6 +2339,474 @@ def phase_stepguard(smi: str) -> None:
         f"both runs, the replayed steps {replayed} too; the restored state "
         f"({len(saved)} tensors) bit-equal to the saved one; "
         f"{time.perf_counter() - t0:.1f} s; {smi}")
+
+
+# ---------------------------------------------------------------------------
+# phase Z: the model zoo at its published widths
+# ---------------------------------------------------------------------------
+
+#: warm-up and timed steps of each zoo cell
+Z_WARM, Z_TIMED = 2, 5
+Z_RECSYS = ("dcn-v2", "autoint", "dien", "mind")
+#: the serve_p99 rows held against the CPU at full width, and the bound:
+#: the largest |difference| over the largest |CPU value|
+Z_CPU_ROWS, Z_CPU_REL = 64, 1e-5
+#: gat-cora's minibatch_lg base graph: Reddit's nodes, and its edges over
+#: its nodes as random_graph's mean degree
+Z_REDDIT_DEGREE = round(114_615_892 / 232_965)
+#: the zoo cells that run one more step under torch.profiler
+Z_PROFILED = {("dien", "train_batch"), ("gat-cora", "ogb_products")}
+#: phase_zoo_reduced's second GAT comparison aggregates this many edges at
+#: a time, far below the reduced graph's edge count
+Z_GAT_CHUNK = 7
+
+
+def leaf_bound(ref) -> float:
+    """The zoo's card-vs-CPU bound: 1e-5 + 1e-4 x the leaf's largest
+    |value|."""
+    return 1e-5 + 1e-4 * float(ref.abs().max())
+
+
+def zoo_item_vocab(arch_id: str, cfg) -> int:
+    """The ids a recsys arch's candidates are drawn below: the item vocab
+    (DCN-v2, AutoInt: the last field's, which the candidate replaces)."""
+    return cfg.vocabs[-1] if arch_id in ("dcn-v2", "autoint") \
+        else cfg.item_vocab
+
+
+def zoo_module(arch_id: str):
+    from repro_torch.configs.registry import get_arch
+    return get_arch(arch_id).module
+
+
+def zoo_batch(arch_id: str, cfg, rows: int, rng) -> dict:
+    """A recsys batch of ``rows`` as ``launch.steps._recsys_inputs`` lays
+    it out, in numpy: each field's ids uniform below its vocabulary, dense
+    features N(0, 1), labels Bernoulli(0.5), the history mask ``< 0.8`` (as
+    the reduced batches)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import _recsys_inputs
+    vocab = {"hist_items": "item_vocab", "target_item": "item_vocab",
+             "hist_cates": "cate_vocab", "target_cate": "cate_vocab"}
+    out = {}
+    for name, (shape, dtype) in _recsys_inputs(arch_id, cfg, rows).items():
+        if name == "dense":
+            a = rng.standard_normal(shape, dtype=np.float32)
+        elif name == "label":
+            a = rng.random(shape) < 0.5
+        elif name == "hist_mask":
+            a = rng.random(shape) < 0.8
+        elif name == "cat":
+            a = rng.integers(0, np.asarray(cfg.vocabs), shape)
+        else:
+            a = rng.integers(0, getattr(cfg, vocab[name]), shape)
+        out[name] = a.astype(np.int32 if dtype == torch.int32
+                             else np.float32)
+    return out
+
+
+def on_card(batch: dict) -> dict:
+    import numpy as np
+    import torch
+    return {k: torch.from_numpy(np.asarray(v)).to(DEVICE)
+            for k, v in batch.items()}
+
+
+def step_ms(fn, warm: int = Z_WARM, timed: int = Z_TIMED) -> list[float]:
+    """``fn()`` ``warm`` times, then ``timed`` times each between two CUDA
+    events: the device milliseconds of each timed call (host stalls inside
+    a call count, as a user would see them)."""
+    import torch
+    for _ in range(warm):
+        fn()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(timed)]
+    for a, z in ev:
+        a.record()
+        fn()
+        z.record()
+    torch.cuda.synchronize()
+    return [a.elapsed_time(z) for a, z in ev]
+
+
+def profile_text(prof, wall: float, mark: str | None = None) -> str:
+    """A finished torch.profiler run that took ``wall`` host ms: device ms
+    and idle share, the device ms of the kernels whose name holds ``mark``
+    (when given), the operators' self device ms and the top kernels.
+    Kernels are the device's events; an operator's self device time is
+    that of the kernels it launched itself (a kernel launched through
+    ctypes, as the flash kernel is, has no operator above it)."""
+    import torch
+    keys = prof.key_averages()
+
+    def dev_ms(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)) / 1e3
+
+    on_card = [e for e in keys if getattr(e, "device_type", None) ==
+               torch.autograd.DeviceType.CUDA]
+    ops_ = [e for e in keys if e not in on_card and dev_ms(e) > 0]
+    total = sum(dev_ms(e) for e in on_card)
+    text = (f"wall {wall:.1f} ms, device {total:.1f} ms (idle share "
+            f"{1 - total / wall:.4f})")
+    if mark:
+        marked = sum(dev_ms(e) for e in on_card if mark in e.key)
+        text += f", {mark} kernel {marked:.1f} ms"
+    return (text + "; by operator (self device ms, calls): " +
+            "; ".join(f"{e.key[:48]} {dev_ms(e):.1f} ({e.count})" for e in
+                      sorted(ops_, key=dev_ms, reverse=True)[:12]) +
+            "; top kernels: " + "; ".join(
+                f"{e.key[:60]} {dev_ms(e):.1f} ({e.count})" for e in
+                sorted(on_card, key=dev_ms, reverse=True)[:6]))
+
+
+def profile_summary(fn) -> str:
+    """``fn()`` once under torch.profiler, as :func:`profile_text` puts it
+    (wall: the host's clock to a synchronise)."""
+    import torch
+    torch.cuda.synchronize()
+    prof = torch.profiler.profile(activities=[
+        torch.profiler.ProfilerActivity.CPU,
+        torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    return profile_text(prof, wall)
+
+
+def zoo_card_vs_cpu(arch_id: str) -> str:
+    """``arch_id``'s reduced config on the card against the same weights
+    and batch on the CPU: loss, every gradient and the parameters after one
+    AdamW step (lr 1e-3, 10 total steps), each within 1e-5 + 1e-4 x the
+    CPU leaf's largest |value|.  Returns what it held, as text."""
+    import functools
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    arch = get_arch(arch_id)
+    cfg, batch_fn = arch.reduced()
+    tm = arch.module
+    cpu = tm.init_params(cfg, torch.Generator().manual_seed(0), device="cpu")
+    models = {"cpu": cpu,
+              "card": tm.from_arrays(cfg, tm.to_arrays(cpu), DEVICE)}
+    got = {}
+    for side, mod in models.items():
+        dev = next(mod.parameters()).device
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in batch_fn().items()}
+        state = ts.init_state(mod)
+        loss, _ = tm.loss_fn(cfg, mod, batch)
+        leaves = dict(mod.named_parameters())
+        grads = dict(zip(leaves, torch.autograd.grad(
+            loss, list(leaves.values()))))
+        step = ts.make_train_step(
+            functools.partial(tm.loss_fn, cfg),
+            opt_lib.AdamWConfig(lr=1e-3, total_steps=10))
+        step(state, batch)
+        got[side] = {"loss": loss.detach().cpu(),
+                     **{f"grad {n}": g.cpu() for n, g in grads.items()},
+                     **{f"step {n}": p.detach().cpu()
+                        for n, p in leaves.items()}}
+    worst = (0.0, "")
+    for name, ref in got["cpu"].items():
+        x = got["card"][name]
+        assert bool(torch.isfinite(x).all()), (arch_id, name)
+        err = float((x - ref).abs().max())
+        assert err <= leaf_bound(ref), (arch_id, name, err)
+        worst = max(worst, (err / leaf_bound(ref), name))
+    return (f"{arch_id} ({cfg.name}): card vs CPU from the same weights and "
+            f"batch, loss {float(got['card']['loss']):.6f} vs "
+            f"{float(got['cpu']['loss']):.6f}; loss, {len(leaves)} gradients "
+            f"and {len(leaves)} parameters after one AdamW step within "
+            f"1e-5 + 1e-4 x the leaf's largest |value| (worst {worst[0]:.4f}"
+            f" of its bound, {worst[1]})")
+
+
+def phase_zoo_reduced() -> None:
+    """Each zoo arch's reduced config on the card against the CPU
+    (:func:`zoo_card_vs_cpu`); GAT a second time with its aggregation in
+    chunks of Z_GAT_CHUNK edges, so that the chunk offsets and the
+    hand-written backward are held across chunks on the card too."""
+    from repro_torch.configs.registry import all_arch_ids, get_arch
+    from repro_torch.models import gnn
+    for arch_id in all_arch_ids():
+        family = get_arch(arch_id).family
+        if family == "lm":
+            continue
+        log(f"[Z reduced] {zoo_card_vs_cpu(arch_id)}")
+        if family != "gnn":
+            continue
+        whole = gnn.MESSAGE_CHUNK
+        gnn.MESSAGE_CHUNK = Z_GAT_CHUNK
+        try:
+            log(f"[Z reduced] aggregation in chunks of {Z_GAT_CHUNK} edges: "
+                f"{zoo_card_vs_cpu(arch_id)}")
+        finally:
+            gnn.MESSAGE_CHUNK = whole
+
+
+def zoo_recsys_cell(arch_id: str, cfg, mod, shape: str, cell: dict,
+                    seed: int) -> dict:
+    """One recsys cell at the published widths: ``train_batch`` as
+    ``make_train_step`` steps (AdamW's defaults), ``serve_*`` as ``forward``
+    under ``no_grad`` (then a sigmoid, but for MIND), ``retrieval_cand`` as
+    ``retrieval_score``.  Returns ms a step, rows/s, peak memory, the
+    step's model FLOPs and share of the fp32 bound, and the outputs of the
+    last call."""
+    import functools
+    import numpy as np
+    import torch
+    from repro_torch.launch.steps import _recsys_flops
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    tm = zoo_module(arch_id)
+    rng = np.random.default_rng(seed)
+    kind, rows = cell["kind"], cell["batch"]
+    host = zoo_batch(arch_id, cfg, rows, rng)
+    n = rows
+    if kind != "train":
+        host.pop("label", None)
+    if kind == "retrieval":
+        n = cell["candidates"]
+        host["candidates"] = rng.integers(
+            0, zoo_item_vocab(arch_id, cfg), n).astype(np.int32)
+    batch = on_card(host)
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    if kind == "train":
+        state = ts.init_state(mod)
+        step = ts.make_train_step(functools.partial(tm.loss_fn, cfg),
+                                  opt_lib.AdamWConfig())
+        losses = []
+
+        def run():
+            nonlocal state
+            state, m = step(state, batch)
+            losses.append(next(iter(m.values())))
+        ms = step_ms(run)
+        if (arch_id, shape) in Z_PROFILED:
+            out["profile"] = profile_summary(run)
+        out["loss"] = torch.stack(losses).cpu()
+        del state
+    else:
+        def run():
+            with torch.no_grad():
+                if kind == "retrieval":
+                    y = tm.retrieval_score(cfg, mod, batch)
+                else:
+                    y = tm.forward(cfg, mod, batch)
+                    if arch_id != "mind":
+                        y = torch.sigmoid(y)
+            out["y"] = y
+        ms = step_ms(run)
+        assert out["y"].shape == (n,), (arch_id, shape, out["y"].shape)
+    for k in ("loss", "y"):
+        if k in out:
+            assert bool(torch.isfinite(out[k]).all()), (arch_id, shape, k)
+    mean = sum(ms) / len(ms)
+    flops = _recsys_flops(arch_id, cfg, n, kind)
+    bound = 1e3 * flops / FP32_OPS_PER_S
+    return {"ms": mean, "all_ms": ms, "rows_per_s": n / mean * 1e3,
+            "peak": torch.cuda.max_memory_allocated(), "flops": flops,
+            "bound_ms": bound, "share": bound / mean, "rows": n,
+            "batch": host, **out}
+
+
+def zoo_cpu_check(arch_id: str, cfg, mod, host: dict, y) -> float:
+    """``serve_p99``'s first Z_CPU_ROWS outputs against the CPU's from the
+    same weights and rows: the largest |difference| over the largest |CPU
+    value|, held to Z_CPU_REL."""
+    import torch
+    tm = zoo_module(arch_id)
+    cpu = tm.from_arrays(cfg, tm.to_arrays(mod), device="cpu")
+    rows = {k: torch.from_numpy(v[:Z_CPU_ROWS]) for k, v in host.items()}
+    with torch.no_grad():
+        ref = tm.forward(cfg, cpu, rows)
+        if arch_id != "mind":
+            ref = torch.sigmoid(ref)
+    rel = float((y[:Z_CPU_ROWS].cpu() - ref).abs().max() / ref.abs().max())
+    assert rel <= Z_CPU_REL, (arch_id, rel)
+    return rel
+
+
+def phase_zoo_recsys(smi: str) -> None:
+    """Cell Z1: DCN-v2, AutoInt, DIEN and MIND at ``model_cfg()`` (fp32,
+    random weights from seed 0 on the card) at the four RECSYS_SHAPES
+    cells, with serve_p99 held against the CPU."""
+    import torch
+    from repro_torch.configs import shapes
+    from repro_torch.configs.registry import get_arch
+    for i, arch_id in enumerate(Z_RECSYS):
+        arch = get_arch(arch_id)
+        cfg = arch.model_cfg("train_batch")
+        t0 = time.perf_counter()
+        mod = arch.module.init_params(
+            cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
+        params = sum(p.numel() for p in mod.parameters())
+        tables = {n: p.numel() * p.element_size()
+                  for n, p in mod.named_parameters() if "table" in n}
+        log(f"[Z1] {arch_id}: {cfg}; {params} parameters "
+            f"({4 * params} bytes fp32, AdamW's fp32 moments "
+            f"{8 * params} bytes); tables {tables} bytes; drawn in "
+            f"{time.perf_counter() - t0:.1f} s")
+        for j, (shape, cell) in enumerate(shapes.RECSYS_SHAPES.items()):
+            t0 = time.perf_counter()
+            r = zoo_recsys_cell(arch_id, cfg, mod, shape, cell,
+                                seed=100 * i + j)
+            extra = ""
+            if "loss" in r:
+                extra = f"; loss by step {[round(float(x), 5) for x in r['loss']]}"
+            if shape == "serve_p99":
+                rel = zoo_cpu_check(arch_id, cfg, mod, r["batch"], r["y"])
+                extra = (f"; first {Z_CPU_ROWS} outputs vs the CPU's from "
+                         f"the same weights: {rel:.3e} of the largest "
+                         f"(bound {Z_CPU_REL})")
+            what = "candidates" if cell["kind"] == "retrieval" else "rows"
+            log(f"[Z1] {arch_id} {shape} ({r['rows']} {what}): "
+                f"{r['ms']:.3f} ms a step (mean of {Z_TIMED} after "
+                f"{Z_WARM} warm-up, CUDA events; each "
+                f"{[round(x, 3) for x in r['all_ms']]}), "
+                f"{r['rows_per_s']:.1f} {what}/s, peak device memory "
+                f"{r['peak']} bytes, model FLOPs {r['flops'] / 1e9:.2f} G "
+                f"a step, {r['share']:.4f} of the fp32 bound "
+                f"({r['bound_ms']:.3f} ms at 67 TFLOP/s){extra}; "
+                f"{time.perf_counter() - t0:.1f} s; {smi}")
+            if "profile" in r:
+                log(f"[Z1 profile] {arch_id} {shape}, one more step: "
+                    f"{r['profile']}")
+            del r
+        del mod
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def zoo_gat_batches(shape: str, cell: dict, cfg, seed: int):
+    """gat-cora's host batches of a cell and the sampler's ms a batch
+    (None but for minibatch_lg): one batch reused by every step, or for
+    minibatch_lg one sampled batch a step."""
+    import numpy as np
+    from repro_torch.models import sampler
+    rng = np.random.default_rng(seed)
+    if shape == "minibatch_lg":
+        t0 = time.perf_counter()
+        g = sampler.random_graph(cell["base_nodes"], Z_REDDIT_DEGREE,
+                                 cell["d_feat"], cell["n_classes"], seed=seed)
+        built = time.perf_counter() - t0
+        ns = sampler.NeighborSampler(g, list(cell["fanouts"]), seed=seed)
+        batches, ms = [], []
+        for _ in range(Z_WARM + Z_TIMED):
+            t0 = time.perf_counter()
+            seeds = ns.rng.integers(0, g.n_nodes, cell["batch_nodes"],
+                                    dtype=np.int64)
+            batches.append(ns.sample(seeds))
+            ms.append(1e3 * (time.perf_counter() - t0))
+        info = {"sampler_ms": ms, "graph_s": built,
+                "base_edges": int(g.indptr[-1])}
+        return batches, info
+    if "n_graphs" in cell:
+        return [sampler.pack_molecule_batch(
+            rng, cell["n_graphs"], cell["nodes_per_graph"],
+            cell["edges_per_graph"], cell["d_feat"], cell["n_classes"])], {}
+    N, E = cell["n_nodes"], cell["n_edges"]
+    return [{
+        "x": rng.standard_normal((N, cell["d_feat"]), dtype=np.float32),
+        "src": rng.integers(0, N, E, dtype=np.int32),
+        "dst": rng.integers(0, N, E, dtype=np.int32),
+        "labels": rng.integers(0, cell["n_classes"], N, dtype=np.int32),
+        "label_mask": np.ones(N, bool),
+    }], {}
+
+
+def zoo_gat_cell(shape: str, cell: dict, seed: int) -> dict:
+    """One gat-cora cell: ``make_train_step`` steps (AdamW's defaults) at
+    ``model_cfg(shape)``, random weights from seed 0 on the card."""
+    import functools
+    import torch
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import _gnn_flops
+    from repro_torch.models import gnn
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    cfg = get_arch("gat-cora").model_cfg(shape)
+    batches, info = zoo_gat_batches(shape, cell, cfg, seed)
+    N, E = batches[0]["x"].shape[0], batches[0]["src"].shape[0]
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = ts.init_state(gnn.init_params(
+        cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE))
+    step = ts.make_train_step(functools.partial(gnn.loss_fn, cfg),
+                              opt_lib.AdamWConfig())
+    losses, ms = [], []
+    for i in range(Z_WARM + Z_TIMED):
+        batch = on_card(batches[i % len(batches)])
+        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        a.record()
+        state, m = step(state, batch)
+        z.record()
+        losses.append(m["ce"])
+        if i >= Z_WARM:
+            ms.append((a, z))
+        del batch
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(z) for a, z in ms]
+    info["loss"] = torch.stack(losses).cpu()
+    if ("gat-cora", shape) in Z_PROFILED:
+        batch = on_card(batches[-1])
+
+        def run():
+            nonlocal state
+            state, _ = step(state, batch)
+        info["profile"] = profile_summary(run)
+        del batch
+    assert bool(torch.isfinite(info["loss"]).all()), (shape, info["loss"])
+    for p in state["params"].parameters():
+        assert bool(torch.isfinite(p).all()), shape
+    mean = sum(ms) / len(ms)
+    flops = _gnn_flops(cfg, N, E)
+    bound = 1e3 * flops / FP32_OPS_PER_S
+    return {"cfg": cfg, "N": N, "E": E, "ms": mean, "all_ms": ms,
+            "peak": torch.cuda.max_memory_allocated(), "flops": flops,
+            "bound_ms": bound, "share": bound / mean, **info}
+
+
+def phase_zoo_gat(smi: str) -> None:
+    """Cell Z2: gat-cora at the four GNN_SHAPES cells (fp32, seed 0)."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import shapes
+    for j, (shape, cell) in enumerate(shapes.GNN_SHAPES.items()):
+        t0 = time.perf_counter()
+        r = zoo_gat_cell(shape, cell, seed=200 + j)
+        extra = ""
+        if "sampler_ms" in r:
+            extra = (f"; base graph {cell['base_nodes']} nodes, "
+                     f"{r['base_edges']} edges (random_graph, mean degree "
+                     f"{Z_REDDIT_DEGREE}; {r['graph_s']:.1f} s on the "
+                     f"host), sampler {np.mean(r['sampler_ms']):.1f} ms a "
+                     f"batch on the host (each "
+                     f"{[round(x, 1) for x in r['sampler_ms']]})")
+        log(f"[Z2] gat-cora {shape}: {r['cfg']}; {r['N']} nodes, {r['E']} "
+            f"edges: {r['ms']:.3f} ms a train step (mean of {Z_TIMED} after "
+            f"{Z_WARM} warm-up, CUDA events; each "
+            f"{[round(x, 3) for x in r['all_ms']]}), peak device memory "
+            f"{r['peak']} bytes, model FLOPs {r['flops'] / 1e9:.2f} G a "
+            f"step, {r['share']:.4f} of the fp32 bound ({r['bound_ms']:.3f} "
+            f"ms at 67 TFLOP/s); ce by step "
+            f"{[round(float(x), 5) for x in r['loss']]}{extra}; "
+            f"{time.perf_counter() - t0:.1f} s; {smi}")
+        if "profile" in r:
+            log(f"[Z2 profile] gat-cora {shape}, one more step: "
+                f"{r['profile']}")
+        del r
+        gc.collect()
+        torch.cuda.empty_cache()
 
 
 def phase_rq1(index, forms) -> tuple:
@@ -3328,6 +3781,17 @@ def main() -> int:
     windows.append(phase_train_t1(smi, flash_row))
     phase_stepguard(smi)
     log(f"[main] training phases {time.perf_counter() - t0:.1f} s")
+    # phase Z, the model zoo at its published widths, once T1 and
+    # StepGuard have freed the card (no kernel of the port runs in it);
+    # nothing reads the index or the dense state again
+    del index, forms, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_zoo_reduced()
+    phase_zoo_recsys(smi)
+    phase_zoo_gat(smi)
+    log(f"[main] zoo phases {time.perf_counter() - t0:.1f} s")
     launches = {}
     for w in windows:
         for name, c in w.items():

@@ -32,6 +32,6 @@ def reduced():
 
 
 register(ArchDef(
-    arch_id="glm4-9b", shapes=shapes.LM_SHAPES,
+    arch_id="glm4-9b", family="lm", shapes=shapes.LM_SHAPES,
     model_cfg=model_cfg, reduced=reduced,
 ))

@@ -41,6 +41,6 @@ def reduced():
 
 
 register(ArchDef(
-    arch_id="llama4-scout-17b-a16e", shapes=shapes.LM_SHAPES,
+    arch_id="llama4-scout-17b-a16e", family="lm", shapes=shapes.LM_SHAPES,
     model_cfg=model_cfg, reduced=reduced,
 ))

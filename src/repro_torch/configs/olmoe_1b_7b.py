@@ -37,6 +37,6 @@ def reduced():
 
 
 register(ArchDef(
-    arch_id="olmoe-1b-7b", shapes=shapes.LM_SHAPES,
+    arch_id="olmoe-1b-7b", family="lm", shapes=shapes.LM_SHAPES,
     model_cfg=model_cfg, reduced=reduced,
 ))

@@ -33,6 +33,6 @@ def reduced():
 
 
 register(ArchDef(
-    arch_id="qwen2-1.5b", shapes=shapes.LM_SHAPES,
+    arch_id="qwen2-1.5b", family="lm", shapes=shapes.LM_SHAPES,
     model_cfg=model_cfg, reduced=reduced,
 ))

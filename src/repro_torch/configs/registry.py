@@ -1,10 +1,6 @@
-"""Architecture registry: ``--arch <id>`` resolution (the port of
-``src/repro/configs/registry.py``).
-
-The port registers the five LM archs of the JAX package.  The recsys and
-GNN archs (gat-cora, dcn-v2, dien, mind, autoint) wait for the model zoo
-(ROADMAP §1 item 3): :func:`get_arch` raises for them, naming it.
-"""
+"""Architecture registry: ``--arch <id>`` resolution for all 10 archs of
+the JAX package (the port of ``src/repro/configs/registry.py``): the five
+LMs, gat-cora and the four recsys models."""
 from __future__ import annotations
 
 import dataclasses
@@ -15,24 +11,32 @@ from repro_torch.common import Registry
 
 ARCHS = Registry("architecture")
 
-#: the JAX package's archs the port has no model for yet
-UNPORTED = {"gat-cora": "gnn", "dcn-v2": "recsys", "dien": "recsys",
-            "mind": "recsys", "autoint": "recsys"}
-
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
 class ArchDef:
     """One selectable architecture with its shape cells.
 
-    ``model_cfg(shape_name)`` may specialise the config per shape;
-    ``reduced()`` returns a small same-family config + a host-side batch
-    factory for smoke tests.
+    ``model_cfg(shape_name)`` may specialise the config per shape (the GNN
+    cells carry their own feature/class counts); ``reduced()`` returns a
+    small same-family config + a host-side batch factory for smoke tests.
+    ``module`` is the model module of the family (a recsys arch's own).
     """
 
     arch_id: str
+    family: str                                   # "lm" | "gnn" | "recsys"
     shapes: dict[str, dict]
     model_cfg: Callable[[str], Any]
     reduced: Callable[[], tuple[Any, Callable[[], dict]]]
+
+    @property
+    def module(self):
+        mod = {
+            "lm": "repro_torch.models.transformer_lm",
+            "gnn": "repro_torch.models.gnn",
+        }.get(self.family)
+        if mod is None:  # recsys: per-arch module (dcn-v2 -> dcn, ...)
+            mod = f"repro_torch.models.recsys.{self.arch_id.split('-')[0]}"
+        return importlib.import_module(mod)
 
 
 def register(arch: ArchDef) -> ArchDef:
@@ -41,10 +45,6 @@ def register(arch: ArchDef) -> ArchDef:
 
 
 def get_arch(arch_id: str) -> ArchDef:
-    if arch_id in UNPORTED:
-        raise NotImplementedError(
-            f"{arch_id}: the {UNPORTED[arch_id]} archs are not ported yet "
-            f"(ROADMAP §1 item 3, the model zoo)")
     _ensure_loaded()
     return ARCHS[arch_id]
 
@@ -62,6 +62,11 @@ _CONFIG_MODULES = [
     "repro_torch.configs.internlm2_1_8b",
     "repro_torch.configs.llama4_scout_17b_a16e",
     "repro_torch.configs.olmoe_1b_7b",
+    "repro_torch.configs.gat_cora",
+    "repro_torch.configs.dcn_v2",
+    "repro_torch.configs.dien",
+    "repro_torch.configs.mind",
+    "repro_torch.configs.autoint",
 ]
 
 

@@ -1,3 +1,4 @@
-"""The models behind the stages: the LMs of the RAG ``generate`` stage
-(layers and the decoder-only transformer, prefill and decode against a KV
-cache) and the learning-to-rank MLP of ``LTRRerank``."""
+"""The models behind the stages and the model zoo: the LMs of the RAG
+``generate`` stage (layers and the decoder-only transformer, prefill and
+decode against a KV cache), the learning-to-rank MLP of ``LTRRerank``,
+GAT with its neighbour sampler, and the recsys models (``recsys``)."""

@@ -134,6 +134,10 @@ class TransformerLM(nn.Module):
     uninitialised; :func:`init_params` draws them and
     :func:`lm_from_arrays` copies them in."""
 
+    #: the JAX package stacks these parameters on a leading L axis (its
+    #: tree's ``layers``), which the optimizer's weight decay counts
+    stacked_prefixes = ("layers.",)
+
     def __init__(self, cfg: LMConfig, device=None):
         super().__init__()
         device = resolve_device(device)

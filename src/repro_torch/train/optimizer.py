@@ -8,11 +8,17 @@ dotted names:
   {"m": {name: fp32 tensor}, "v": {name: fp32 tensor}, "step": 0-d int32}
 
 Moments are fp32 whatever the parameters' dtype, and :func:`update`
-computes each new parameter in fp32 before casting it back, in place.  The
-JAX package stacks an LM's layers on a leading L axis, so a layer's leaf
-there has one axis more than the port's per-layer tensor; weight decay,
-which takes leaves of two axes or more, counts that axis as the reference
-does (a layer's norm gains are decayed, ``ln_final`` is not).
+computes each new parameter in fp32 before casting it back, in place.
+
+Weight decay takes the leaves of two axes or more, counted in the JAX
+package's tree.  That tree stacks an LM's layers on a leading L axis, so a
+layer's leaf there has one axis more than the port's per-layer tensor:
+the LM declares the parameter prefixes it stacks
+(``TransformerLM.stacked_prefixes``), and in a dict tree a dict keyed by
+layer numbers stands for such a stack.  Everything else, lists included,
+counts its own axes: the model zoo's trees are Python lists of unstacked
+leaves there (``cross[i]``, ``mlp[i]``, ``layers[i]``), so their 1-D
+biases are not decayed.
 """
 from __future__ import annotations
 
@@ -37,23 +43,43 @@ class AdamWConfig:
     schedule: str = "cosine"  # "cosine" | "linear" | "constant"
 
 
+def _children(tree: Any):
+    if isinstance(tree, dict):
+        return tree.items()
+    if isinstance(tree, (list, tuple)):
+        return enumerate(tree)
+    return None
+
+
 def named_leaves(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
     """The tensors of a tree by dotted name: an ``nn.Module``'s named
-    parameters, or the leaves of nested dicts."""
+    parameters, or the leaves of nested dicts and lists."""
     if isinstance(tree, nn.Module):
         return {prefix + n: p for n, p in tree.named_parameters()}
-    if isinstance(tree, dict):
-        out = {}
-        for k, v in tree.items():
-            out.update(named_leaves(v, f"{prefix}{k}."))
-        return out
-    return {prefix[:-1]: tree}
+    children = _children(tree)
+    if children is None:
+        return {prefix[:-1]: tree}
+    out = {}
+    for k, v in children:
+        out.update(named_leaves(v, f"{prefix}{k}."))
+    return out
 
 
-def _stacked_ndim(name: str, t: torch.Tensor) -> int:
-    """The leaf's axes in the JAX package's tree: one more for a layer's
-    tensor (a dotted name with a layer index), stacked there on L."""
-    return t.dim() + any(part.isdigit() for part in name.split("."))
+def stacked_leaves(tree: Any, prefix: str = "") -> set[str]:
+    """The names of the leaves that the JAX package stacks on a leading L
+    axis: a module's parameters under its ``stacked_prefixes``, and every
+    leaf under a dict keyed by layer numbers."""
+    if isinstance(tree, nn.Module):
+        stacked = getattr(tree, "stacked_prefixes", ())
+        return {prefix + n for n, _ in tree.named_parameters()
+                if n.startswith(stacked)}
+    if isinstance(tree, dict) and tree and \
+            all(str(k).isdigit() for k in tree):
+        return set(named_leaves(tree, prefix))
+    out: set[str] = set()
+    for k, v in _children(tree) or ():
+        out |= stacked_leaves(v, f"{prefix}{k}.")
+    return out
 
 
 def schedule_lr(cfg: AdamWConfig, step) -> torch.Tensor:
@@ -96,6 +122,7 @@ def update(cfg: AdamWConfig, grads: Any, state: dict[str, Any], params: Any):
     (or a dict by dotted name).  Returns (params, new state, metrics
     {"grad_norm", "lr"})."""
     leaves, grads = named_leaves(params), named_leaves(grads)
+    stacked = stacked_leaves(params)
     step = state["step"] + 1
     gnorm = global_norm(grads)
     scale = (torch.clamp_max(cfg.grad_clip / (gnorm + 1e-9), 1.0)
@@ -110,7 +137,7 @@ def update(cfg: AdamWConfig, grads: Any, state: dict[str, Any], params: Any):
         v.mul_(cfg.b2).add_((1.0 - cfg.b2) * g.square())
         u = (m / c1) / (torch.sqrt(v / c2) + cfg.eps)
         p32 = p.float()
-        if cfg.weight_decay and _stacked_ndim(name, p) >= 2:
+        if cfg.weight_decay and p.dim() + (name in stacked) >= 2:
             u = u + cfg.weight_decay * p32
         p.copy_(p32 - lr * u)
     metrics = {"grad_norm": gnorm, "lr": lr}

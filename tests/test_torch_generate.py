@@ -163,18 +163,22 @@ def test_lm_modules_run_on_the_card_unless_asked_for_the_cpu(monkeypatch):
         TT.TransformerLM(cfg)
 
 
-def test_unported_configs_raise():
-    """What the port has not taken yet raises: the model zoo's archs at the
-    registry, and an attention impl neither package has.  Every LM
-    configuration of the JAX package builds: ``attn_impl="flash"`` (the
-    training path's flash_attention_xla, equal to the JAX package's at the
-    attention core), MoE layers and chunked-local attention on the
-    kernel."""
+def test_every_config_builds():
+    """Every arch of the registry builds its reduced config's model on the
+    CPU (the five LMs and the model zoo), and an attention impl neither
+    package has raises.  Every LM configuration of the JAX package builds:
+    ``attn_impl="flash"`` (the training path's flash_attention_xla, equal
+    to the JAX package's at the attention core), MoE layers and
+    chunked-local attention on the kernel."""
     from repro.models import layers as JL
     from repro_torch.configs import registry
-    for arch_id in registry.UNPORTED:
-        with pytest.raises(NotImplementedError, match="not ported yet"):
-            registry.get_arch(arch_id)
+    for arch_id in registry.all_arch_ids():
+        arch = registry.get_arch(arch_id)
+        cfg = arch.reduced()[0]
+        model = (TT.TransformerLM(cfg, device="cpu") if arch.family == "lm"
+                 else arch.module.init_params(
+                     cfg, torch.Generator().manual_seed(0), device="cpu"))
+        assert all(p.device.type == "cpu" for p in model.parameters())
     dims = dict(n_layers=1, d_model=8, n_q=2, n_kv=1, d_head=4, d_ff=8,
                 vocab=16)
     q = np.random.default_rng(0).standard_normal((1, 4, 2, 4), np.float32)

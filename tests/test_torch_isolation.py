@@ -13,6 +13,7 @@ ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = """
 import sys
+import numpy as np
 import repro_torch as rt
 from repro_torch.index.corpus import synthesize_corpus, synthesize_topics
 corpus = synthesize_corpus(n_docs=400, vocab=3000, mean_len=40, seed=1)
@@ -71,7 +72,19 @@ assert server.stats()["recompiles_since_warmup"] == 0
 from repro_torch.configs.registry import all_arch_ids
 from repro_torch.launch.train import train_lm
 from repro_torch.train import checkpoint, compression, fault
-assert len(all_arch_ids()) == 5
+assert len(all_arch_ids()) == 10
+from repro_torch.configs.registry import get_arch
+from repro_torch.models import sampler
+for arch_id in ("dcn-v2", "autoint", "dien", "mind", "gat-cora"):
+    arch = get_arch(arch_id)
+    zcfg, zbatch = arch.reduced()
+    zmod = arch.module.init_params(zcfg, torch.Generator().manual_seed(0),
+                                   device="cpu")
+    zb = {k: torch.as_tensor(v) for k, v in zbatch().items()}
+    assert torch.isfinite(arch.module.loss_fn(zcfg, zmod, zb)[0])
+sub = sampler.NeighborSampler(sampler.random_graph(50, 4, 16, 5),
+                              [3, 2]).sample(np.arange(4))
+assert sub["src"].shape == (4 * 3 + 4 * 3 * 2,)
 with tempfile.TemporaryDirectory() as d:
     state, ce = train_lm("olmoe-1b-7b", steps=2, batch=2, seq=16, ckpt_dir=d,
                          ckpt_every=1, attn_impl="flash", n_micro=2,
@@ -113,7 +126,13 @@ def test_no_source_file_imports_jax_or_reference_package():
     for mod in ("train/optimizer.py", "train/train_step.py", "train/data.py",
                 "train/checkpoint.py", "train/compression.py",
                 "train/fault.py", "launch/train.py", "configs/registry.py",
-                "configs/shapes.py"):
+                "configs/shapes.py", "models/param_tree.py",
+                "models/recsys/embedding.py", "models/recsys/dcn.py",
+                "models/recsys/autoint.py", "models/recsys/dien.py",
+                "models/recsys/mind.py", "models/gnn.py",
+                "models/sampler.py", "configs/gat_cora.py",
+                "configs/dcn_v2.py", "configs/dien.py", "configs/mind.py",
+                "configs/autoint.py", "launch/steps.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         for name in _imports(path):
@@ -148,3 +167,13 @@ def test_default_device_is_the_card(monkeypatch):
         train_lm("qwen2-1.5b", steps=1, batch=2, seq=8, ckpt_dir="unused")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ElasticMesh(1).build()
+    from repro_torch.configs.registry import get_arch
+    for arch_id in ("dcn-v2", "autoint", "dien", "mind", "gat-cora"):
+        arch = get_arch(arch_id)
+        cfg = arch.reduced()[0]
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            arch.module.init_params(cfg, torch.Generator().manual_seed(0))
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            arch.module.from_arrays(cfg, {})
+        assert all(p.device.type == "cpu" for p in arch.module.init_params(
+            cfg, torch.Generator().manual_seed(0), device="cpu").parameters())
