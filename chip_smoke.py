@@ -49,7 +49,16 @@ published widths in fp32 (each zoo arch's reduced config on the card held
 to the CPU; cell Z1, DCN-v2, AutoInt, DIEN and MIND trained, served and
 scoring a million candidates at the four recsys cells, serve_p99's outputs
 held to the CPU's; cell Z2, gat-cora trained at its four graph cells, the
-Reddit-sized one sampled on the host).
+Reddit-sized one sampled on the host), each cell's step and arguments
+from ``launch.steps.build_bundle`` and its peak memory beside its dry
+run's.  Then phase X, the launch layer: the flash kernels at d_head 32
+against their plain version, the four examples of
+``repro_torch.examples`` at their own sizes (each kernel's launches held
+to the route their compiles give, the results to a CPU run),
+``train_lm``'s 10m preset on the flash kernel, the serve demo against the
+CPU, and qwen2-1.5b's full-width serve bundles, long_500k and decode_32k
+at 14 of its 28 layers, each one decode step, their peak memory held to
+their dry runs.
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -2006,10 +2015,9 @@ T1_BATCH, T1_MICRO, T1_WARM, T1_TIMED = 4, 2, 2, 8
 #: reference's own driver lifts ce above its start under 3e-3 at Qwen2's
 #: d_model, and the port follows it (tests/test_torch_train_witness.py)
 T1_LR = 1e-4
-#: examples/train_lm.py's 100m preset (d_head 64, a kernel shape), for the
-#: StepGuard check: steps, checkpoint interval, the step that fails
-PRESET_100M = dict(n_layers=12, d_model=768, n_q=12, n_kv=4, d_head=64,
-                   d_ff=2048, vocab=32768, batch=8, seq=256)
+#: the StepGuard check on repro_torch.examples.train_lm's 100m preset
+#: (d_head 64, a kernel shape): steps, checkpoint interval, the step that
+#: fails
 GUARD_STEPS, GUARD_EVERY, GUARD_FAIL = 8, 4, 7
 
 
@@ -2263,7 +2271,8 @@ def _state_bits(state) -> dict:
 
 
 def phase_stepguard(smi: str) -> None:
-    """StepGuard on the card: examples/train_lm.py's 100m preset (bf16,
+    """StepGuard on the card: repro_torch.examples.train_lm's 100m preset
+    (bf16,
     flash, n_micro 2) for GUARD_STEPS steps with a checkpoint every
     GUARD_EVERY under build/, once as it is and once with a failure
     injected at step GUARD_FAIL; the guard restores the last checkpoint
@@ -2277,8 +2286,9 @@ def phase_stepguard(smi: str) -> None:
     from repro_torch.train import data as data_lib
     from repro_torch.train import optimizer as opt_lib
     from repro_torch.train import train_step as ts
+    from repro_torch.examples.train_lm import PRESETS
     from repro_torch.train.fault import StepGuard
-    p = PRESET_100M
+    p = PRESETS["100m"]
     cfg = tlm.LMConfig(name="lm-100m", tie_embeddings=True,
                        attn_impl="flash", **{k: v for k, v in p.items()
                                              if k not in ("batch", "seq")})
@@ -2367,43 +2377,33 @@ def leaf_bound(ref) -> float:
     return 1e-5 + 1e-4 * float(ref.abs().max())
 
 
-def zoo_item_vocab(arch_id: str, cfg) -> int:
-    """The ids a recsys arch's candidates are drawn below: the item vocab
-    (DCN-v2, AutoInt: the last field's, which the candidate replaces)."""
-    return cfg.vocabs[-1] if arch_id in ("dcn-v2", "autoint") \
-        else cfg.item_vocab
-
-
 def zoo_module(arch_id: str):
     from repro_torch.configs.registry import get_arch
     return get_arch(arch_id).module
 
 
-def zoo_batch(arch_id: str, cfg, rows: int, rng) -> dict:
-    """A recsys batch of ``rows`` as ``launch.steps._recsys_inputs`` lays
-    it out, in numpy: each field's ids uniform below its vocabulary, dense
-    features N(0, 1), labels Bernoulli(0.5), the history mask ``< 0.8`` (as
-    the reduced batches)."""
-    import numpy as np
+def dry_peak(arch_id: str, shape: str) -> int:
+    """The one-card dry run's peak bytes of a cell (``launch/dryrun.py``:
+    the bundle on ``meta``, priced by the op counter, on the host)."""
+    from repro_torch.launch.dryrun import run_cell
+    return run_cell(arch_id, shape, verbose=False)["bytes_per_device"]
+
+
+def measured_peak(build, run):
+    """(the card's peak bytes allocated while ``run(bundle)`` runs the
+    steps of ``bundle = build()``, above what was allocated before the
+    build, so the bundle's arguments count and the draw of its weights
+    does not: the dry run prices the step on its arguments; the bundle)."""
     import torch
-    from repro_torch.launch.steps import _recsys_inputs
-    vocab = {"hist_items": "item_vocab", "target_item": "item_vocab",
-             "hist_cates": "cate_vocab", "target_cate": "cate_vocab"}
-    out = {}
-    for name, (shape, dtype) in _recsys_inputs(arch_id, cfg, rows).items():
-        if name == "dense":
-            a = rng.standard_normal(shape, dtype=np.float32)
-        elif name == "label":
-            a = rng.random(shape) < 0.5
-        elif name == "hist_mask":
-            a = rng.random(shape) < 0.8
-        elif name == "cat":
-            a = rng.integers(0, np.asarray(cfg.vocabs), shape)
-        else:
-            a = rng.integers(0, getattr(cfg, vocab[name]), shape)
-        out[name] = a.astype(np.int32 if dtype == torch.int32
-                             else np.float32)
-    return out
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    bundle = build()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run(bundle)
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base, bundle
 
 
 def on_card(batch: dict) -> dict:
@@ -2549,83 +2549,68 @@ def phase_zoo_reduced() -> None:
             gnn.MESSAGE_CHUNK = whole
 
 
-def zoo_recsys_cell(arch_id: str, cfg, mod, shape: str, cell: dict,
-                    seed: int) -> dict:
-    """One recsys cell at the published widths: ``train_batch`` as
-    ``make_train_step`` steps (AdamW's defaults), ``serve_*`` as ``forward``
-    under ``no_grad`` (then a sigmoid, but for MIND), ``retrieval_cand`` as
-    ``retrieval_score``.  Returns ms a step, rows/s, peak memory, the
-    step's model FLOPs and share of the fp32 bound, and the outputs of the
-    last call."""
-    import functools
-    import numpy as np
+def zoo_recsys_cell(arch_id: str, shape: str, cell: dict) -> dict:
+    """One recsys cell at the published widths, its step and arguments
+    from ``launch.steps.build_bundle`` on the card (weights drawn from seed
+    0, each field's ids below its vocabulary): ``train_batch`` as
+    ``make_train_step`` steps (AdamW's defaults), ``serve_*`` as
+    ``forward`` under ``no_grad`` (then a sigmoid, but for MIND),
+    ``retrieval_cand`` as ``retrieval_score``.  Returns ms a step, rows/s,
+    the peak memory beside the dry run's, the step's model FLOPs and share
+    of the fp32 bound, the outputs of the last call and the weights."""
     import torch
-    from repro_torch.launch.steps import _recsys_flops
-    from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train import train_step as ts
-    tm = zoo_module(arch_id)
-    rng = np.random.default_rng(seed)
+    from repro_torch.launch.steps import build_bundle
     kind, rows = cell["kind"], cell["batch"]
-    host = zoo_batch(arch_id, cfg, rows, rng)
-    n = rows
-    if kind != "train":
-        host.pop("label", None)
-    if kind == "retrieval":
-        n = cell["candidates"]
-        host["candidates"] = rng.integers(
-            0, zoo_item_vocab(arch_id, cfg), n).astype(np.int32)
-    batch = on_card(host)
+    n = cell["candidates"] if kind == "retrieval" else rows
     out = {}
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    if kind == "train":
-        state = ts.init_state(mod)
-        step = ts.make_train_step(functools.partial(tm.loss_fn, cfg),
-                                  opt_lib.AdamWConfig())
-        losses = []
 
-        def run():
-            nonlocal state
-            state, m = step(state, batch)
-            losses.append(next(iter(m.values())))
-        ms = step_ms(run)
-        if (arch_id, shape) in Z_PROFILED:
-            out["profile"] = profile_summary(run)
-        out["loss"] = torch.stack(losses).cpu()
-        del state
-    else:
-        def run():
-            with torch.no_grad():
-                if kind == "retrieval":
-                    y = tm.retrieval_score(cfg, mod, batch)
-                else:
-                    y = tm.forward(cfg, mod, batch)
-                    if arch_id != "mind":
-                        y = torch.sigmoid(y)
-            out["y"] = y
-        ms = step_ms(run)
-        assert out["y"].shape == (n,), (arch_id, shape, out["y"].shape)
+    def run_cell_steps(bundle):
+        args = list(bundle.args)
+        if kind == "train":
+            losses = []
+
+            def run():
+                args[0], m = bundle.fn(*args)
+                losses.append(next(iter(m.values())))
+            out["ms"] = step_ms(run)
+            if (arch_id, shape) in Z_PROFILED:
+                out["profile"] = profile_summary(run)
+            out["loss"] = torch.stack(losses).cpu()
+        else:
+            def run():
+                out["y"] = bundle.fn(*args)
+            out["ms"] = step_ms(run)
+            assert out["y"].shape == (n,), (arch_id, shape, out["y"].shape)
+    peak, bundle = measured_peak(
+        lambda: build_bundle(arch_id, shape, device=DEVICE), run_cell_steps)
     for k in ("loss", "y"):
         if k in out:
             assert bool(torch.isfinite(out[k]).all()), (arch_id, shape, k)
+    ms = out.pop("ms")
     mean = sum(ms) / len(ms)
-    flops = _recsys_flops(arch_id, cfg, n, kind)
+    flops = bundle.model_flops_per_step
     bound = 1e3 * flops / FP32_OPS_PER_S
+    params = bundle.args[0]["params"] if kind == "train" else bundle.args[0]
     return {"ms": mean, "all_ms": ms, "rows_per_s": n / mean * 1e3,
-            "peak": torch.cuda.max_memory_allocated(), "flops": flops,
-            "bound_ms": bound, "share": bound / mean, "rows": n,
-            "batch": host, **out}
+            "peak": peak, "dry_peak": dry_peak(arch_id, shape),
+            "flops": flops, "bound_ms": bound, "share": bound / mean,
+            "rows": n, "batch": bundle.args[1], "mod": params,
+            "cfg": bundle_cfg(arch_id, shape), **out}
 
 
-def zoo_cpu_check(arch_id: str, cfg, mod, host: dict, y) -> float:
+def bundle_cfg(arch_id: str, shape: str):
+    from repro_torch.configs.registry import get_arch
+    return get_arch(arch_id).model_cfg(shape)
+
+
+def zoo_cpu_check(arch_id: str, cfg, mod, batch: dict, y) -> float:
     """``serve_p99``'s first Z_CPU_ROWS outputs against the CPU's from the
     same weights and rows: the largest |difference| over the largest |CPU
     value|, held to Z_CPU_REL."""
     import torch
     tm = zoo_module(arch_id)
     cpu = tm.from_arrays(cfg, tm.to_arrays(mod), device="cpu")
-    rows = {k: torch.from_numpy(v[:Z_CPU_ROWS]) for k, v in host.items()}
+    rows = {k: v[:Z_CPU_ROWS].cpu() for k, v in batch.items()}
     with torch.no_grad():
         ref = tm.forward(cfg, cpu, rows)
         if arch_id != "mind":
@@ -2638,32 +2623,29 @@ def zoo_cpu_check(arch_id: str, cfg, mod, host: dict, y) -> float:
 def phase_zoo_recsys(smi: str) -> None:
     """Cell Z1: DCN-v2, AutoInt, DIEN and MIND at ``model_cfg()`` (fp32,
     random weights from seed 0 on the card) at the four RECSYS_SHAPES
-    cells, with serve_p99 held against the CPU."""
+    cells, each a ``build_bundle`` step, with serve_p99 held against the
+    CPU and each cell's peak memory beside its dry run's."""
     import torch
     from repro_torch.configs import shapes
-    from repro_torch.configs.registry import get_arch
-    for i, arch_id in enumerate(Z_RECSYS):
-        arch = get_arch(arch_id)
-        cfg = arch.model_cfg("train_batch")
-        t0 = time.perf_counter()
-        mod = arch.module.init_params(
-            cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE)
-        params = sum(p.numel() for p in mod.parameters())
-        tables = {n: p.numel() * p.element_size()
-                  for n, p in mod.named_parameters() if "table" in n}
-        log(f"[Z1] {arch_id}: {cfg}; {params} parameters "
-            f"({4 * params} bytes fp32, AdamW's fp32 moments "
-            f"{8 * params} bytes); tables {tables} bytes; drawn in "
-            f"{time.perf_counter() - t0:.1f} s")
-        for j, (shape, cell) in enumerate(shapes.RECSYS_SHAPES.items()):
+    for arch_id in Z_RECSYS:
+        for shape, cell in shapes.RECSYS_SHAPES.items():
             t0 = time.perf_counter()
-            r = zoo_recsys_cell(arch_id, cfg, mod, shape, cell,
-                                seed=100 * i + j)
+            r = zoo_recsys_cell(arch_id, shape, cell)
+            cfg = r["cfg"]
+            if shape == "train_batch":
+                params = sum(p.numel() for p in r["mod"].parameters())
+                tables = {n: p.numel() * p.element_size()
+                          for n, p in r["mod"].named_parameters()
+                          if "table" in n}
+                log(f"[Z1] {arch_id}: {cfg}; {params} parameters "
+                    f"({4 * params} bytes fp32, AdamW's fp32 moments "
+                    f"{8 * params} bytes); tables {tables} bytes")
             extra = ""
             if "loss" in r:
                 extra = f"; loss by step {[round(float(x), 5) for x in r['loss']]}"
             if shape == "serve_p99":
-                rel = zoo_cpu_check(arch_id, cfg, mod, r["batch"], r["y"])
+                rel = zoo_cpu_check(arch_id, cfg, r["mod"], r["batch"],
+                                    r["y"])
                 extra = (f"; first {Z_CPU_ROWS} outputs vs the CPU's from "
                          f"the same weights: {rel:.3e} of the largest "
                          f"(bound {Z_CPU_REL})")
@@ -2673,17 +2655,17 @@ def phase_zoo_recsys(smi: str) -> None:
                 f"{Z_WARM} warm-up, CUDA events; each "
                 f"{[round(x, 3) for x in r['all_ms']]}), "
                 f"{r['rows_per_s']:.1f} {what}/s, peak device memory "
-                f"{r['peak']} bytes, model FLOPs {r['flops'] / 1e9:.2f} G "
-                f"a step, {r['share']:.4f} of the fp32 bound "
-                f"({r['bound_ms']:.3f} ms at 67 TFLOP/s){extra}; "
+                f"{r['peak']} bytes (dry run {r['dry_peak']}, measured / "
+                f"dry run {r['peak'] / r['dry_peak']:.4f}), model FLOPs "
+                f"{r['flops'] / 1e9:.2f} G a step, {r['share']:.4f} of the "
+                f"fp32 bound ({r['bound_ms']:.3f} ms at 67 TFLOP/s){extra}; "
                 f"{time.perf_counter() - t0:.1f} s; {smi}")
             if "profile" in r:
                 log(f"[Z1 profile] {arch_id} {shape}, one more step: "
                     f"{r['profile']}")
             del r
-        del mod
-        gc.collect()
-        torch.cuda.empty_cache()
+            gc.collect()
+            torch.cuda.empty_cache()
 
 
 def zoo_gat_batches(shape: str, cell: dict, cfg, seed: int):
@@ -2724,56 +2706,64 @@ def zoo_gat_batches(shape: str, cell: dict, cfg, seed: int):
 
 
 def zoo_gat_cell(shape: str, cell: dict, seed: int) -> dict:
-    """One gat-cora cell: ``make_train_step`` steps (AdamW's defaults) at
-    ``model_cfg(shape)``, random weights from seed 0 on the card."""
-    import functools
+    """One gat-cora cell: the ``build_bundle`` train step (AdamW's
+    defaults, the graph padded to 128 inside) at ``model_cfg(shape)``,
+    random weights from seed 0 on the card, on the bundle's graph of the
+    cell's size, or for minibatch_lg on one sampled batch a step."""
     import torch
-    from repro_torch.configs.registry import get_arch
-    from repro_torch.launch.steps import _gnn_flops
-    from repro_torch.models import gnn
-    from repro_torch.train import optimizer as opt_lib
-    from repro_torch.train import train_step as ts
-    cfg = get_arch("gat-cora").model_cfg(shape)
-    batches, info = zoo_gat_batches(shape, cell, cfg, seed)
-    N, E = batches[0]["x"].shape[0], batches[0]["src"].shape[0]
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    state = ts.init_state(gnn.init_params(
-        cfg, torch.Generator(DEVICE).manual_seed(0), DEVICE))
-    step = ts.make_train_step(functools.partial(gnn.loss_fn, cfg),
-                              opt_lib.AdamWConfig())
-    losses, ms = [], []
-    for i in range(Z_WARM + Z_TIMED):
-        batch = on_card(batches[i % len(batches)])
-        a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-        a.record()
-        state, m = step(state, batch)
-        z.record()
-        losses.append(m["ce"])
-        if i >= Z_WARM:
-            ms.append((a, z))
-        del batch
-    torch.cuda.synchronize()
-    ms = [a.elapsed_time(z) for a, z in ms]
-    info["loss"] = torch.stack(losses).cpu()
-    if ("gat-cora", shape) in Z_PROFILED:
-        batch = on_card(batches[-1])
+    from repro_torch.launch.steps import build_bundle
+    cfg = bundle_cfg("gat-cora", shape)
+    batches, info = zoo_gat_batches(shape, cell, cfg, seed) \
+        if shape == "minibatch_lg" else (None, {})
+    res = {}
 
-        def run():
-            nonlocal state
-            state, _ = step(state, batch)
-        info["profile"] = profile_summary(run)
-        del batch
+    def run_steps(b):
+        state = b.args[0]
+        losses, ms = [], []
+        for i in range(Z_WARM + Z_TIMED):
+            batch = b.args[1] if batches is None else on_card(batches[i])
+            a, z = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            state, m = b.fn(state, batch)
+            z.record()
+            losses.append(m["ce"])
+            if i >= Z_WARM:
+                ms.append((a, z))
+            del batch
+        torch.cuda.synchronize()
+        res["ms"] = [a.elapsed_time(z) for a, z in ms]
+        res["loss"] = torch.stack(losses).cpu()
+        if ("gat-cora", shape) in Z_PROFILED:
+            batch = b.args[1] if batches is None else on_card(batches[-1])
+
+            def run():
+                nonlocal state
+                state, _ = b.fn(state, batch)
+            res["profile"] = profile_summary(run)
+            del batch
+        res["state"] = state
+    peak, b = measured_peak(
+        lambda: build_bundle("gat-cora", shape, device=DEVICE), run_steps)
+    info.update(loss=res["loss"])
+    if "profile" in res:
+        info["profile"] = res["profile"]
     assert bool(torch.isfinite(info["loss"]).all()), (shape, info["loss"])
-    for p in state["params"].parameters():
+    for p in res["state"]["params"].parameters():
         assert bool(torch.isfinite(p).all()), shape
+    N = (cell["n_graphs"] * cell["nodes_per_graph"] if "n_graphs" in cell
+         else cell["n_nodes"]) if batches is None else \
+        batches[0]["x"].shape[0]
+    E = (cell["n_graphs"] * cell["edges_per_graph"] if "n_graphs" in cell
+         else cell["n_edges"]) if batches is None else \
+        batches[0]["src"].shape[0]
+    ms = res["ms"]
     mean = sum(ms) / len(ms)
-    flops = _gnn_flops(cfg, N, E)
+    flops = b.model_flops_per_step
     bound = 1e3 * flops / FP32_OPS_PER_S
     return {"cfg": cfg, "N": N, "E": E, "ms": mean, "all_ms": ms,
-            "peak": torch.cuda.max_memory_allocated(), "flops": flops,
-            "bound_ms": bound, "share": bound / mean, **info}
+            "peak": peak, "dry_peak": dry_peak("gat-cora", shape),
+            "flops": flops, "bound_ms": bound, "share": bound / mean,
+            **info}
 
 
 def phase_zoo_gat(smi: str) -> None:
@@ -2796,8 +2786,10 @@ def phase_zoo_gat(smi: str) -> None:
             f"edges: {r['ms']:.3f} ms a train step (mean of {Z_TIMED} after "
             f"{Z_WARM} warm-up, CUDA events; each "
             f"{[round(x, 3) for x in r['all_ms']]}), peak device memory "
-            f"{r['peak']} bytes, model FLOPs {r['flops'] / 1e9:.2f} G a "
-            f"step, {r['share']:.4f} of the fp32 bound ({r['bound_ms']:.3f} "
+            f"{r['peak']} bytes (dry run {r['dry_peak']}, measured / dry run "
+            f"{r['peak'] / r['dry_peak']:.4f}), model FLOPs "
+            f"{r['flops'] / 1e9:.2f} G a step (the bundle's graph), "
+            f"{r['share']:.4f} of the fp32 bound ({r['bound_ms']:.3f} "
             f"ms at 67 TFLOP/s); ce by step "
             f"{[round(float(x), 5) for x in r['loss']]}{extra}; "
             f"{time.perf_counter() - t0:.1f} s; {smi}")
@@ -2805,6 +2797,318 @@ def phase_zoo_gat(smi: str) -> None:
             log(f"[Z2 profile] gat-cora {shape}, one more step: "
                 f"{r['profile']}")
         del r
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase X: the launch layer and the examples
+# ---------------------------------------------------------------------------
+
+#: the flash kernel at d_head 32: (name, B, S, H, Hkv), causal; the first
+#: is repro_torch.examples.train_lm's 10m preset's batch
+X_FLASH_SHAPES = [("10m preset", 8, 128, 8, 4), ("long rows", 4, 4096, 8, 4)]
+#: train_lm's 10m preset on the card: steps
+X_TRAIN_STEPS = 20
+#: the full-width LM bundles of qwen2-1.5b run one step each, and their
+#: overrides: decode_32k's cache is 120.3 GB in bf16 at 28 layers (its dry
+#: run's peak 132.1 GB), so the card runs 14 of them
+X_LM_BUNDLES = [("long_500k", None), ("decode_32k", {"n_layers": "14"})]
+#: a measured peak within this share of its dry run's
+X_PEAK_REL = 0.2
+#: measures of an example on the card against its CPU run: rankings equal
+#: but for score ties, which move a measure by a few thousandths
+X_MEASURE_ATOL = 1e-3
+
+
+def phase_flash_d32(smi: str) -> dict:
+    """The flash kernels at d_head 32 against their plain version: fp32
+    on the CUDA-core kernel (within 2e-6 of the plain version in float64),
+    bf16 zero-padded to 64 for the wgmma kernel (within 2e-2 of the plain
+    version), causal, at X_FLASH_SHAPES; timed beside the plain version and
+    ``scaled_dot_product_attention`` (the bf16 kernel also alone on inputs
+    padded ahead)."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=DEVICE).manual_seed(32)
+    rows = {}
+    for name, B, S, H, HKV in X_FLASH_SHAPES:
+        D = 32
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = (torch.randn(B, S, h, D, device=DEVICE, generator=g)
+                       .to(dt) for h in (H, HKV, HKV))
+            a = flash_attention(q, k, v, causal=True)
+            ref = flash_attention_ref(q, k, v, causal=True)
+            torch.cuda.synchronize()
+            assert a.shape == q.shape and a.dtype == dt
+            diff = float((a.float() - ref.float()).abs().max())
+            if dt == torch.float32:
+                exact = flash_attention_ref(q.double(), k.double(),
+                                            v.double(), causal=True)
+                err = float((a.double() - exact).abs().max())
+                assert err <= 2e-6 and diff <= 4e-6, (name, err, diff)
+                del exact
+            else:
+                err = diff
+                assert err <= 2e-2, (name, err)
+            del a, ref
+            qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+            (ms_a, ms_b), plain, lib = time_in_turns(
+                lambda: flash_attention(q, k, v, causal=True),
+                lambda: flash_attention_ref(q, k, v, causal=True),
+                lambda: torch.nn.functional.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True))
+            extra = ""
+            if dt == torch.bfloat16:
+                qp, kp, vp = (torch.nn.functional.pad(x, (0, 32))
+                              for x in (q, k, v))
+                alone = time_ms(lambda: flash_attention(qp, kp, vp,
+                                                        causal=True))
+                # the kernel at 64 on pre-padded inputs computes softmax
+                # at the scale of 64; only its time is read here
+                extra = (f"; the wgmma kernel alone on inputs padded "
+                         f"ahead {alone:.4f} ms")
+                del qp, kp, vp
+            ms = (ms_a + ms_b) / 2
+            ops = 4 * B * H * D * S * (S + 1) / 2
+            nbytes = q.element_size() * (2 * q.numel() + k.numel() +
+                                         v.numel())
+            rate = BF16_TC_OPS_PER_S if dt == torch.bfloat16 \
+                else FP32_OPS_PER_S
+            b_ops = 1e3 * ops / rate
+            b_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+            bnd = max(b_ops, b_bytes)
+            key = f"{name} {str(dt).removeprefix('torch.')}"
+            rows[key] = {"ms": ms, "plain_ms": plain, "library_ms": lib,
+                         "bound_ms": bnd, "max_abs_err": err,
+                         "bound_by": "operations" if b_ops >= b_bytes
+                         else "bytes"}
+            log(f"[X flash d32] {key}: q {tuple(q.shape)} k/v "
+                f"{tuple(k.shape)} causal, max abs err {err:.3e} (vs "
+                f"{'float64' if dt == torch.float32 else 'the plain version'}"
+                f"); kernel {ms_a:.4f} / {ms_b:.4f} ms (mean {ms:.4f}), plain "
+                f"{plain:.4f} ms, library (scaled_dot_product_attention) "
+                f"{lib:.4f} ms; bound {bnd:.4f} ms ({rows[key]['bound_by']}: "
+                f"{ops / 1e9:.3f} GFLOP at "
+                f"{'bf16 tensor-core' if dt == torch.bfloat16 else 'fp32'} "
+                f"rate, {nbytes / 1e6:.2f} MB){extra}; {smi}")
+            del q, k, v, qt, kt, vt
+    return rows
+
+
+def example_tables(res: dict) -> dict:
+    """An Experiment result's rows: name -> {measure: value}."""
+    return {r["name"]: {m: v for m, v in r.items()
+                        if m in ("map", "ndcg_cut_10", "P_10")}
+            for r in res["table"]}
+
+
+def compare_tables(card: dict, cpu: dict, names) -> float:
+    """The largest |difference| of the rows ``names``' measures, card vs
+    CPU, held to X_MEASURE_ATOL."""
+    worst = 0.0
+    for n in names:
+        for m, v in cpu[n].items():
+            worst = max(worst, abs(card[n][m] - v))
+    assert worst <= X_MEASURE_ATOL, (names, worst)
+    return worst
+
+
+#: the kernel each fused lowering launches
+X_LOWERED = {"FusedTopKRetrieve": "topk", "FusedFatRetrieve": "fused_scoring",
+             "FusedDenseRerank": "dense_topk",
+             "FusedDenseRetrieve": "dense_topk"}
+
+
+def example_routes(out: dict) -> tuple[dict, set]:
+    """Each pipeline of an example's run compiled on its backend (the
+    gate's decisions held), and the kernels those forms launch."""
+    from repro_torch.core.ir import raise_ir
+    forms = {n: repr(raise_ir(compile_checked(p, out["backend"])))
+             for n, p in out["pipelines"].items()}
+    return forms, {k for f in forms.values() for lowered, k in
+                   X_LOWERED.items() if lowered + "(" in f}
+
+
+def phase_examples(smi: str) -> list:
+    """The four examples of ``repro_torch.examples`` at their own sizes on
+    the card, their kernels counted from zero around each; each held to a
+    CPU run where it is drawn alike (the Experiment rows, the served
+    top-5).  Returns the launch windows."""
+    import contextlib
+    import io
+    import shutil
+    import torch
+    from repro_torch.examples import (ltr_experiment, quickstart,
+                                      serve_pipeline, train_lm)
+    names = ("topk", "fused_scoring", "dense_topk", "pq_topk",
+             "flash_attention")
+    windows = []
+
+    def on_both(mod):
+        zero_launches()
+        t0 = time.perf_counter()
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            card = mod.run(DEVICE)
+        counts = read_launches(*names)
+        t_card = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = mod.run("cpu")
+        t_cpu = time.perf_counter() - t0
+        windows.append(counts)
+        return card, cpu, counts, out.getvalue(), t_card, t_cpu
+
+    def routes(name, card, c):
+        """The kernels the compiled forms launch ran, and no other."""
+        forms, kernels = example_routes(card)
+        for k in ("topk", "fused_scoring", "dense_topk", "pq_topk"):
+            assert (c[k]["device"] > 0) == (k in kernels), (name, k, c,
+                                                            forms)
+        return (f"compiled forms {forms}: kernels on the route "
+                f"{sorted(kernels) or 'none'}")
+
+    card, cpu, c, text, tc, th = on_both(quickstart)
+    worst = compare_tables(example_tables(card["result"]),
+                           example_tables(cpu["result"]),
+                           ("bm25", "fusion", "bm25+rm3"))
+    assert card["traces"] == cpu["traces"]
+    log(f"[X quickstart] {tc:.1f} s on the card ({th:.1f} s on the CPU); "
+        f"rewrites {card['traces']}; launches {c}; "
+        f"{routes('quickstart', card, c)}; Experiment rows within "
+        f"{worst:.2e} of the CPU's\n{text.strip()}")
+
+    card, cpu, c, text, tc, th = on_both(ltr_experiment)
+    worst = compare_tables(example_tables(card["result"]),
+                           example_tables(cpu["result"]),
+                           ("bm25", "bm25+rm3", "sdm>>bm25"))
+    log(f"[X ltr_experiment] {tc:.1f} s on the card ({th:.1f} s on the "
+        f"CPU); launches {c}; {routes('ltr_experiment', card, c)}; first "
+        f"three rows within {worst:.2e} of the CPU's (the LTR stage draws "
+        f"its state from the card's generator)\n{text.strip()}")
+
+    card, cpu, c, text, tc, th = on_both(serve_pipeline)
+    worst = compare_tables(example_tables(card["result"]),
+                           example_tables(cpu["result"]),
+                           ("bm25@20", "bm25>>dense"))
+    assert list(card["top5"]) == list(cpu["top5"]), (card["top5"],
+                                                     cpu["top5"])
+    assert card["stats"]["served"] == 24 and \
+        card["rag_stats"]["decode"]["requests"] == 12
+    assert card["rag_stats"]["recompiles_since_warmup"] == 0
+    log(f"[X serve_pipeline] {tc:.1f} s on the card ({th:.1f} s on the "
+        f"CPU); launches {c}; {routes('serve_pipeline', card, c)}; "
+        f"Experiment rows within {worst:.2e} of the CPU's, served top-5 "
+        f"{list(card['top5'])} equal\n{text.strip()}")
+
+    ck = Path(__file__).resolve().parent / "build" / "x_lm_ckpt"
+    shutil.rmtree(ck, ignore_errors=True)
+    zero_launches()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as out:
+        ce = train_lm.run("10m", X_TRAIN_STEPS, ckpt_dir=str(ck),
+                          device=DEVICE)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    c = read_launches("flash_attention")
+    windows.append(c)
+    assert c["flash_attention"]["device"] > 0, c
+    assert c["flash_attention"]["device"] == c["flash_attention"]["host"]
+    assert all(math.isfinite(x) for x in ce) and ce[-1] < ce[0], ce
+    log(f"[X train_lm] 10m preset (d_head 32, bf16, attn_impl flash, "
+        f"n_micro 2), {X_TRAIN_STEPS} steps in {dt:.1f} s "
+        f"({1e3 * dt / X_TRAIN_STEPS:.1f} ms a step with the first): ce "
+        f"{[round(x, 4) for x in ce]}; flash launches {c['flash_attention']} "
+        f"({c['flash_attention']['device'] / X_TRAIN_STEPS:.0f} a step); "
+        f"{smi}\n{out.getvalue().strip()}")
+    return windows
+
+
+#: serve_demo's greedy tokens that the card's pool and the CPU's, from
+#: the same bf16 weights and prompts, must share: their sums round in
+#: other orders, and an argmax over bf16 logits flips where the top two
+#: lie within a rounding
+X_DEMO_SAME_MIN = 0.9
+
+
+def phase_serve_demo() -> None:
+    """``launch.serve.serve_demo`` on the card: every request served, and
+    its tokens against the same demo on the CPU from the card's draw of
+    the weights (carried over through ``init_params``), held to
+    X_DEMO_SAME_MIN of the tokens."""
+    import contextlib
+    import io
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer_lm as tlm
+    drawn = {}
+    real = tlm.init_params
+
+    def spy(cfg, gen):
+        drawn["lm"] = lm = real(cfg, gen)
+        return lm
+
+    tlm.init_params = spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            card = serve.serve_demo("qwen2-1.5b", device=DEVICE)
+        cfg = serve.get_arch("qwen2-1.5b").reduced()[0]
+        tlm.init_params = lambda c, gen: tlm.lm_from_arrays(
+            c, tlm.lm_to_arrays(cfg, drawn["lm"]), gen.device)
+        with contextlib.redirect_stdout(io.StringIO()):
+            cpu = serve.serve_demo("qwen2-1.5b", device="cpu")
+    finally:
+        tlm.init_params = real
+    assert len(card) == 8 and all(len(r.generated) == 12 for r in card)
+    pairs = [(a, b) for r, h in zip(card, cpu)
+             for a, b in zip(r.generated, h.generated)]
+    same = sum(a == b for a, b in pairs) / len(pairs)
+    assert same >= X_DEMO_SAME_MIN, (same, [r.generated for r in card],
+                                     [r.generated for r in cpu])
+    log(f"[X serve_demo] {out.getvalue().strip()}\n[X serve_demo] the CPU's "
+        f"pool from the card's weights: {same:.4f} of the {len(pairs)} "
+        f"tokens equal (first tokens "
+        f"{sum(r.generated[0] == h.generated[0] for r, h in zip(card, cpu))}"
+        f" of 8)")
+
+
+def phase_lm_bundles(smi: str) -> None:
+    """qwen2-1.5b's full-width serve bundles X_LM_BUNDLES built by
+    ``build_bundle`` on the card (weights from seed 0, the cache zeros, the
+    decode position the cache's last slot), one step each: finite logits,
+    the peak memory within X_PEAK_REL of the same cell's dry run."""
+    import torch
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_bundle
+    for shape, over in X_LM_BUNDLES:
+        t0 = time.perf_counter()
+        dry = run_cell("qwen2-1.5b", shape, overrides=over, verbose=False)
+        out = {}
+
+        def run(b):
+            a = torch.cuda.Event(enable_timing=True)
+            z = torch.cuda.Event(enable_timing=True)
+            a.record()
+            logits, cache = b.fn(*b.args)
+            z.record()
+            torch.cuda.synchronize()
+            out["ms"] = a.elapsed_time(z)
+            out["finite"] = bool(torch.isfinite(logits).all())
+            out["shape"] = tuple(logits.shape)
+            out["cache"] = tuple(cache["k"].shape)
+        # the bundle is dropped here: the next cell's needs the card
+        peak = measured_peak(lambda: build_bundle(
+            "qwen2-1.5b", shape, device=DEVICE, overrides=over), run)[0]
+        ratio = peak / dry["bytes_per_device"]
+        assert out["finite"], shape
+        assert abs(ratio - 1) <= X_PEAK_REL, (shape, peak, dry)
+        log(f"[X LM bundle] qwen2-1.5b x {shape} {over or ''}: cache "
+            f"{out['cache']} bf16, one decode step {out['ms']:.2f} ms, "
+            f"logits {out['shape']} finite; peak device memory {peak} "
+            f"bytes, dry run {dry['bytes_per_device']} (memory "
+            f"{dry['memory']}), measured / dry run {ratio:.4f}; "
+            f"{time.perf_counter() - t0:.1f} s; {smi}")
         gc.collect()
         torch.cuda.empty_cache()
 
@@ -3792,6 +4096,18 @@ def main() -> int:
     phase_zoo_recsys(smi)
     phase_zoo_gat(smi)
     log(f"[main] zoo phases {time.perf_counter() - t0:.1f} s")
+    # phase X, the launch layer and the examples: flash at d_head 32, the
+    # examples at their own sizes (each counted from zero around its run),
+    # serve_demo, and qwen2-1.5b's full-width serve bundles against their
+    # dry runs
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    phase_flash_d32(smi)
+    windows += phase_examples(smi)
+    phase_serve_demo()
+    phase_lm_bundles(smi)
+    log(f"[main] phase X {time.perf_counter() - t0:.1f} s")
     launches = {}
     for w in windows:
         for name, c in w.items():

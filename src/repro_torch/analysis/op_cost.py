@@ -23,15 +23,22 @@ only shapes, for the ops around the kernel to go on with.
 Eager execution materialises every intermediate of an unfused chain, so
 these counts are the eager program's real traffic, where XLA's fused HLO
 would hide some of it.
+
+:func:`analyze` is the counterpart of ``hlo_cost.analyze`` for a whole
+step (``launch/dryrun.py``): a counter with ``memory=True`` also follows
+the bytes of live storages over the call, so a step built on the ``meta``
+device is priced, and its peak memory estimated, without allocating.
 """
 from __future__ import annotations
 
 import contextlib
 import hashlib
 import os
+import weakref
 from typing import Any
 
 import torch
+from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 
 from repro_torch.kernels import pricing
@@ -80,31 +87,101 @@ def _tensors(tree):
             yield from _tensors(x)
 
 
+def _all_tensors(tree):
+    """The tensors of a tree of tuples, lists, dicts and modules (a
+    module's parameters and buffers)."""
+    if isinstance(tree, nn.Module):
+        yield from tree.parameters()
+        yield from tree.buffers()
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            yield from _all_tensors(x)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            yield from _all_tensors(x)
+    elif isinstance(tree, torch.Tensor):
+        yield tree
+
+
+def _storage(t: torch.Tensor) -> tuple[int, int] | None:
+    """(identity, bytes) of a tensor's storage, which its views share;
+    None for a tensor without one."""
+    try:
+        st = t.untyped_storage()
+    except (RuntimeError, NotImplementedError):
+        return None
+    return st._cdata, st.nbytes()
+
+
+def _storages(tree) -> dict[int, int]:
+    out = {}
+    for t in _all_tensors(tree):
+        st = _storage(t)
+        if st is not None:
+            out[st[0]] = st[1]
+    return out
+
+
 def _nbytes(tree) -> int:
-    return sum(t.numel() * t.element_size() for t in _tensors(tree))
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    n = 0
+    if isinstance(tree, (list, tuple)):
+        for x in tree:
+            if isinstance(x, torch.Tensor):
+                n += x.numel() * x.element_size()
+            elif isinstance(x, (list, tuple)):
+                n += _nbytes(x)
+    return n
 
 
 def _nelems(tree) -> int:
     return sum(t.numel() for t in _tensors(tree))
 
 
+#: id(op) -> (its pricing rule, the argument position the rule reads):
+#: ops are long-lived objects whose own hash is Python code, so each is
+#: classified once
+_RULES: dict[int, tuple[str, int | None]] = {}
+
+
+def _rule(func) -> tuple[str, int | None]:
+    rule = _RULES.get(id(func))
+    if rule is None:
+        if getattr(func, "is_view", False):
+            rule = ("view", None)
+        elif func in _FREE:
+            rule = ("free", None)
+        elif func in _DOTS:
+            rule = ("dot", _DOTS[func])
+        elif func in _GATHERS:
+            rule = ("gather", _GATHERS[func])
+        elif func in _SCATTERS:
+            rule = ("scatter", _SCATTERS[func])
+        else:
+            rule = ("other", None)
+        _RULES[id(func)] = rule
+    return rule
+
+
 def op_cost(func, args, kwargs, out) -> tuple[float, float]:
     """(flops, bytes) of one aten op call by ``hlo_cost``'s rules."""
-    if func in _FREE or getattr(func, "is_view", False):
+    rule, pos = _rule(func)
+    if rule in ("view", "free"):
         return 0.0, 0.0
     rb = _nbytes(out)
-    if func in _DOTS:
-        a = args[_DOTS[func]]
-        return 2.0 * _nelems(out) * a.shape[-1], float(
-            rb + _nbytes(list(args)))
-    if func in _GATHERS:
-        return float(_nelems(out)), 2.0 * rb + _nbytes(args[_GATHERS[func]])
-    if func in _SCATTERS:
-        pos = _SCATTERS[func]
+    if rule == "dot":
+        return 2.0 * _nelems(out) * args[pos].shape[-1], float(
+            rb + _nbytes(args))
+    if rule == "gather":
+        return float(_nelems(out)), 2.0 * rb + _nbytes(args[pos])
+    if rule == "scatter":
         upd = _nbytes(args[pos]) if pos is not None else 0
         return float(_nelems(out)), float(rb + 3 * upd)
-    return float(_nelems(out)), float(
-        rb + _nbytes(list(args)) + _nbytes(list(kwargs.values())))
+    nb = rb + _nbytes(args)
+    if kwargs:
+        nb += _nbytes(tuple(kwargs.values()))
+    return float(_nelems(out)), float(nb)
 
 
 class OpCounter(TorchDispatchMode):
@@ -119,11 +196,24 @@ class OpCounter(TorchDispatchMode):
         # process); the counter never runs under torch.compile
         return False
 
-    def __init__(self):
+    def __init__(self, memory: bool = False):
         super().__init__()
         self.flops = 0.0
         self.bytes = 0.0
         self.paused = 0
+        #: with ``memory``: the bytes of the storages that ops made and
+        #: that are alive, and their peak (``hold`` adds storages that live
+        #: throughout, the call's arguments).  A storage counts once, views
+        #: included, and is freed when the last tensor on it dies, saved
+        #: tensors of autograd's graph included (autograd saves an op's
+        #: result through a ``detach`` that passes here)
+        self.memory = memory
+        self.live = 0
+        self.peak = 0
+        self._held: set[int] = set()
+        self._refs: dict[int, list] = {}
+        self._weak: dict[int, tuple] = {}
+        self._key: dict[int, int] = {}      # id(tensor) -> storage followed
 
     def __enter__(self):
         self._pricing = pricing.counting(self)
@@ -143,7 +233,52 @@ class OpCounter(TorchDispatchMode):
             f, b = op_cost(func, args, kwargs, out)
             self.flops += f
             self.bytes += b
+        if self.memory:
+            # a view's storage is its base's: known without asking when
+            # the base is a tensor followed here
+            base = self._key.get(id(args[0])) if args and \
+                _rule(func)[0] == "view" else None
+            if isinstance(out, torch.Tensor):
+                self._track(out, base)
+            else:
+                for t in _tensors(out):
+                    self._track(t, base)
         return out
+
+    def hold(self, storages: dict[int, int]) -> None:
+        """Count ``storages`` (identity -> bytes) as live throughout."""
+        for key, n in storages.items():
+            if key not in self._held:
+                self._held.add(key)
+                self.live += n
+        self.peak = max(self.peak, self.live)
+
+    def _track(self, t: torch.Tensor, key: int | None = None) -> None:
+        if key is None:
+            st = _storage(t)
+            if st is None or st[0] in self._held:
+                return
+            key, n = st
+        ref = self._refs.get(key)
+        if ref is None:
+            ref = self._refs[key] = [0, n]
+            self.live += n
+            if self.live > self.peak:
+                self.peak = self.live
+        ref[0] += 1
+        w = weakref.ref(t, self._release)
+        self._weak[id(w)] = (w, key, id(t))
+        self._key[id(t)] = key
+
+    def _release(self, w) -> None:
+        _, key, tid = self._weak.pop(id(w))
+        if self._key.get(tid) == key:
+            del self._key[tid]
+        ref = self._refs[key]
+        ref[0] -= 1
+        if ref[0] == 0:
+            del self._refs[key]
+            self.live -= ref[1]
 
     def charge(self, flops: float, nbytes: float) -> None:
         self.flops += float(flops)
@@ -186,6 +321,39 @@ def estimate_callable(fn, *args, peaks: tuple[float, float] | None = None
         fn(*args)
     return {"flops_per_chip": counter.flops, "bytes_per_chip": counter.bytes,
             "time_proxy_s": counter.flops / pf + counter.bytes / pb}
+
+
+def analyze(fn, *args) -> dict[str, Any]:
+    """Run ``fn(*args)`` once under an :class:`OpCounter` with memory and
+    return ``hlo_cost.analyze``'s keys (one card: no collectives) and
+    ``memory``, the split of ``compiled.memory_analysis()``:
+    ``argument_bytes`` (the arguments' storages), ``output_bytes`` (the
+    result's), ``alias_bytes`` (the result's storages that are
+    arguments': state updated in place, the donated KV cache),
+    ``temp_bytes`` (the rest of the peak) and ``peak_bytes`` = argument +
+    temp + output - alias, the most bytes alive at once.  The arguments
+    may lie on ``meta``: nothing is allocated then, and kernel entries
+    are priced by their formulas (``kernels/pricing.py``)."""
+    arg_st = _storages(args)
+    with OpCounter(memory=True) as counter:
+        counter.hold(arg_st)
+        out = fn(*args)
+        out_st = _storages(out)
+        peak = counter.peak
+    alias = sum(n for k, n in out_st.items() if k in arg_st)
+    arg_b, out_b = sum(arg_st.values()), sum(out_st.values())
+    del out
+    return {
+        "flops_per_chip": counter.flops,
+        "bytes_per_chip": counter.bytes,
+        "collective_bytes_per_chip": 0.0,
+        "collectives": {},
+        "collective_counts": {},
+        "memory": {"argument_bytes": arg_b, "output_bytes": out_b,
+                   "alias_bytes": alias,
+                   "temp_bytes": peak - arg_b - (out_b - alias),
+                   "peak_bytes": peak},
+    }
 
 
 # ---------------------------------------------------------------------------

@@ -33,5 +33,5 @@ def reduced():
 
 register(ArchDef(
     arch_id="internlm2-1.8b", family="lm", shapes=shapes.LM_SHAPES,
-    model_cfg=model_cfg, reduced=reduced,
+    model_cfg=model_cfg, reduced=reduced, train_microbatches=4,
 ))

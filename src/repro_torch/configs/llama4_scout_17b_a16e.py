@@ -42,5 +42,5 @@ def reduced():
 
 register(ArchDef(
     arch_id="llama4-scout-17b-a16e", family="lm", shapes=shapes.LM_SHAPES,
-    model_cfg=model_cfg, reduced=reduced,
+    model_cfg=model_cfg, reduced=reduced, train_microbatches=8,
 ))

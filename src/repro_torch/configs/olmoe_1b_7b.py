@@ -38,5 +38,5 @@ def reduced():
 
 register(ArchDef(
     arch_id="olmoe-1b-7b", family="lm", shapes=shapes.LM_SHAPES,
-    model_cfg=model_cfg, reduced=reduced,
+    model_cfg=model_cfg, reduced=reduced, train_microbatches=4,
 ))

@@ -34,5 +34,5 @@ def reduced():
 
 register(ArchDef(
     arch_id="qwen2-1.5b", family="lm", shapes=shapes.LM_SHAPES,
-    model_cfg=model_cfg, reduced=reduced,
+    model_cfg=model_cfg, reduced=reduced, train_microbatches=4,
 ))

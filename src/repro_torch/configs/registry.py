@@ -20,6 +20,8 @@ class ArchDef:
     cells carry their own feature/class counts); ``reduced()`` returns a
     small same-family config + a host-side batch factory for smoke tests.
     ``module`` is the model module of the family (a recsys arch's own).
+    ``train_microbatches`` is the gradient accumulation of its train cells
+    (``launch/steps.py``).
     """
 
     arch_id: str
@@ -27,6 +29,7 @@ class ArchDef:
     shapes: dict[str, dict]
     model_cfg: Callable[[str], Any]
     reduced: Callable[[], tuple[Any, Callable[[], dict]]]
+    train_microbatches: int = 1                   # grad-accum for train cells
 
     @property
     def module(self):

@@ -48,9 +48,10 @@
 // that bound; it serves fp32 inputs, whose contract (2e-6 of the exact
 // function) no bf16 or TF32 tensor-core product can meet.
 //
-// Contract: q [B, S, H, D], k and v [B, T, Hkv, D], contiguous, all fp32 or
-// (the sm90 kernel) all bf16; H % Hkv == 0; D in {64, 128}; out [B, S, H, D]
-// in q's type.  Positions count from 0 for both q and k (the prefill at
+// Contract: q [B, S, H, D], k and v [B, T, Hkv, D], contiguous, all fp32
+// with D in {32, 64, 128}, or (the sm90 kernel) all bf16 with D in {64,
+// 128} (the wrapper zero-pads a bf16 head of 32 to 64 and passes the true
+// scale); H % Hkv == 0; out [B, S, H, D] in q's type.  Positions count from 0 for both q and k (the prefill at
 // offset 0).
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -286,14 +287,22 @@ extern "C" int repro_flash_attention(const void* q, const void* k,
                                      int causal, int chunk, int is_bf16,
                                      float scale, void* stream) {
   if (B < 1 || B > 65535 || S < 1 || T_len < 1 || H < 1 || H > 65535 ||
-      Hkv < 1 || H % Hkv != 0 || chunk < 0 || (D != 64 && D != 128))
+      Hkv < 1 || H % Hkv != 0 || chunk < 0 ||
+      (D != 64 && D != 128 && (D != 32 || is_bf16)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
   if (is_bf16)
     return (int)flash_attention_bf16_sm90(q, k, v, out, B, S, T_len, H, Hkv,
                                           D, causal, chunk, scale, st);
-  return (int)(D == 64 ? launch<64>(q, k, v, out, B, S, T_len, H, Hkv,
-                                     causal, chunk, scale, st)
-                       : launch<128>(q, k, v, out, B, S, T_len, H, Hkv,
-                                     causal, chunk, scale, st));
+  switch (D) {
+    case 32:
+      return (int)launch<32>(q, k, v, out, B, S, T_len, H, Hkv, causal,
+                             chunk, scale, st);
+    case 64:
+      return (int)launch<64>(q, k, v, out, B, S, T_len, H, Hkv, causal,
+                             chunk, scale, st);
+    default:
+      return (int)launch<128>(q, k, v, out, B, S, T_len, H, Hkv, causal,
+                              chunk, scale, st);
+  }
 }

@@ -1,10 +1,12 @@
 """Wrapper of the flash-attention kernels (``csrc/flash_attention.cu``,
 ``csrc/flash_attention_sm90.cu``).
 
-For a CUDA tensor it launches a kernel of d_head 64 or 128: fp32 inputs go
-to the fp32 kernel on the CUDA cores, bf16 inputs to the bf16 kernel on the
-tensor cores (wgmma fed by TMA, which asks each of q, k, v to start on a
-16-byte boundary); anything else raises.  For a CPU tensor it takes the
+For a CUDA tensor it launches a kernel of d_head 32, 64 or 128: fp32
+inputs go to the fp32 kernel on the CUDA cores, bf16 inputs to the bf16
+kernel on the tensor cores (wgmma fed by TMA, which asks each of q, k, v to
+start on a 16-byte boundary; its tiles are 64 columns wide, so a bf16 head
+of 32 is zero-padded to 64 here, with the scale of 32, and the output cut
+back); anything else raises.  For a CPU tensor it takes the
 plain version.  There is no fallback from a failed launch: it raises.
 ``flash_attention.launches`` counts kernel launches of both, and only
 those.  Its output has no ``grad_fn``: on a CUDA tensor under grad mode it
@@ -29,7 +31,9 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import NEG, attention_mask, \
     flash_attention_ref
 
-KERNEL_D_HEADS = (64, 128)
+KERNEL_D_HEADS = (32, 64, 128)
+#: the bf16 kernel's narrowest head; a narrower one is zero-padded to it
+SM90_MIN_D_HEAD = 64
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: bytes to which the bf16 kernel's TMA tensor maps need q, k, v aligned
 TMA_ALIGN = 16
@@ -79,6 +83,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"or all bfloat16")
     if k.device != q.device or v.device != q.device:
         raise ValueError("q, k and v must lie on one device")
+    scale = D ** -0.5
+    D_run = D
+    if q.dtype == torch.bfloat16 and D < SM90_MIN_D_HEAD:
+        # zero columns add nothing to q k^T, and give zero output columns
+        pad = (0, SM90_MIN_D_HEAD - D)
+        q, k, v = (torch.nn.functional.pad(t, pad) for t in (q, k, v))
+        D_run = SM90_MIN_D_HEAD
     q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN
                                          for t in (q, k, v)):
@@ -88,16 +99,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{[t.data_ptr() % TMA_ALIGN for t in (q, k, v)]}")
     out = torch.empty_like(q)
     if B == 0 or S == 0:
-        return out
+        return out[..., :D]
     if T == 0:
         raise ValueError("no keys: T == 0")
     err = _build.library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
-        H, HKV, D, int(causal), int(chunk), int(q.dtype == torch.bfloat16),
-        D ** -0.5, torch.cuda.current_stream(q.device).cuda_stream)
+        H, HKV, D_run, int(causal), int(chunk),
+        int(q.dtype == torch.bfloat16), scale,
+        torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "repro_flash_attention")
     flash_attention.launches += 1
-    return out
+    return out[..., :D].contiguous() if D_run != D else out
 
 
 flash_attention.launches = 0
@@ -196,8 +208,8 @@ def flash_attention_xla(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         bq: int = FLASH_BQ) -> torch.Tensor:
     """Differentiable causal GQA flash attention, q [B, S, H, D] and k/v
     [B, T, Hkv, D] unexpanded -> [B, S, H, D] in q's dtype.  On a CUDA
-    tensor the forward is the kernel (fp32 or bf16, d_head 64 or 128; it
-    raises for anything else, with no fallback) and counts
+    tensor the forward is the kernel (fp32 or bf16, d_head 32, 64 or 128;
+    it raises for anything else, with no fallback) and counts
     ``flash_attention.launches``; on the CPU it is the plain q-chunked
     forward.  ``bq`` halves until it divides S, as in the JAX package."""
     _check_shapes(q, k, v)

@@ -1,0 +1,128 @@
+"""Dry run of every (arch x shape) cell on one card: each step is built on
+the ``meta`` device and priced by the op counter
+(``analysis/op_cost.py::analyze``), so a full-width cell needs neither a
+card nor a compiler (the port of ``src/repro/launch/dryrun.py``, which
+lowers each cell onto the TPU production meshes and reads the compiled
+HLO).
+
+    PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
+        [--shape S] [--override key=value ...] [--tag T]
+        [--out build/dryrun]
+
+Each cell's record keeps the reference's keys where they mean the same
+thing on one card (``n_chips`` 1, ``t_collective`` 0) and adds ``fits``:
+the step's peak bytes against the card's memory.  ``t_compute`` prices
+the step's operations at the peak of its dtype (bf16 tensor cores for the
+LMs, fp32 for the zoo).  A failing cell is recorded and the exit is 1.
+The production meshes (``--multi-pod``, ``--both-meshes``) wait for the
+multi-card slice.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import time
+import traceback
+from pathlib import Path
+
+from repro_torch.analysis import op_cost
+from repro_torch.configs.registry import all_arch_ids, get_arch
+from repro_torch.launch import mesh as mesh_lib
+from repro_torch.launch.steps import _apply_overrides, build_bundle
+
+#: the checkout's build directory (listed in .gitignore)
+OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
+
+
+def run_cell(arch_id: str, shape_name: str, *, verbose: bool = True,
+             overrides: dict[str, str] | None = None) -> dict:
+    """Build the cell's step on ``meta``, price it, and return its
+    record."""
+    rec: dict = {"arch": arch_id, "shape": shape_name, "mesh": "1 card",
+                 "n_chips": 1, "overrides": overrides or {},
+                 "card": mesh_lib.CARD}
+    t0 = time.time()
+    bundle = build_bundle(arch_id, shape_name, device="meta",
+                          overrides=overrides)
+    rec["build_s"] = round(time.time() - t0, 2)
+    t1 = time.time()
+    walk = op_cost.analyze(bundle.fn, *bundle.args)
+    rec["analyze_s"] = round(time.time() - t1, 2)
+    dtype = _apply_overrides(get_arch(arch_id),
+                             overrides or {}).model_cfg(shape_name).dtype
+    mem = walk["memory"]
+    rec["memory"] = {k: mem[k] for k in ("argument_bytes", "output_bytes",
+                                         "temp_bytes", "alias_bytes")}
+    rec["bytes_per_device"] = mem["peak_bytes"]
+    rec["memory_bytes"] = mesh_lib.memory_bytes()
+    rec["fits"] = rec["bytes_per_device"] <= rec["memory_bytes"]
+    for k in ("flops_per_chip", "bytes_per_chip", "collectives",
+              "collective_bytes_per_chip", "collective_counts"):
+        rec[k] = walk[k]
+    rec["model_flops"] = bundle.model_flops_per_step
+    rec["dtype"] = str(dtype).removeprefix("torch.")
+    rec["t_compute"] = rec["flops_per_chip"] / mesh_lib.peak_flops(dtype)
+    rec["t_memory"] = rec["bytes_per_chip"] / mesh_lib.HBM_BW
+    rec["t_collective"] = 0.0
+    terms = {"compute": rec["t_compute"], "memory": rec["t_memory"],
+             "collective": rec["t_collective"]}
+    rec["bottleneck"] = max(terms, key=terms.get)
+    rec["useful_flops_ratio"] = (rec["model_flops"] / rec["flops_per_chip"]
+                                 if rec["flops_per_chip"] else 0.0)
+    if verbose:
+        print(f"[1 card] {arch_id} x {shape_name}: build {rec['build_s']}s "
+              f"price {rec['analyze_s']}s | flops {rec['flops_per_chip']:.3g}"
+              f" bytes {rec['bytes_per_chip']:.3g} | peak "
+              f"{rec['bytes_per_device'] / 1e9:.2f} GB "
+              f"({'fits' if rec['fits'] else 'does not fit'}) | t=(c "
+              f"{rec['t_compute']:.2e}, m {rec['t_memory']:.2e}) -> "
+              f"{rec['bottleneck']}", flush=True)
+    return rec
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default=None)
+    ap.add_argument("--shape", default=None)
+    ap.add_argument("--multi-pod", action="store_true")
+    ap.add_argument("--both-meshes", action="store_true")
+    ap.add_argument("--out", default=str(OUT_DIR))
+    ap.add_argument("--override", action="append", default=[],
+                    help="cfg override key=value (e.g. attn_impl=pallas); "
+                         "results tagged with --tag")
+    ap.add_argument("--tag", default="")
+    args = ap.parse_args(argv)
+    if args.multi_pod or args.both_meshes:
+        raise SystemExit("--multi-pod and --both-meshes lower onto the "
+                         "production meshes, which wait for the multi-card "
+                         "slice: this dry run prices one card")
+
+    overrides = dict(kv.split("=", 1) for kv in args.override)
+    archs = [args.arch] if args.arch else all_arch_ids()
+    outdir = Path(args.out)
+    outdir.mkdir(parents=True, exist_ok=True)
+
+    failures = []
+    for arch_id in archs:
+        shapes = [args.shape] if args.shape else \
+            sorted(get_arch(arch_id).shapes)
+        for shape_name in shapes:
+            tag = f"{arch_id}__{shape_name}__1card"
+            if args.tag:
+                tag += f"__{args.tag}"
+            try:
+                rec = run_cell(arch_id, shape_name,
+                               overrides=overrides or None)
+                (outdir / f"{tag}.json").write_text(json.dumps(rec, indent=1))
+            except Exception as e:  # noqa: BLE001 — record and continue
+                failures.append(tag)
+                print(f"FAILED {tag}: {e}")
+                traceback.print_exc()
+    if failures:
+        print(f"\n{len(failures)} FAILURES: {failures}")
+        raise SystemExit(1)
+    print("\nDRY-RUN PASS")
+
+
+if __name__ == "__main__":
+    main()

@@ -4,10 +4,16 @@ other wrote.
 
 * **layout**: every leaf is its own ``.npy`` under ``step_<8 digits>/``,
   named by its JAX tree path ("params/layers/attn/wq" ->
-  ``params__layers__attn__wq.npy``).  A tree is nested dicts of tensors, with ``nn.Module``s and dicts keyed by dotted parameter names
-  (the optimizer's moments) inside; a dotted name's layer index
-  ("layers.3.attn.wq") stacks that leaf on a leading L axis, as the JAX
-  package stacks an LM's layers.
+  ``params__layers__attn__wq.npy``).  A tree is nested dicts of tensors,
+  with ``nn.Module``s and dicts keyed by dotted parameter names (the
+  optimizer's moments) inside.  Stacking is declared, as weight decay's
+  is (``train/optimizer.py``): a name under a prefix that a module of the
+  tree declares in ``stacked_prefixes`` (an LM's "layers.3.attn.wq", and
+  its moments of that name) stacks on a leading L axis, as the JAX package
+  stacks an LM's layers; any other name keeps its list index in the path,
+  as the JAX package's zoo trees are lists ("params/cross/0/w").
+  :func:`restore` reads a leaf from the other layout where the file has
+  no leaf of the declared one.
 * **bfloat16**: numpy has no bf16 without ``ml_dtypes``, which the port
   does not need: a bf16 leaf is written as the JAX package writes it, raw
   2-byte words under the header type ``'<V2'`` and the manifest dtype
@@ -36,29 +42,55 @@ from torch import nn
 BF16_DESCR = "<V2"
 
 
+def _declared(tree: Any) -> tuple[str, ...]:
+    """The parameter-name prefixes that the modules of ``tree`` stack."""
+    if isinstance(tree, nn.Module):
+        return tuple(getattr(tree, "stacked_prefixes", ()))
+    if isinstance(tree, dict):
+        return tuple(p for sub in tree.values() for p in _declared(sub))
+    return ()
+
+
 def _leaves(tree: Any, prefix: tuple = ()):
-    """(path parts, leaf) of every leaf; dotted names split into parts."""
+    """(path parts, the leaf's dotted name in its container, leaf) of every
+    leaf; dotted names split into parts."""
     if isinstance(tree, nn.Module):
         items = tree.named_parameters()
     elif isinstance(tree, dict):
         items = tree.items()
     else:
-        yield prefix, tree
+        yield prefix, "", tree
         return
     for name, sub in items:
-        yield from _leaves(sub, prefix + tuple(str(name).split(".")))
+        parts = prefix + tuple(str(name).split("."))
+        if isinstance(sub, (nn.Module, dict)):
+            yield from _leaves(sub, parts)
+        else:
+            yield parts, str(name), sub
+
+
+def _layouts(parts: tuple, stacked: bool):
+    """(key, layer or None) of a leaf's path in the declared layout, then
+    in the other (None where the path has no index): stacked, the path's
+    first index is taken out of it and names the leaf's layer."""
+    i = next((j for j, p in enumerate(parts) if p.isdigit()), None)
+    flat = ("/".join(parts), None)
+    if i is None:
+        return flat, None
+    stack = ("/".join(parts[:i] + parts[i + 1:]), int(parts[i]))
+    return (stack, flat) if stacked else (flat, stack)
 
 
 def _keyed(tree: Any) -> dict[str, list]:
-    """JAX tree path -> [(layer index or None, leaf)]: a layer index in a
-    path is taken out of it, and the leaves of one path are that leaf's
+    """Declared key -> [(layer or None, leaf, the other layout's (key,
+    layer) or None)]: the leaves of a stacked key are that leaf's
     layers."""
+    prefixes = _declared(tree)
     out: dict[str, list] = {}
-    for parts, leaf in _leaves(tree):
-        layer = next((i for i, p in enumerate(parts) if p.isdigit()), None)
-        if layer is not None:
-            parts, layer = parts[:layer] + parts[layer + 1:], int(parts[layer])
-        out.setdefault("/".join(parts), []).append((layer, leaf))
+    for parts, name, leaf in _leaves(tree):
+        (key, layer), other = _layouts(parts, bool(prefixes) and
+                                       name.startswith(prefixes))
+        out.setdefault(key, []).append((layer, leaf, other))
     return out
 
 
@@ -77,8 +109,8 @@ def _snapshot(tree: Any) -> dict[str, tuple[np.ndarray, str]]:
         if entries[0][0] is None:
             flat[key] = _host(entries[0][1])
         else:
-            arrs = [_host(leaf) for _, leaf in sorted(entries,
-                                                      key=lambda e: e[0])]
+            arrs = [_host(leaf) for _, leaf, _ in sorted(entries,
+                                                         key=lambda e: e[0])]
             flat[key] = (np.stack([a for a, _ in arrs]), arrs[0][1])
     return flat
 
@@ -174,23 +206,44 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
 @torch.no_grad()
 def restore(ckpt_dir: str | Path, step: int, target: Any) -> Any:
     """Restore into ``target``'s tensors, in place, after checking every
-    leaf's digest and shape; returns ``target``."""
+    leaf's digest and shape; returns ``target``.  A leaf missing in the
+    declared layout is read from the other (a stacked leaf's layer from
+    its indexed path, an indexed leaf from its stack)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     with open(d / "manifest.json") as f:
         leaves = json.load(f)["leaves"]
-    for key, entries in _keyed(target).items():
+    stacks: dict[str, torch.Tensor] = {}   # the other layout's, read once
+
+    def load(key: str) -> torch.Tensor:
         meta = leaves[key]
         arr = np.load(d / meta["file"])
         if hashlib.sha256(arr.tobytes()).hexdigest() != meta["sha256"]:
             raise IOError(f"checkpoint corruption in leaf {key!r}")
+        return _tensor(arr, meta["dtype"])
+
+    def check(key, got, want):
+        if tuple(got) != tuple(want):
+            raise ValueError(f"shape mismatch for {key}: {tuple(got)} vs "
+                             f"{tuple(want)}")
+
+    for key, entries in _keyed(target).items():
         stacked = entries[0][0] is not None
-        want = tuple(entries[0][1].shape)
-        if stacked:
-            want = (len(entries), *want)
-        if tuple(arr.shape) != want:
-            raise ValueError(f"shape mismatch for {key}: {arr.shape} vs "
-                             f"{want}")
-        src = _tensor(arr, meta["dtype"])
-        for layer, leaf in entries:
-            leaf.copy_(src[layer] if stacked else src)
+        if key in leaves:
+            src = load(key)
+            want = tuple(entries[0][1].shape)
+            check(key, src.shape, (len(entries), *want) if stacked else want)
+            for layer, leaf, _ in entries:
+                leaf.copy_(src[layer] if stacked else src)
+            continue
+        for layer, leaf, other in entries:
+            if other is None or other[0] not in leaves:
+                raise KeyError(f"checkpoint has no leaf {key!r}")
+            if other[1] is None:
+                src = load(other[0])
+            else:
+                if other[0] not in stacks:
+                    stacks[other[0]] = load(other[0])
+                src = stacks[other[0]][other[1]]
+            check(other[0], src.shape, leaf.shape)
+            leaf.copy_(src)
     return target

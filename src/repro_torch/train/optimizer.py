@@ -14,11 +14,10 @@ Weight decay takes the leaves of two axes or more, counted in the JAX
 package's tree.  That tree stacks an LM's layers on a leading L axis, so a
 layer's leaf there has one axis more than the port's per-layer tensor:
 the LM declares the parameter prefixes it stacks
-(``TransformerLM.stacked_prefixes``), and in a dict tree a dict keyed by
-layer numbers stands for such a stack.  Everything else, lists included,
-counts its own axes: the model zoo's trees are Python lists of unstacked
-leaves there (``cross[i]``, ``mlp[i]``, ``layers[i]``), so their 1-D
-biases are not decayed.
+(``TransformerLM.stacked_prefixes``).  Everything else, lists and dict
+trees included, counts its own axes: the model zoo's trees are Python
+lists of unstacked leaves there (``cross[i]``, ``mlp[i]``,
+``layers[i]``), so their 1-D biases are not decayed.
 """
 from __future__ import annotations
 
@@ -67,15 +66,11 @@ def named_leaves(tree: Any, prefix: str = "") -> dict[str, torch.Tensor]:
 
 def stacked_leaves(tree: Any, prefix: str = "") -> set[str]:
     """The names of the leaves that the JAX package stacks on a leading L
-    axis: a module's parameters under its ``stacked_prefixes``, and every
-    leaf under a dict keyed by layer numbers."""
+    axis: a module's parameters under its ``stacked_prefixes``."""
     if isinstance(tree, nn.Module):
         stacked = getattr(tree, "stacked_prefixes", ())
         return {prefix + n for n, _ in tree.named_parameters()
                 if n.startswith(stacked)}
-    if isinstance(tree, dict) and tree and \
-            all(str(k).isdigit() for k in tree):
-        return set(named_leaves(tree, prefix))
     out: set[str] = set()
     for k, v in _children(tree) or ():
         out |= stacked_leaves(v, f"{prefix}{k}.")

@@ -93,7 +93,7 @@ class _OnCard(torch.Tensor):
 
 
 @pytest.mark.parametrize("D,dtype,match", [
-    (32, torch.float32, "d_head=32"),
+    (48, torch.float32, "d_head=48"),
     (96, torch.bfloat16, "d_head=96"),
     (64, torch.float16, "dtypes")])
 def test_wrapper_raises_on_card_for_what_the_kernel_does_not_take(D, dtype,

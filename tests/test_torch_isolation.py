@@ -93,6 +93,16 @@ with tempfile.TemporaryDirectory() as d:
 ef = compression.ErrorFeedback("topk", 0.5)
 ef.compress_decompress({"w": torch.ones(4)}, ef.init({"w": torch.ones(4)}))
 assert fault.ElasticMesh(1).build(["cpu"]).shape == (1, 1)
+from repro_torch.launch import dryrun, pipeline_dryrun, serve, steps
+from repro_torch.examples import (ltr_experiment, quickstart, serve_pipeline,
+                                  train_lm as train_example)
+b = steps.build_bundle("gat-cora", "molecule", device="cpu")
+b.fn(*b.args)
+assert dryrun.run_cell("dcn-v2", "serve_p99", verbose=False)["fits"]
+assert len(serve.serve_demo("qwen2-1.5b", n_requests=2, max_new=2,
+                            device="cpu")) == 2
+with tempfile.TemporaryDirectory() as d:
+    assert len(train_example.run("10m", 1, ckpt_dir=d, device="cpu")) == 1
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "repro"
              or m.startswith("repro."))
@@ -132,7 +142,11 @@ def test_no_source_file_imports_jax_or_reference_package():
                 "models/recsys/mind.py", "models/gnn.py",
                 "models/sampler.py", "configs/gat_cora.py",
                 "configs/dcn_v2.py", "configs/dien.py", "configs/mind.py",
-                "configs/autoint.py", "launch/steps.py"):
+                "configs/autoint.py", "launch/steps.py",
+                "launch/dryrun.py", "launch/pipeline_dryrun.py",
+                "launch/serve.py", "launch/mesh.py",
+                "examples/quickstart.py", "examples/ltr_experiment.py",
+                "examples/serve_pipeline.py", "examples/train_lm.py"):
         assert ROOT / "src" / "repro_torch" / mod in files
     for path in files:
         for name in _imports(path):

@@ -16,6 +16,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch import nn
 
 from repro.configs import qwen2_1_5b as jqwen
 from repro.configs import registry as jregistry
@@ -113,6 +114,46 @@ def test_kernel_entry_raises_under_grad(which):
     assert out.grad_fn is not None
 
 
+@pytest.mark.parametrize("D,dtype", [(32, torch.float32), (32, torch.bfloat16),
+                                     (64, torch.bfloat16),
+                                     (128, torch.float32)])
+def test_kernel_entry_takes_d_head_32(monkeypatch, D, dtype):
+    """On a card tensor a head of 32 reaches the C entry as it is in fp32
+    (the CUDA-core kernel takes 32) and zero-padded to 64 in bf16 (the
+    wgmma kernel's narrowest tile), with the scale of 32 either way, and
+    the output comes back at 32; 64 and 128 pass as they are.  No launch
+    happens here: the library is a stand-in that records its arguments."""
+    calls = []
+
+    class Library:
+        def repro_flash_attention(self, q, k, v, out, B, S, T, H, HKV, d,
+                                  causal, chunk, is_bf16, scale, stream):
+            calls.append((d, is_bf16, scale))
+            return 0
+
+    monkeypatch.setattr(tops._build, "library", Library)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 0}))
+    monkeypatch.setattr(tops.flash_attention, "launches", 0)
+    q, k, v = (torch.zeros((2, 8, h, D), dtype=dtype).as_subclass(_OnCard)
+               for h in (4, 2, 2))
+    with torch.no_grad():
+        out = tops.flash_attention(q, k, v)
+    assert out.shape == q.shape and out.dtype == dtype
+    padded = D == 32 and dtype == torch.bfloat16
+    assert calls == [(64 if padded else D, int(dtype == torch.bfloat16),
+                      D ** -0.5)]
+    assert tops.flash_attention.launches == 1
+    assert tops.KERNEL_D_HEADS == (32, 64, 128)
+    for bad in (16, 48, 96):
+        q, k, v = (torch.zeros((2, 8, h, bad), dtype=dtype)
+                   .as_subclass(_OnCard) for h in (4, 2, 2))
+        with torch.no_grad(), pytest.raises(ValueError,
+                                            match=f"d_head={bad}"):
+            tops.flash_attention(q, k, v)
+    assert len(calls) == 1
+
+
 # ---------------------------------------------------------------------------
 # AdamW
 # ---------------------------------------------------------------------------
@@ -130,10 +171,32 @@ def test_schedule_lr_matches_reference(schedule):
                                    err_msg=f"step {step}")
 
 
+class _StackedTree(nn.Module):
+    """A 2-D leaf ``w``, a 1-D ``b`` and two layers' 1-D ``ln``, which the
+    module declares stacked as ``TransformerLM`` declares its layers."""
+
+    stacked_prefixes = ("layers.",)
+
+    def __init__(self, w, b, ln, dtype):
+        super().__init__()
+
+        def param(a):
+            return nn.Parameter(torch.tensor(a).to(dtype),
+                                requires_grad=False)
+
+        self.w, self.b = param(w), param(b)
+        self.layers = nn.ModuleList()
+        for row in ln:
+            layer = nn.Module()
+            layer.ln = param(row)
+            self.layers.append(layer)
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_adamw_update_matches_reference(dtype):
-    """Three updates of a tree with 2-D and 1-D leaves and two layers'
-    1-D leaves, which the reference stacks into one [2, d] leaf: weight
+    """Three updates of a module with 2-D and 1-D leaves and two layers'
+    1-D leaves, which it declares stacked as the reference stacks them
+    into one [2, d] leaf: weight
     decay takes the 2-D ones and the stacked ones, as the reference does.
     bf16 parameters keep fp32 moments and round once per update (within
     one bf16 step of the reference)."""
@@ -145,9 +208,7 @@ def test_adamw_update_matches_reference(dtype):
     ln = rng.standard_normal((2, 5)).astype(np.float32)
     jp = {"w": jnp.asarray(w, jdt), "b": jnp.asarray(b, jdt),
           "layers": {"ln": jnp.asarray(ln, jdt)}}
-    tp = {"w": torch.tensor(w).to(tdt), "b": torch.tensor(b).to(tdt),
-          "layers": {str(i): {"ln": torch.tensor(ln[i]).to(tdt)}
-                     for i in range(2)}}
+    tp = _StackedTree(w, b, ln, tdt)
     cfg = dict(lr=0.05, warmup_steps=2, total_steps=10, grad_clip=1.0,
                weight_decay=0.1)
     jcfg, tcfg = jopt.AdamWConfig(**cfg), opt_lib.AdamWConfig(**cfg)
@@ -158,16 +219,16 @@ def test_adamw_update_matches_reference(dtype):
         jg = {"w": jnp.asarray(gw, jdt), "b": jnp.asarray(gb, jdt),
               "layers": {"ln": jnp.asarray(gl, jdt)}}
         tg = {"w": torch.tensor(gw).to(tdt), "b": torch.tensor(gb).to(tdt),
-              "layers": {str(i): {"ln": torch.tensor(gl[i]).to(tdt)}
-                         for i in range(2)}}
+              **{f"layers.{i}.ln": torch.tensor(gl[i]).to(tdt)
+                 for i in range(2)}}
         jp, js, jm = jopt.update(jcfg, jg, js, jp)
         tp, tstate, tm = opt_lib.update(tcfg, tg, tstate, tp)
         for key in ("grad_norm", "lr"):
             np.testing.assert_allclose(float(tm[key]), float(jm[key]),
                                        rtol=1e-6)
     assert int(tstate["step"]) == int(js["step"]) == 3
-    got = {"w": tp["w"], "b": tp["b"],
-           "ln": torch.stack([tp["layers"][str(i)]["ln"] for i in range(2)])}
+    got = {"w": tp.w, "b": tp.b,
+           "ln": torch.stack([tp.layers[i].ln for i in range(2)])}
     want = {"w": jp["w"], "b": jp["b"], "ln": jp["layers"]["ln"]}
     for name in got:
         assert got[name].dtype == tdt

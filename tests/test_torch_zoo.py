@@ -11,6 +11,7 @@ both sides.  Every comparison is fp32 within atol 1e-5 + rtol 1e-4 of the
 leaf's largest |value|: segment sums and GEMMs accumulate in another order
 than XLA's, so values agree within rounding, not bit for bit."""
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -21,6 +22,7 @@ import torch
 from repro.configs import registry as jregistry
 from repro.launch import steps as jsteps
 from repro.models.recsys import embedding as JE
+from repro.train import checkpoint as jckpt
 from repro.train import optimizer as jopt
 from repro.train import train_step as jts
 from repro_torch.configs import registry as tregistry
@@ -29,8 +31,11 @@ from repro_torch.models import param_tree
 from repro_torch.models.recsys import dcn as tdcn
 from repro_torch.models.recsys import dien as tdien
 from repro_torch.models.recsys import embedding as TE
+from repro_torch.train import checkpoint as ckpt
+from repro_torch.train import data as data_lib
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts
+from repro_torch.train.fault import StepGuard
 
 ZOO = ["dcn-v2", "autoint", "dien", "mind", "gat-cora"]
 RECSYS = ["dcn-v2", "autoint", "dien", "mind"]
@@ -278,13 +283,146 @@ def test_update_does_not_decay_zoo_biases():
 
 def test_named_leaves_descend_into_lists():
     """A dict tree with lists (the reference's zoo layout) names each list
-    leaf by its index and stacks none of them; a dict keyed by layer
-    numbers stands for a stack on L."""
+    leaf by its index and stacks none of them; neither does a dict keyed
+    by layer numbers: only a module's ``stacked_prefixes`` stack."""
     tree = {"cross": [{"w": torch.ones(2, 2), "b": torch.ones(2)}],
             "layers": {"0": {"ln": torch.ones(2)}}}
     assert sorted(opt_lib.named_leaves(tree)) == \
         ["cross.0.b", "cross.0.w", "layers.0.ln"]
-    assert opt_lib.stacked_leaves(tree) == {"layers.0.ln"}
+    assert opt_lib.stacked_leaves(tree) == set()
+
+
+# ---------------------------------------------------------------------------
+# checkpoints of the zoo's list trees, both ways
+# ---------------------------------------------------------------------------
+
+
+def _zoo_states(arch_id):
+    """The reference's train state of the reduced arch with nonzero
+    moments, and the port's train state of zeros to restore into."""
+    jcfg, params, jm, tcfg, mod, tm, b = carry(arch_id)
+    rng = np.random.default_rng(9)
+    noise = jax.tree.map(lambda a: jnp.asarray(
+        rng.standard_normal(a.shape), jnp.float32), params)
+    jstate = {"params": params,
+              "opt": {"m": noise, "v": jax.tree.map(jnp.square, noise),
+                      "step": jnp.asarray(5, jnp.int32)}}
+    zeros = tm.from_arrays(tcfg, jax.tree.map(
+        lambda a: np.zeros(a.shape, np.float32), params), device="cpu")
+    return jstate, ts.init_state(zeros)
+
+
+def _assert_state_equal(state, jstate):
+    want = flat(jstate["params"])
+    got = dict(state["params"].named_parameters())
+    assert sorted(got) == sorted(want)
+    for n in want:
+        np.testing.assert_array_equal(got[n].detach().numpy(), want[n], n)
+    for mom in ("m", "v"):
+        for n, a in flat(jstate["opt"][mom]).items():
+            np.testing.assert_array_equal(state["opt"][mom][n].numpy(), a)
+    assert int(state["opt"]["step"]) == int(jstate["opt"]["step"])
+
+
+@pytest.mark.parametrize("arch_id", ["dcn-v2", "gat-cora"])
+def test_zoo_checkpoint_both_ways(arch_id, tmp_path):
+    """The reference saves a zoo train state, whose lists keep their index
+    in each path (``params/cross/0/w``); the port restores it leaf for
+    leaf, and its own save writes the same manifest and bytes, which the
+    reference restores.  The port also reads the stacked layout that it
+    wrote for these trees before stacking was declared."""
+    jstate, state = _zoo_states(arch_id)
+    jdir = jckpt.save(tmp_path / "jax", 5, jstate)
+    man = json.loads((jdir / "manifest.json").read_text())
+    listed = "params/cross/0/w" if arch_id == "dcn-v2" else \
+        "params/layers/0/w"
+    assert listed in man["leaves"]
+    assert "opt/m/" + listed[len("params/"):] in man["leaves"]
+    ckpt.restore(tmp_path / "jax", 5, state)
+    _assert_state_equal(state, jstate)
+
+    pdir = ckpt.save(tmp_path / "port", 5, state)
+    assert json.loads((pdir / "manifest.json").read_text()) == man
+    for meta in man["leaves"].values():
+        assert (pdir / meta["file"]).read_bytes() == \
+            (jdir / meta["file"]).read_bytes(), meta["file"]
+    out = jckpt.restore(tmp_path / "port", 5,
+                        jax.tree.map(jnp.zeros_like, jstate))
+    _assert_state_equal(state, out)
+
+    stacks: dict = {}
+    for key in man["leaves"]:
+        parts = key.split("/")
+        i = next(j for j, p in enumerate(parts) if p.isdigit()) \
+            if any(p.isdigit() for p in parts) else None
+        arr = np.load(jdir / man["leaves"][key]["file"])
+        if i is None:
+            stacks[key] = [(0, arr)]
+        else:
+            stacks.setdefault("/".join(parts[:i] + parts[i + 1:]),
+                              []).append((int(parts[i]), arr))
+    old = {}
+    for key, arrs in stacks.items():
+        if key in man["leaves"]:
+            old[key] = (arrs[0][1], man["leaves"][key]["dtype"])
+        elif len({a.shape for _, a in arrs}) == 1:
+            old[key] = (np.stack([a for _, a in sorted(arrs,
+                                                       key=lambda e: e[0])]),
+                        "float32")
+        else:       # layers of unequal shapes never stacked: indexed
+            for i, a in arrs:
+                parts = key.split("/")
+                j = len(parts) - 1
+                old["/".join(parts[:j] + [str(i)] + parts[j:])] = \
+                    (a, "float32")
+    # DCN-v2's cross layers are equal in shape and stack; GAT's do not
+    assert any(k not in man["leaves"] for k in old) == (arch_id == "dcn-v2")
+    ckpt._write(tmp_path / "stacked", 5, old)
+    _, fresh = _zoo_states(arch_id)
+    ckpt.restore(tmp_path / "stacked", 5, fresh)
+    _assert_state_equal(fresh, jstate)
+
+
+def test_zoo_stepguard_resume_is_bit_equal(tmp_path):
+    """Three DCN-v2 train steps under a ``StepGuard``, checkpointed each
+    step: a run stopped after two, restored into a fresh model and resumed
+    for the third ends bit-equal to the run that was not stopped, in
+    every parameter and moment."""
+    arch = tregistry.get_arch("dcn-v2")
+    cfg, batch_fn = arch.reduced()
+    base = batch_fn()
+
+    def make(step, shard=0, n_shards=1):
+        b = dict(base)
+        b["label"] = np.roll(base["label"], step)
+        return b
+
+    pipeline = data_lib.DataPipeline(make)
+    step_fn = ts.make_train_step(
+        lambda p, bb: tdcn.loss_fn(cfg, p, bb), opt_lib.AdamWConfig(**OPT))
+
+    def fresh():
+        return ts.init_state(tdcn.init_params(
+            cfg, torch.Generator("cpu").manual_seed(0), device="cpu"))
+
+    whole, _, n = StepGuard(tmp_path / "whole", ckpt_every=1).run(
+        fresh(), pipeline.iter_from, step_fn, 3)
+    assert n == 3
+    part, _, n = StepGuard(tmp_path / "part", ckpt_every=1).run(
+        fresh(), pipeline.iter_from, step_fn, 2)
+    assert n == 2 and ckpt.latest_step(tmp_path / "part") == 2
+    resumed = ckpt.restore(tmp_path / "part", 2, fresh())
+    assert int(resumed["opt"]["step"]) == 2
+    resumed, _, n = StepGuard(tmp_path / "part", ckpt_every=1).run(
+        resumed, pipeline.iter_from, step_fn, 3, start_step=2)
+    assert n == 3
+    for (name, a), b in zip(whole["params"].named_parameters(),
+                            resumed["params"].parameters()):
+        assert torch.equal(a, b), name
+    for mom in ("m", "v"):
+        for name, a in whole["opt"][mom].items():
+            assert torch.equal(a, resumed["opt"][mom][name]), (mom, name)
+    assert int(resumed["opt"]["step"]) == 3
 
 
 # ---------------------------------------------------------------------------
