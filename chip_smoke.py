@@ -58,7 +58,14 @@ to the route their compiles give, the results to a CPU run),
 ``train_lm``'s 10m preset on the flash kernel, the serve demo against the
 CPU, and qwen2-1.5b's full-width serve bundles, long_500k and decode_32k
 at 14 of its 28 layers, each one decode step, their peak memory held to
-their dry runs.
+their dry runs.  Last, phase M: the LM serve steps on a mesh of the cards
+present, one NCCL process a card (check 1: qwen2-1.5b, internlm2-1.8b on
+the flash kernel and olmoe-1b-7b with its routes pinned, at full width and
+2 layers in bf16, sharded against rank 0's card alone; with 4 cards, cells
+M1-M3 at full depth on a 2x2 mesh, each rank's peak memory held to its dry
+run, M2's flash kernel held to its plain version at each rank's shape, the
+flash launches of every rank counted).  ``python3 chip_smoke.py --phase M`` runs the toolchain and
+phase M alone (with 4 cards: M1-M3).
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -1153,7 +1160,9 @@ MOE_FLASH_SHAPES = [("G2", 16, 1024, 16, 16, 128, 0, None),
                     ("G3 chunked", 4, 16384, 40, 8, 128, 8192,
                      ((0, 0), (2, 3), (3, 7))),
                     ("G3 global", 4, 16384, 40, 8, 128, 0,
-                     ((0, 0), (2, 3), (3, 7)))]
+                     ((0, 0), (2, 3), (3, 7))),
+                    ("M2, a rank of 2x2", 16, 32768, 8, 4, 128, 0,
+                     ((0, 0), (8, 2), (15, 3)))]
 #: an output row of N(0, 1) q/k/v averages the values of the keys it sees:
 #: a row past a few thousand keys has an RMS near sqrt(e / keys), ~0.02 at
 #: 8,192, so 2e-2 alone would pass a kernel that lost a kv tile there.
@@ -1183,9 +1192,12 @@ def attention_errors(a, ref32) -> tuple[float, float, float]:
 def phase_attention_moe_shapes(g) -> None:
     """The bf16 flash kernel at the MoE cells' prefill shapes, each held
     against the plain version and timed beside its bound, the plain
-    version and the library call: G2's MHA q [16, 1024, 16, 128], and G3's
+    version and the library call: G2's MHA q [16, 1024, 16, 128], G3's
     q [4, 16384, 40, 128] with k/v [4, 16384, 8, 128], chunk 8,192 (its
-    chunked layers) and global (every fourth).  The check is 2e-2 absolute
+    chunked layers) and global (every fourth), and the call each rank of
+    cell M2 makes on its local heads, q [16, 32768, 8, 128] with k/v
+    [16, 32768, 4, 128] (phase M holds it there too; its kv groups pair
+    2 q heads with a k/v head).  The check is 2e-2 absolute
     and, scale-aware, ``attention_errors`` (each element within its own
     rounding plus ROW_REL_TOL of its row's RMS, the whole within REL_TOL).
     At G3 the plain version's fp32 [S, T] scores of the whole call would
@@ -3985,11 +3997,447 @@ def phase_serve(index, forms, state, g1) -> dict:
     return launches
 
 
-def main() -> int:
+# ---------------------------------------------------------------------------
+# phase M: the LM serve steps on a mesh of cards
+# ---------------------------------------------------------------------------
+
+#: the mesh of phase M with 4 cards or more, (data, model)
+M_SHAPE = (2, 2)
+#: check 1, sharded against one card: the LMs at full width and 2 layers
+#: in bf16, each with its overrides (internlm2 on the flash kernel, as M2
+#: runs it); batch, prompt and cache cut so that the one-card run fits
+#: rank 0's card.  The MoE LM's routes are pinned to the one-card run's
+#: (``expert_idx``): in bf16 the all-reduces' order moves a router score
+#: across a near-tie often enough to change a last position's logits on
+#: random weights, so its unpinned run only reports the share of equal
+#: picks
+M_CHECK_ARCHS = (("qwen2-1.5b", None), ("internlm2-1.8b",
+                                         {"attn_impl": "pallas"}),
+                 ("olmoe-1b-7b", None))
+M_CHECK_LAYERS = 2
+M_CHECK_BATCH, M_CHECK_PROMPT, M_CHECK_CACHE = 8, 512, 1024
+#: the mesh's logits within this relative norm of the one-card logits
+#: (||mesh - one card|| / ||one card||: each side rounds to bf16 after
+#: sums in its own order, a few ulps of 2^-8 over two layers; a sharded
+#: layer that drops half its heads or half its FFN moves the logits by a
+#: tenth or more), and the share of rows whose argmax agrees at least
+#: this (two of the 8 rows may flip where their top two lie within the
+#: error; a wrong sharded layer scrambles most)
+M_CHECK_REL, M_CHECK_ARGMAX_MIN = 2.0 ** -5, 0.75
+#: check 2: the full cells at full depth on the 2x2 mesh: (name, arch,
+#: shape, overrides)
+M_CELLS = [("M1", "qwen2-1.5b", "decode_32k", None),
+           ("M2", "internlm2-1.8b", "prefill_32k", {"attn_impl": "pallas"}),
+           ("M3", "olmoe-1b-7b", "long_500k", None)]
+M_TIMED = 3
+#: a rank's measured peak within this factor of its dry run's
+M_PEAK_REL = 0.05
+#: seconds a rank may take
+M_TIMEOUT = 300
+
+
+def _mesh_gather(logits, mesh, spec):
+    """The whole logits from the rank's shard [B_l, V_l] of ``spec``."""
+    from repro_torch import collectives as C
+    from repro_torch import sharding as sh
+    logits = C.all_gather(logits, mesh, sh.spec_axes(spec, 1), 1)
+    return C.all_gather(logits, mesh, sh.spec_axes(spec, 0), 0)
+
+
+def mesh_check(mesh, arch_id: str, over) -> dict:
+    """Check 1 on one rank: a prefill and one decode step of ``arch_id``
+    (with ``over``) at full width and M_CHECK_LAYERS layers in bf16, on
+    rank 0's card alone and then on ``mesh`` (the seed-0 draw cut to the
+    rank's shards), gathered; rank 0 compares the logits.  An MoE LM runs
+    on the mesh twice: with its own routing (the share of expert picks
+    equal to the one-card run's is reported) and with every layer's
+    routes pinned to the one-card run's, whose logits and drops are
+    compared."""
     import torch
+    import torch.distributed as dist
+    from repro_torch import sharding as sh
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer_lm as tlm
+    cfg = dataclasses.replace(get_arch(arch_id).model_cfg(),
+                              n_layers=M_CHECK_LAYERS, dtype=torch.bfloat16,
+                              **(over or {}))
+    dev = mesh.device
+    B, P, T = M_CHECK_BATCH, M_CHECK_PROMPT, M_CHECK_CACHE
+    toks = torch.randint(0, cfg.vocab, (B, P + 1), device=dev,
+                         generator=torch.Generator(dev).manual_seed(1))
+    rank0 = mesh.coords == {a: 0 for a in mesh.axis_names}
+    want, one_routes = [], []
+    if rank0:
+        with torch.no_grad():
+            one = tlm.init_params(cfg, torch.Generator(dev).manual_seed(0))
+            cache = tlm.init_kv_cache(cfg, B, T, device=dev)
+            want.append(tlm.prefill(cfg, one, toks[:, :P], cache,
+                                    metrics=one_routes)[0])
+            want.append(tlm.decode_step(cfg, one, toks[:, P:], cache, P,
+                                        metrics=one_routes)[0])
+        del one, cache
+        gc.collect()
+        torch.cuda.empty_cache()
+    pins = None
+    if cfg.moe:
+        # every layer's routes of the prefill, then of the decode step
+        k = cfg.moe.top_k
+        pins = [torch.empty(n, k, dtype=torch.int64, device=dev)
+                for n in [B * P] * M_CHECK_LAYERS + [B] * M_CHECK_LAYERS]
+        for i, t in enumerate(pins):
+            if rank0:
+                t.copy_(one_routes[i]["expert_idx"])
+            dist.broadcast(t, 0)
+    specs = tlm.serve_specs(cfg, mesh, B, P, T)
+    rows = sh.local_slices(specs["tokens"], (B, P), mesh, mesh.coords)[0]
+    n = M_CHECK_LAYERS
+
+    def on_mesh(lm, pinned):
+        routes: list = []
+        cache = tlm.init_kv_cache(cfg, B, T, mesh=mesh)
+        lg, _ = tlm.prefill(cfg, lm, toks[rows, :P], cache, mesh=mesh,
+                            metrics=routes,
+                            expert_idx=pins[:n] if pinned else None)
+        got = [_mesh_gather(lg, mesh, specs["logits"])]
+        lg, _ = tlm.decode_step(cfg, lm, toks[rows, P:], cache, P, mesh=mesh,
+                                metrics=routes,
+                                expert_idx=pins[n:] if pinned else None)
+        got.append(_mesh_gather(lg, mesh, specs["logits"]))
+        return got, routes
+
+    out = {"arch": arch_id, "dtype": "bfloat16", "overrides": over or {},
+           "shards": {k: list(s) for k, s in (
+               ("tokens", specs["tokens"]), ("cache", specs["cache"]),
+               ("logits", specs["logits"]))}}
+    with torch.no_grad():
+        lm = tlm.init_params(cfg, torch.Generator(dev).manual_seed(0),
+                             mesh=mesh)
+        if cfg.moe:
+            _, routes = on_mesh(lm, False)
+            same = sum(int((m["expert_idx"] == p).sum())
+                       for m, p in zip(routes, pins))
+            out["route_agree"] = same / sum(p.numel() for p in pins)
+        got, routes = on_mesh(lm, cfg.moe is not None)
+    del lm
+    if rank0:
+        if cfg.moe:
+            out["dropped"] = [int(m["dropped"]) for m in routes]
+            out["dropped_one_card"] = [int(m["dropped"])
+                                       for m in one_routes]
+        for step, g, w in zip(("prefill", "decode"), got, want):
+            g, w = g.float(), w.float()
+            out[step] = {
+                "rel": float(torch.linalg.vector_norm(g - w)
+                             / torch.linalg.vector_norm(w)),
+                "max_abs_err": float((g - w).abs().max()),
+                "rms": float(w.square().mean().sqrt()),
+                "max_abs": float(w.abs().max()),
+                "argmax_agree": float((g.argmax(-1) == w.argmax(-1))
+                                      .float().mean()),
+                "finite": bool(torch.isfinite(g).all())}
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _flash_shapes(fn):
+    """(``fn()``, the set of (q shape, k shape, dtype, causal, chunk) that
+    the LM layers handed the flash kernel's entry during it)."""
+    from repro_torch.models import layers
+    seen, inner = set(), layers.flash_attention
+
+    def spy(q, k, v, *, causal=True, chunk=0):
+        seen.add((tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
+                  chunk))
+        return inner(q, k, v, causal=causal, chunk=chunk)
+
+    layers.flash_attention = spy
+    try:
+        return fn(), seen
+    finally:
+        layers.flash_attention = inner
+
+
+#: the (batch, kv head) groups of a rank's flash call held against the
+#: plain version, as fractions of (B - 1, Hkv - 1): first, middle, last
+M_FLASH_GROUPS = ((0, 0), (0.5, 0.5), (1, 1))
+
+
+def mesh_flash_check(shapes, seed: int) -> list[dict]:
+    """The flash kernel at each of a rank's ``shapes`` (from
+    :func:`_flash_shapes`) on N(0, 1) bf16 inputs: held against the plain
+    version's fp32 result on M_FLASH_GROUPS (``attention_errors``; 2e-2
+    absolute, REL_TOL, ROW_REL_TOL), and timed beside its bound."""
+    import torch
+    from repro_torch.kernels.flash_attention.ops import flash_attention
+    from repro_torch.kernels.flash_attention.ref import flash_attention_ref
+    g = torch.Generator(device=DEVICE).manual_seed(seed)
+    out = []
+    for qs, ks, dtype, causal, chunk in sorted(shapes):
+        B, S, H, D = qs
+        HKV = ks[2]
+        G = H // HKV
+        q, k, v = (torch.randn(*s, device=DEVICE, generator=g)
+                   .to(getattr(torch, dtype.removeprefix("torch.")))
+                   for s in (qs, ks, ks))
+        a = flash_attention(q, k, v, causal=causal, chunk=chunk)
+        diff = rel = row = 0.0
+        groups = sorted({(round(fb * (B - 1)), round(fj * (HKV - 1)))
+                         for fb, fj in M_FLASH_GROUPS})
+        for b, j in groups:
+            h = slice(G * j, G * j + G)
+            ref = flash_attention_ref(
+                q[b:b + 1, :, h].float(), k[b:b + 1, :, j:j + 1].float(),
+                v[b:b + 1, :, j:j + 1].float(), causal=causal, chunk=chunk)
+            e = attention_errors(a[b:b + 1, :, h], ref)
+            diff, rel, row = max(diff, e[0]), max(rel, e[1]), max(row, e[2])
+            del ref
+            torch.cuda.empty_cache()
+        ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
+                                             chunk=chunk), iters=3)
+        ops = 4 * B * H * D * _visible_pairs(S, chunk) if causal else \
+            4 * B * H * D * S * ks[1]
+        nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
+        bound = max(1e3 * ops / BF16_TC_OPS_PER_S, 1e3 * nbytes /
+                    HBM_BYTES_PER_S)
+        out.append({"q": list(qs), "k": list(ks), "dtype": dtype,
+                    "causal": causal, "chunk": chunk, "groups": groups,
+                    "max_abs_err": diff, "rel": rel, "row": row,
+                    "ok": diff <= 2e-2 and rel <= REL_TOL and row <= 1.0,
+                    "ms": ms, "bound_ms": bound})
+        del q, k, v, a
+        torch.cuda.empty_cache()
+    return out
+
+
+def mesh_cell(mesh, name: str, arch_id: str, shape: str, over) -> dict:
+    """Check 2 on one rank: the cell's bundle on ``mesh`` (full width and
+    depth), its dry run at the rank's coordinates first, and the flash
+    kernel at the shapes that dry run hands it (:func:`mesh_flash_check`),
+    before the bundle is built; one warm-up step
+    (its collectives recorded) and M_TIMED steps between CUDA events; the
+    rank's peak memory above what it held before the build, and the flash
+    kernel's launches over the four steps; then one step profiled on rank
+    0 (:func:`profile_summary`)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import collectives, kernels
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_bundle
+    t0 = time.perf_counter()
+    shape_only = mesh_lib.Mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                               coords=mesh.coords)
+    dry, shapes = _flash_shapes(lambda: run_cell(
+        arch_id, shape, mesh=shape_only, overrides=over, verbose=False))
+    dry_s = time.perf_counter() - t0
+    # the flash kernel at the rank's own shapes of this cell, against its
+    # plain version, before the bundle takes the card
+    flash_check = mesh_flash_check(shapes, 7 + dist.get_rank())
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    b = build_bundle(arch_id, shape, mesh=mesh, overrides=over)
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    zero_launches()
+    with collectives.recording() as rec:
+        logits, _ = b.fn(*b.args)
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(M_TIMED)]
+    for a, z in ev:
+        a.record()
+        logits, _ = b.fn(*b.args)
+        z.record()
+    torch.cuda.synchronize()
+    flash = read_launches("flash_attention")["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    finite = bool(torch.isfinite(logits).all())
+    # one more step, profiled on rank 0 (the others run it unprofiled:
+    # the collectives need every rank)
+    prof = None
+    if mesh.coords == {a: 0 for a in mesh.axis_names}:
+        prof = profile_summary(lambda: b.fn(*b.args))
+    else:
+        b.fn(*b.args)
+        torch.cuda.synchronize()
+    out = {"cell": name, "arch": arch_id, "shape": shape,
+           "overrides": over or {}, "ms": [a.elapsed_time(z) for a, z in ev],
+           "peak": peak, "dry_peak": dry["bytes_per_device"],
+           "dry_memory": dry["memory"], "dry_s": round(dry_s, 2),
+           "collective_bytes": rec.total, "collectives": rec.bytes,
+           "dry_collective_bytes": dry["collective_bytes_per_chip"],
+           "dry_collectives": dry["collectives"], "finite": finite,
+           "logits": list(logits.shape), "flash": flash,
+           "flash_check": flash_check,
+           "steps": 1 + M_TIMED,
+           "n_layers": len(b.args[0].layers), "profile": prof}
+    del b, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    kernels.device_launches(reset=True)
+    return out
+
+
+def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
+    """One rank of phase M (``chip_smoke.py --mesh-rank``): joins the NCCL
+    group on card ``rank``, runs check 1 on the mesh of all ranks and,
+    with 4, check 2's cells on the 2x2 mesh; writes its results to
+    ``<out_dir>/rank<rank>.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_cards(rank, world, f"tcp://localhost:{port}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = M_SHAPE if world == 4 else (1, world)
+    mesh = mesh_lib.make_card_mesh(shape)
+    res = {"rank": rank, "coords": mesh.coords, "mesh": mesh.name,
+           "device": str(mesh.device), "check": [], "cells": []}
+    t0 = time.perf_counter()
+    for arch_id, over in M_CHECK_ARCHS:
+        res["check"].append(mesh_check(mesh, arch_id, over))
+    res["check_s"] = round(time.perf_counter() - t0, 2)
+    if world == 4:
+        for cell in M_CELLS:
+            res["cells"].append(mesh_cell(mesh, *cell))
+    res["s"] = round(time.perf_counter() - t0, 2)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_mesh(smi: str) -> dict:
+    """Phase M: the LM serve steps on a mesh of cards, one process a card
+    (NCCL).  The kernels are built in this process first; the card is
+    freed before the ranks start.  Check 1 on a mesh of the cards present
+    (2x2 with 4 or more, 1 x n else): qwen2-1.5b, internlm2-1.8b (on the
+    flash kernel) and olmoe-1b-7b (its routes pinned) at full width and 2
+    layers in bf16, a prefill and a decode step against rank 0's card
+    alone.  With 4 cards, check 2: cells M1-M3 at
+    full depth on the 2x2 mesh, each rank's peak memory within
+    M_PEAK_REL of its dry run, the collective bytes a step beside the dry
+    run's, M2's flash kernel at each rank's shapes against its plain
+    version and its launches equal on every rank (the layers a step),
+    finite logits, ms a step.  Returns the flash launches of all ranks'
+    check-2 steps."""
+    import torch
+    from repro_torch.kernels import _build
+    from repro_torch.launch import mesh as mesh_lib
+    _build.library()
+    n = torch.cuda.device_count()
+    world = 4 if n >= 4 else n
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    port = mesh_lib.free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--mesh-rank", str(r), str(world), str(port),
+                               str(out_dir)]) for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=M_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0] * world, f"phase M ranks exited {rcs}"
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    log(f"[M] {world} ranks on the {ranks[0]['mesh']} mesh "
+        f"({n} cards present), {time.perf_counter() - t0:.1f} s; "
+        f"check 1 {ranks[0]['check_s']} s; {smi}")
+    bad = []
+    for c in ranks[0]["check"]:
+        log(f"[M check] {c['arch']} {c['overrides'] or ''} (full width, "
+            f"{M_CHECK_LAYERS} layers, batch {M_CHECK_BATCH}, prompt "
+            f"{M_CHECK_PROMPT}, cache {M_CHECK_CACHE}, {c['dtype']}) shards "
+            f"{c['shards']}: mesh vs rank 0's card alone (limits: relative "
+            f"{M_CHECK_REL}, argmax agree >= {M_CHECK_ARGMAX_MIN}): prefill "
+            f"{c['prefill']}, decode {c['decode']}" + (
+                f"; routes pinned to the one-card run's, dropped a layer "
+                f"{c['dropped']} (one card {c['dropped_one_card']}); "
+                f"unpinned, expert picks equal to the one-card run's "
+                f"{c['route_agree']}" if "route_agree" in c else ""))
+        for step in ("prefill", "decode"):
+            r = c[step]
+            if not r["finite"] or r["rel"] > M_CHECK_REL or \
+                    r["argmax_agree"] < M_CHECK_ARGMAX_MIN:
+                bad.append((c["arch"], step, r))
+        if "dropped" in c and c["dropped"] != c["dropped_one_card"]:
+            bad.append((c["arch"], "dropped", c["dropped"],
+                        c["dropped_one_card"]))
+    flash = 0
+    if world < 4:
+        assert not bad, bad
+        log(f"[M] cells M1-M3 did not run: they need 4 cards and "
+            f"{n} {'is' if n == 1 else 'are'} present")
+        return {"flash": 0}
+    for i, (name, arch_id, shape, over) in enumerate(M_CELLS):
+        cells = [r["cells"][i] for r in ranks]
+        for r, c in enumerate(cells):
+            ratio = c["peak"] / c["dry_peak"]
+            log(f"[M {name}] rank {r} {ranks[r]['coords']}: {arch_id} x "
+                f"{shape} {over or ''} {c['n_layers']} layers, logits "
+                f"{c['logits']} finite {c['finite']}; ms a step {c['ms']}; "
+                f"peak {c['peak']} bytes, dry run {c['dry_peak']} (memory "
+                f"{c['dry_memory']}; {c['dry_s']} s), measured / dry run "
+                f"{ratio:.4f}; collective bytes a step {c['collective_bytes']}"
+                f" {c['collectives']}, dry run {c['dry_collective_bytes']} "
+                f"{c['dry_collectives']}; flash launches {c['flash']}")
+            if not c["finite"] or abs(ratio - 1) > M_PEAK_REL:
+                bad.append((name, r, c["finite"], ratio))
+        for r, c in enumerate(cells):
+            for f in c["flash_check"]:
+                log(f"[M {name}] rank {r}: flash kernel at the rank's shape "
+                    f"q {f['q']} k/v {f['k']} {f['dtype']} causal "
+                    f"{f['causal']} chunk {f['chunk']} against its plain "
+                    f"version on (batch, kv head) groups {f['groups']}: max "
+                    f"abs err {f['max_abs_err']:.4f} (2e-2), relative "
+                    f"{f['rel']:.3e} ({REL_TOL}), worst element "
+                    f"{f['row']:.3f} of its allowance; {f['ms']:.4f} ms, "
+                    f"bound {f['bound_ms']:.4f} ms, "
+                    f"{f['bound_ms'] / f['ms']:.3f} of it; {smi}")
+                if not f["ok"]:
+                    bad.append((name, r, "flash check", f))
+        if over and over.get("attn_impl") == "pallas" and \
+                not all(c["flash_check"] for c in cells):
+            bad.append((name, "flash check missing"))
+        ms = [sum(c["ms"]) / len(c["ms"]) for c in cells]
+        log(f"[M {name}] ms a step, mean of {M_TIMED} a rank: {ms}; max "
+            f"{max(ms):.2f}; {smi}")
+        log(f"[M {name}] rank 0, one more step under torch.profiler: "
+            f"{cells[0]['profile']}")
+        launches = {c["flash"]["device"] for c in cells} | \
+            {c["flash"]["host"] for c in cells}
+        # one launch a layer a prefill on every rank; none at decode
+        want = cells[0]["n_layers"] * cells[0]["steps"] if over and \
+            over.get("attn_impl") == "pallas" else 0
+        if launches != {want}:
+            bad.append((name, "flash", launches, want))
+        flash += sum(c["flash"]["device"] for c in cells)
+    assert not bad, bad
+    return {"flash": flash}
+
+
+def main(argv=None) -> int:
+    import torch
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if argv[:1] == ["--mesh-rank"]:
+        return mesh_rank(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
     # the plain versions' matmuls in full fp32, as the kernels compute
@@ -3997,6 +4445,16 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = phase_toolchain()
     log(f"[toolchain] card: {smi}")
+    if argv == ["--phase", "M"]:
+        # phase M alone (the 4-card run of cells M1-M3)
+        mesh = phase_mesh(smi)
+        log(f"[done] phase M alone {time.perf_counter() - t_start:.1f} s; "
+            f"flash launches of the ranks' cells {mesh['flash']}")
+        log(smi)
+        return 0
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
     floor = phase_floor()
     phase_small_parity()
     index, forms = phase_index()
@@ -4108,6 +4566,13 @@ def main() -> int:
     phase_serve_demo()
     phase_lm_bundles(smi)
     log(f"[main] phase X {time.perf_counter() - t0:.1f} s")
+    # phase M, the LM serve steps on a mesh of the cards present: each
+    # rank's flash launches of cells M1-M3 join the flash row
+    t0 = time.perf_counter()
+    mesh = phase_mesh(smi)
+    windows.append({"flash_attention": {"device": mesh["flash"],
+                                        "host": mesh["flash"]}})
+    log(f"[main] phase M {time.perf_counter() - t0:.1f} s")
     launches = {}
     for w in windows:
         for name, c in w.items():

@@ -41,6 +41,7 @@ import torch
 from torch import nn
 from torch.utils._python_dispatch import TorchDispatchMode
 
+from repro_torch import collectives
 from repro_torch.kernels import pricing
 
 #: nominal peaks of the roofline time proxy: the H100 SXM datasheet's
@@ -325,8 +326,12 @@ def estimate_callable(fn, *args, peaks: tuple[float, float] | None = None
 
 def analyze(fn, *args) -> dict[str, Any]:
     """Run ``fn(*args)`` once under an :class:`OpCounter` with memory and
-    return ``hlo_cost.analyze``'s keys (one card: no collectives) and
-    ``memory``, the split of ``compiled.memory_analysis()``:
+    return ``hlo_cost.analyze``'s keys and ``memory``.  The collectives
+    are those the call makes through ``repro_torch/collectives.py`` (on a
+    mesh; none on one card), under the reference's kind names and with
+    its volumes; their operands' and results' bytes join
+    ``bytes_per_chip``, as ``hlo_cost`` adds them.  ``memory`` is the
+    split of ``compiled.memory_analysis()``:
     ``argument_bytes`` (the arguments' storages), ``output_bytes`` (the
     result's), ``alias_bytes`` (the result's storages that are
     arguments': state updated in place, the donated KV cache),
@@ -335,7 +340,8 @@ def analyze(fn, *args) -> dict[str, Any]:
     may lie on ``meta``: nothing is allocated then, and kernel entries
     are priced by their formulas (``kernels/pricing.py``)."""
     arg_st = _storages(args)
-    with OpCounter(memory=True) as counter:
+    with OpCounter(memory=True) as counter, \
+            collectives.recording() as rec:
         counter.hold(arg_st)
         out = fn(*args)
         out_st = _storages(out)
@@ -345,10 +351,10 @@ def analyze(fn, *args) -> dict[str, Any]:
     del out
     return {
         "flops_per_chip": counter.flops,
-        "bytes_per_chip": counter.bytes,
-        "collective_bytes_per_chip": 0.0,
-        "collectives": {},
-        "collective_counts": {},
+        "bytes_per_chip": counter.bytes + rec.io_bytes,
+        "collective_bytes_per_chip": rec.total,
+        "collectives": dict(rec.bytes),
+        "collective_counts": {k: float(n) for k, n in rec.counts.items()},
         "memory": {"argument_bytes": arg_b, "output_bytes": out_b,
                    "alias_bytes": alias,
                    "temp_bytes": peak - arg_b - (out_b - alias),

@@ -1,6 +1,7 @@
 """glm4-9b [hf:THUDM/glm-4-9b]: 40L d=4096 32H (GQA kv=2) d_ff=13696
-vocab=151552 — RoPE, GQA (the numbers of ``src/repro/configs/glm4_9b.py``;
-its sharding fields have no counterpart on one card)."""
+vocab=151552 — RoPE, GQA (the numbers of ``src/repro/configs/glm4_9b.py``).
+32 q-heads divide 16 -> TP profile, ``seq_parallel`` as the reference sets
+it."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,6 +15,7 @@ def model_cfg(shape: str | None = None) -> LMConfig:
     return LMConfig(
         name="glm4-9b", n_layers=40, d_model=4096, n_q=32, n_kv=2,
         d_head=128, d_ff=13696, vocab=151552, rope_theta=1e6,
+        sharding_profile="tp", seq_parallel=True,
     )
 
 

@@ -1,6 +1,7 @@
 """internlm2-1.8b [arXiv:2403.17297]: 24L d=2048 16H (GQA kv=8) d_ff=8192
 vocab=92544 — GQA (the numbers of
-``src/repro/configs/internlm2_1_8b.py``)."""
+``src/repro/configs/internlm2_1_8b.py``).  16 q-heads divide 16 -> TP
+profile."""
 from __future__ import annotations
 
 import numpy as np
@@ -14,6 +15,7 @@ def model_cfg(shape: str | None = None) -> LMConfig:
     return LMConfig(
         name="internlm2-1.8b", n_layers=24, d_model=2048, n_q=16, n_kv=8,
         d_head=128, d_ff=8192, vocab=92544, rope_theta=1e6,
+        sharding_profile="tp",
     )
 
 

@@ -1,7 +1,8 @@
 """llama4-scout-17b-a16e [hf:meta-llama/Llama-4-Scout-17B-16E]: 48L d=5120
 40H (GQA kv=8) d_ff=8192 vocab=202048, MoE 16e top-1 + 1 shared expert,
 chunked local attention (8192) on 3/4 layers (the numbers of
-``src/repro/configs/llama4_scout_17b_a16e.py``)."""
+``src/repro/configs/llama4_scout_17b_a16e.py``).  40 heads don't divide
+16 -> FSDP attention + expert parallelism over 'model'."""
 from __future__ import annotations
 
 import numpy as np
@@ -20,6 +21,7 @@ def model_cfg(shape: str | None = None) -> LMConfig:
         moe=MoEConfig(n_experts=16, top_k=1, d_ff_expert=8192, n_shared=1,
                       d_ff_shared=8192, router_act="sigmoid",
                       normalize_gates=False, dispatch="scatter"),
+        sharding_profile="fsdp",
     )
 
 

@@ -1,6 +1,7 @@
 """olmoe-1b-7b [arXiv:2409.02060]: 16L d=2048 16H (kv=16) d_ff=1024,
 MoE 64e top-8, vocab=50304 (the numbers of
-``src/repro/configs/olmoe_1b_7b.py``)."""
+``src/repro/configs/olmoe_1b_7b.py``).  16 heads divide 16 -> TP attention +
+EP experts."""
 from __future__ import annotations
 
 import numpy as np
@@ -18,6 +19,7 @@ def model_cfg(shape: str | None = None) -> LMConfig:
         moe=MoEConfig(n_experts=64, top_k=8, d_ff_expert=1024,
                       router_act="softmax", normalize_gates=True,
                       dispatch="scatter"),
+        sharding_profile="tp",
     )
 
 

@@ -1,6 +1,7 @@
 """qwen2-1.5b [arXiv:2407.10671]: 28L d=1536 12H (GQA kv=2) d_ff=8960
 vocab=151936 — GQA with QKV bias, tied embeddings (the numbers of
-``src/repro/configs/qwen2_1_5b.py``)."""
+``src/repro/configs/qwen2_1_5b.py``).  12 query heads don't divide the
+16-way model axis -> FSDP (ZeRO-3) profile."""
 from __future__ import annotations
 
 import numpy as np
@@ -15,6 +16,7 @@ def model_cfg(shape: str | None = None) -> LMConfig:
         name="qwen2-1.5b", n_layers=28, d_model=1536, n_q=12, n_kv=2,
         d_head=128, d_ff=8960, vocab=151936, qkv_bias=True,
         tie_embeddings=True, rope_theta=1e6,
+        sharding_profile="fsdp",
     )
 
 

@@ -30,6 +30,7 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import NEG, attention_mask, \
     flash_attention_ref
+from repro_torch.kernels.pricing import priced
 
 KERNEL_D_HEADS = (32, 64, 128)
 #: the bf16 kernel's narrowest head; a narrower one is zero-padded to it
@@ -59,6 +60,40 @@ def check_no_grad(q, k, v) -> None:
             "torch.no_grad()")
 
 
+def visible_pairs(S: int, T: int, causal: bool = True, chunk: int = 0) -> int:
+    """(query, key) pairs attention of S queries over T keys visits, both
+    counted from position 0: causal (key <= query) where ``causal``, and
+    within blocks of ``chunk`` positions (0: one block)."""
+    c = chunk or max(S, T)
+    total = 0
+    for start in range(0, S, c):
+        rows = min(S, start + c) - start
+        keys = min(T, start + c) - start
+        if keys <= 0:
+            continue
+        if causal:
+            full = min(rows, keys)
+            total += full * (full + 1) // 2 + max(0, rows - keys) * keys
+        else:
+            total += rows * keys
+    return total
+
+
+def cost(q, k, v, *, causal: bool = True, chunk: int = 0):
+    """(flops, bytes) of one kernel call: two products of 2 x D operations
+    a visible (query, key) pair and head, q, k, v read once and the output
+    written once."""
+    B, S, H, D = q.shape
+    pairs = visible_pairs(S, k.shape[1], causal, chunk)
+    nbytes = sum(t.numel() * t.element_size() for t in (q, k, v, q))
+    return 4.0 * B * H * D * pairs, float(nbytes)
+
+
+def _outputs(q, k, v, *, causal: bool = True, chunk: int = 0):
+    return torch.zeros_like(q)
+
+
+@priced(cost, _outputs)
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, chunk: int = 0) -> torch.Tensor:
     """Causal (``causal``) grouped-query attention, optionally restricted

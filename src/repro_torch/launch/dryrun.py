@@ -1,21 +1,26 @@
-"""Dry run of every (arch x shape) cell on one card: each step is built on
-the ``meta`` device and priced by the op counter
+"""Dry run of every (arch x shape) cell, on one card or per card of a mesh:
+each step is built on the ``meta`` device and priced by the op counter
 (``analysis/op_cost.py::analyze``), so a full-width cell needs neither a
 card nor a compiler (the port of ``src/repro/launch/dryrun.py``, which
 lowers each cell onto the TPU production meshes and reads the compiled
 HLO).
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun [--arch A]
-        [--shape S] [--override key=value ...] [--tag T]
-        [--out build/dryrun]
+        [--shape S] [--multi-pod | --both-meshes]
+        [--override key=value ...] [--tag T] [--out build/dryrun]
 
-Each cell's record keeps the reference's keys where they mean the same
-thing on one card (``n_chips`` 1, ``t_collective`` 0) and adds ``fits``:
-the step's peak bytes against the card's memory.  ``t_compute`` prices
-the step's operations at the peak of its dtype (bf16 tensor cores for the
-LMs, fp32 for the zoo).  A failing cell is recorded and the exit is 1.
-The production meshes (``--multi-pod``, ``--both-meshes``) wait for the
-multi-card slice.
+Without a mesh flag each cell is priced on one card (records tagged
+``1card``); ``--multi-pod`` prices it per card of the reference's 2x16x16
+mesh, ``--both-meshes`` of its 16x16 and of the 2x16x16 (``sp``, ``mp``):
+a shape-only mesh at rank 0's coordinates, whose collectives
+(``repro_torch/collectives.py``) are recorded and move nothing;
+``run_cell(..., mesh=)`` prices a cell on any shape-only mesh.  Each
+record keeps the reference's keys and adds ``fits``: the card's peak
+bytes against the card's memory.  ``t_compute`` prices the step's
+operations at the peak of its dtype (bf16 tensor cores for the LMs, fp32
+for the zoo), ``t_collective`` the collective bytes over NVLink.  A cell
+that a later slice puts on a mesh (training, the zoo) is skipped there
+and says so; a failing cell is recorded and the exit is 1.
 """
 from __future__ import annotations
 
@@ -28,21 +33,29 @@ from pathlib import Path
 from repro_torch.analysis import op_cost
 from repro_torch.configs.registry import all_arch_ids, get_arch
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import _apply_overrides, build_bundle
+from repro_torch.launch.steps import WaitsForSlice, _apply_overrides, \
+    build_bundle
 
 #: the checkout's build directory (listed in .gitignore)
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
 
 
-def run_cell(arch_id: str, shape_name: str, *, verbose: bool = True,
+def run_cell(arch_id: str, shape_name: str, *, multi_pod: bool | None = None,
+             mesh=None, verbose: bool = True,
              overrides: dict[str, str] | None = None) -> dict:
-    """Build the cell's step on ``meta``, price it, and return its
-    record."""
-    rec: dict = {"arch": arch_id, "shape": shape_name, "mesh": "1 card",
-                 "n_chips": 1, "overrides": overrides or {},
+    """Build the cell's step on ``meta`` and price it per card: on one
+    card (neither ``multi_pod`` nor ``mesh``), on a production mesh
+    (``multi_pod`` False: 16x16, True: 2x16x16), or on ``mesh`` (a
+    shape-only ``launch.mesh.Mesh``); returns its record."""
+    if multi_pod is not None:
+        mesh = mesh_lib.make_production_mesh(multi_pod=multi_pod)
+    n_chips = mesh.size if mesh is not None else 1
+    rec: dict = {"arch": arch_id, "shape": shape_name,
+                 "mesh": mesh.name if mesh is not None else "1 card",
+                 "n_chips": n_chips, "overrides": overrides or {},
                  "card": mesh_lib.CARD}
     t0 = time.time()
-    bundle = build_bundle(arch_id, shape_name, device="meta",
+    bundle = build_bundle(arch_id, shape_name, device="meta", mesh=mesh,
                           overrides=overrides)
     rec["build_s"] = round(time.time() - t0, 2)
     t1 = time.time()
@@ -63,20 +76,24 @@ def run_cell(arch_id: str, shape_name: str, *, verbose: bool = True,
     rec["dtype"] = str(dtype).removeprefix("torch.")
     rec["t_compute"] = rec["flops_per_chip"] / mesh_lib.peak_flops(dtype)
     rec["t_memory"] = rec["bytes_per_chip"] / mesh_lib.HBM_BW
-    rec["t_collective"] = 0.0
+    rec["t_collective"] = (rec["collective_bytes_per_chip"] /
+                           mesh_lib.NVLINK_BW)
     terms = {"compute": rec["t_compute"], "memory": rec["t_memory"],
              "collective": rec["t_collective"]}
     rec["bottleneck"] = max(terms, key=terms.get)
-    rec["useful_flops_ratio"] = (rec["model_flops"] / rec["flops_per_chip"]
-                                 if rec["flops_per_chip"] else 0.0)
+    total = rec["flops_per_chip"] * n_chips
+    rec["useful_flops_ratio"] = rec["model_flops"] / total if total else 0.0
     if verbose:
-        print(f"[1 card] {arch_id} x {shape_name}: build {rec['build_s']}s "
-              f"price {rec['analyze_s']}s | flops {rec['flops_per_chip']:.3g}"
-              f" bytes {rec['bytes_per_chip']:.3g} | peak "
-              f"{rec['bytes_per_device'] / 1e9:.2f} GB "
+        print(f"[{rec['mesh']}] {arch_id} x {shape_name}: build "
+              f"{rec['build_s']}s price {rec['analyze_s']}s | flops/card "
+              f"{rec['flops_per_chip']:.3g} bytes/card "
+              f"{rec['bytes_per_chip']:.3g} coll/card "
+              f"{rec['collective_bytes_per_chip']:.3g} | peak "
+              f"{rec['bytes_per_device'] / 1e9:.2f} GB a card "
               f"({'fits' if rec['fits'] else 'does not fit'}) | t=(c "
-              f"{rec['t_compute']:.2e}, m {rec['t_memory']:.2e}) -> "
-              f"{rec['bottleneck']}", flush=True)
+              f"{rec['t_compute']:.2e}, m {rec['t_memory']:.2e}, x "
+              f"{rec['t_collective']:.2e}) -> {rec['bottleneck']}",
+              flush=True)
     return rec
 
 
@@ -92,32 +109,39 @@ def main(argv=None) -> None:
                          "results tagged with --tag")
     ap.add_argument("--tag", default="")
     args = ap.parse_args(argv)
-    if args.multi_pod or args.both_meshes:
-        raise SystemExit("--multi-pod and --both-meshes lower onto the "
-                         "production meshes, which wait for the multi-card "
-                         "slice: this dry run prices one card")
 
     overrides = dict(kv.split("=", 1) for kv in args.override)
     archs = [args.arch] if args.arch else all_arch_ids()
     outdir = Path(args.out)
     outdir.mkdir(parents=True, exist_ok=True)
+    meshes = [False, True] if args.both_meshes else \
+        [True] if args.multi_pod else [None]
+    names = {None: "1card", False: "sp", True: "mp"}
 
-    failures = []
+    failures, skipped = [], []
     for arch_id in archs:
         shapes = [args.shape] if args.shape else \
             sorted(get_arch(arch_id).shapes)
         for shape_name in shapes:
-            tag = f"{arch_id}__{shape_name}__1card"
-            if args.tag:
-                tag += f"__{args.tag}"
-            try:
-                rec = run_cell(arch_id, shape_name,
-                               overrides=overrides or None)
-                (outdir / f"{tag}.json").write_text(json.dumps(rec, indent=1))
-            except Exception as e:  # noqa: BLE001 — record and continue
-                failures.append(tag)
-                print(f"FAILED {tag}: {e}")
-                traceback.print_exc()
+            for mp in meshes:
+                tag = f"{arch_id}__{shape_name}__{names[mp]}"
+                if args.tag:
+                    tag += f"__{args.tag}"
+                try:
+                    rec = run_cell(arch_id, shape_name, multi_pod=mp,
+                                   overrides=overrides or None)
+                    (outdir / f"{tag}.json").write_text(
+                        json.dumps(rec, indent=1))
+                except WaitsForSlice as e:
+                    skipped.append(tag)
+                    print(f"SKIPPED {tag}: {e}")
+                except Exception as e:  # noqa: BLE001 — record and continue
+                    failures.append(tag)
+                    print(f"FAILED {tag}: {e}")
+                    traceback.print_exc()
+    if skipped:
+        print(f"\n{len(skipped)} skipped (their mesh slice is still to "
+              f"come): {skipped}")
     if failures:
         print(f"\n{len(failures)} FAILURES: {failures}")
         raise SystemExit(1)

@@ -1,16 +1,24 @@
-"""Step bundles: (arch x shape) -> a step function and its inputs on one
-device (the port of ``src/repro/launch/steps.py``).  This is the one
-bridge that the dry run, the chip smoke run and the launchers share.
+"""Step bundles: (arch x shape x mesh) -> a step function and its inputs
+(the port of ``src/repro/launch/steps.py``).  This is the one bridge that
+the dry run, the chip smoke run and the launchers share.
 
 :func:`build_bundle` returns the step and its arguments: tensors on the
 device asked for.  On ``"meta"`` they hold no storage, the counterpart of
 the reference's ``ShapeDtypeStruct``s, so a dry run of a full-width cell
 allocates nothing (``launch/dryrun.py`` prices it by the op counter); on
 any other device the weights are drawn from a generator seeded 0 and the
-inputs are valid draws (ids below their vocabularies).  One card has no
-mesh, so the reference's shardings have no counterpart and are left out;
+inputs are valid draws (ids below their vocabularies).
 ``donate_argnums`` says which arguments the step updates in place (the
 train state, the KV cache).
+
+With ``mesh`` (``launch/mesh.py``: a live mesh of cards, or a shape-only
+one with ``device="meta"``) the LM serve steps take the rank's shards of
+their arguments, laid out as the reference's ``in_shardings`` say, and
+return the logits and cache as its ``out_shardings`` say; the bundle
+carries both as the port's specs (``repro_torch/sharding.py``).  The
+draws are the one-card draws, each cut to the rank's shard.  The train
+steps and the zoo's bundles on a mesh of more than one card wait for the
+training and zoo slices (:class:`WaitsForSlice`).
 """
 from __future__ import annotations
 
@@ -20,6 +28,7 @@ from typing import Callable
 
 import torch
 
+from repro_torch import sharding as sh
 from repro_torch.common import resolve_device, round_up
 from repro_torch.configs.registry import ArchDef, get_arch
 from repro_torch.models import transformer_lm as tlm
@@ -34,6 +43,10 @@ Spec = tuple[tuple[int, ...], torch.dtype]
 GNN_PAD_MULTIPLE = 128
 
 
+class WaitsForSlice(NotImplementedError):
+    """A bundle that a later slice of the port puts on a mesh."""
+
+
 @dataclasses.dataclass
 class StepBundle:
     name: str
@@ -41,14 +54,20 @@ class StepBundle:
     args: tuple
     donate_argnums: tuple[int, ...] = ()
     model_flops_per_step: float = 0.0   # 6·N·D-style useful-FLOPs estimate
+    #: on a mesh: the specs of the arguments and of the result, as the
+    #: reference's shardings (None on one card)
+    in_shardings: tuple | None = None
+    out_shardings: tuple | None = None
 
 
 class _Draw:
     """Fills a bundle's inputs on its device: nothing on ``meta``, else
-    from one generator seeded 0 (the weights first, then the inputs)."""
+    from one generator seeded 0 (the weights first, then the inputs).
+    With ``mesh``, each draw is made whole and cut to the rank's shard."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, mesh=None):
         self.device = device
+        self.mesh = mesh
         self.gen = None if device.type == "meta" else \
             torch.Generator(device).manual_seed(0)
 
@@ -57,12 +76,20 @@ class _Draw:
         ``cfg``: uninitialised on ``meta``, else ``init_params``' draw."""
         if self.gen is None:
             if module is tlm:
-                return tlm.TransformerLM(cfg, self.device)
+                return tlm.TransformerLM(cfg, self.device, mesh=self.mesh)
             name = _CLASS[module.__name__.rsplit(".", 1)[-1]]
             return getattr(module, name)(cfg, self.device)
         if module is tlm:
-            return tlm.init_params(cfg, self.gen)
+            return tlm.init_params(cfg, self.gen, mesh=self.mesh)
         return module.init_params(cfg, self.gen, self.device)
+
+    def shard(self, t: torch.Tensor, spec) -> torch.Tensor:
+        """The rank's shard of ``t`` by ``spec`` (all of it without a
+        mesh)."""
+        if self.mesh is None:
+            return t
+        return t[sh.local_slices(spec, t.shape, self.mesh,
+                                 self.mesh.coords)].clone()
 
     def empty(self, shape, dtype) -> torch.Tensor:
         return torch.empty(shape, dtype=dtype, device=self.device)
@@ -123,8 +150,11 @@ def _lm_serve(arch: ArchDef, shape_name: str, cell,
     place (the reference donates it: a functional copy of decode_32k's
     cache would not fit the card).  The decode position is a 0-d int32
     tensor on the host, the last slot of the cache: the port's
-    ``decode_step`` slices the cache at it."""
+    ``decode_step`` slices the cache at it.  On a mesh the tokens, the
+    cache (its whole shape under "shape") and the parameters are the
+    rank's shards."""
     cfg = arch.model_cfg(shape_name)
+    mesh = draw.mesh
     params = draw.params(tlm, cfg)
     if cell["kind"] == "prefill":
         B, S = cell["batch"], cell["seq"]
@@ -133,24 +163,37 @@ def _lm_serve(arch: ArchDef, shape_name: str, cell,
         B, T = cell["batch"], cell["kv_len"]
         S, new_tokens = 1, B
     tokens = draw.ints((B, S), cfg.vocab)
-    shape = (cfg.n_layers, B, T, cfg.n_kv, cfg.d_head)
-    cache = {n: torch.zeros(shape, dtype=cfg.dtype, device=draw.device)
-             for n in ("k", "v")}
+    if mesh is None:
+        shape = (cfg.n_layers, B, T, cfg.n_kv, cfg.d_head)
+        cache = {n: torch.zeros(shape, dtype=cfg.dtype, device=draw.device)
+                 for n in ("k", "v")}
+        in_sh = out_sh = None
+    else:
+        specs = tlm.serve_specs(cfg, mesh, B, S, T)
+        tokens = draw.shard(tokens, specs["tokens"])
+        cache = tlm.init_kv_cache(cfg, B, T, device=draw.device, mesh=mesh)
+        cache_sh = {"k": specs["cache"], "v": specs["cache"]}
+        in_sh = (tlm.param_specs(cfg, mesh), specs["tokens"], cache_sh)
+        if cell["kind"] != "prefill":
+            in_sh += (sh.P(),)
+        out_sh = (specs["logits"], cache_sh)
 
     if cell["kind"] == "prefill":
         @torch.no_grad()
         def serve_step(params, tokens, cache):
-            return tlm.prefill(cfg, params, tokens, cache)
+            return tlm.prefill(cfg, params, tokens, cache, mesh=mesh)
         args = (params, tokens, cache)
     else:
         @torch.no_grad()
         def serve_step(params, tokens, cache, pos):
-            return tlm.decode_step(cfg, params, tokens, cache, int(pos))
+            return tlm.decode_step(cfg, params, tokens, cache, int(pos),
+                                   mesh=mesh)
         args = (params, tokens, cache,
                 torch.tensor(T - 1, dtype=torch.int32))
     return StepBundle(
         name="serve_step", fn=serve_step, args=args, donate_argnums=(2,),
-        model_flops_per_step=_lm_model_flops(cfg, new_tokens, "serve"))
+        model_flops_per_step=_lm_model_flops(cfg, new_tokens, "serve"),
+        in_shardings=in_sh, out_shardings=out_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -387,11 +430,10 @@ def _coerce(val):
 
 def _apply_overrides(arch: ArchDef, overrides: dict[str, str]) -> ArchDef:
     """Hillclimb lever: ``attn_impl=flash moe.capacity_factor=...`` applied
-    on top of the arch's model config (``dataclasses.replace``), and
+    on top of the arch's model config (``dataclasses.replace``; the mesh
+    knobs ``sharding_profile`` and ``seq_parallel`` among them), and
     ``train_microbatches`` on the arch.  A key that the config does not
-    carry raises (the reference's mesh knobs ``sharding_profile`` and
-    ``seq_parallel`` among them: one card has no mesh), as does a ``moe.``
-    key on a dense config."""
+    carry raises, as does a ``moe.`` key on a dense config."""
     if not overrides:
         return arch
     base_fn = arch.model_cfg
@@ -418,8 +460,7 @@ def _apply_overrides(arch: ArchDef, overrides: dict[str, str]) -> ArchDef:
             else:
                 raise KeyError(f"override {key!r}: the port's "
                                f"{type(cfg).__name__} has no such field "
-                               f"(it has {sorted(fields)}); the mesh knobs "
-                               f"wait for the multi-card slice")
+                               f"(it has {sorted(fields)})")
         if moe_kv:
             top["moe"] = dataclasses.replace(cfg.moe, **moe_kv)
         return dataclasses.replace(cfg, **top) if top else cfg
@@ -430,11 +471,12 @@ def _apply_overrides(arch: ArchDef, overrides: dict[str, str]) -> ArchDef:
         train_microbatches=int(mb) if mb else arch.train_microbatches)
 
 
-def build_bundle(arch_id: str, shape_name: str, *, device=None,
+def build_bundle(arch_id: str, shape_name: str, *, device=None, mesh=None,
                  opt_cfg: opt_lib.AdamWConfig | None = None,
                  overrides: dict[str, str] | None = None) -> StepBundle:
     """The step of ``arch_id`` at ``shape_name`` with its arguments on
-    ``device`` (``None`` = the card; ``"meta"`` for a dry run)."""
+    ``device`` (``None`` = the card, or the mesh's; ``"meta"`` for a dry
+    run), on ``mesh`` (None: one card)."""
     arch = get_arch(arch_id)
     if shape_name not in arch.shapes:
         raise KeyError(f"{arch_id} has no shape {shape_name}; "
@@ -442,7 +484,20 @@ def build_bundle(arch_id: str, shape_name: str, *, device=None,
     arch = _apply_overrides(arch, overrides or {})
     cell = arch.shapes[shape_name]
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
-    draw = _Draw(resolve_device(device))
+    if device is None and mesh is not None and mesh.device is not None:
+        device = mesh.device
+    device = resolve_device(device)
+    if mesh is not None and not mesh.live and device.type != "meta":
+        raise ValueError(f"a shape-only mesh ({mesh}) takes tensors on "
+                         f"meta, not on {device}")
+    if mesh is not None and (arch.family != "lm" or cell["kind"] == "train"):
+        if mesh.size > 1:
+            raise WaitsForSlice(
+                f"{arch_id} x {shape_name} on a mesh of {mesh.size} cards: "
+                f"{'training' if cell['kind'] == 'train' else 'the zoo'} on "
+                f"the mesh waits for its slice of the port")
+        mesh = None                   # one card
+    draw = _Draw(device, mesh)
     if arch.family == "lm":
         if cell["kind"] == "train":
             return _lm_train(arch, cell, draw, opt_cfg)

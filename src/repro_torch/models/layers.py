@@ -24,10 +24,13 @@ paths (CUDA-graph captures included) rely on; the trainer
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 from torch import nn
 
+from repro_torch import collectives as C
+from repro_torch import sharding as sh
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.kernels.flash_attention.ops import flash_attention, \
     flash_attention_xla
@@ -185,6 +188,25 @@ class AttnDims:
     rope_theta: float = 10000.0
 
 
+def project(dims: AttnDims, w: dict, x: torch.Tensor,
+            positions: torch.Tensor, cos_sin=None):
+    """The attention projections of x [B, S, d] by the weights ``w``
+    (wq, wk, wv and, with ``qkv_bias``, bq, bk, bv; each with its own head
+    count) -> q, k, v [B, S, heads, D], RoPE applied to q and k."""
+    B, S, d = x.shape
+
+    def proj(w):
+        return (x @ w.reshape(d, -1)).reshape(B, S, w.shape[1], dims.d_head)
+
+    q, k, v = proj(w["wq"]), proj(w["wk"]), proj(w["wv"])
+    if dims.qkv_bias:
+        q, k, v = q + w["bq"], k + w["bk"], v + w["bv"]
+    if cos_sin is None:
+        cos_sin = rope_cos_sin(positions, dims.d_head, dims.rope_theta)
+    return (apply_rope(q, positions, cos_sin=cos_sin),
+            apply_rope(k, positions, cos_sin=cos_sin), v)
+
+
 class Attention(nn.Module):
     """The attention projections: wq/wk/wv [d_model, heads, d_head], wo
     [n_q, d_head, d_model], and bq/bk/bv [heads, d_head] with
@@ -208,40 +230,14 @@ class Attention(nn.Module):
                 cos_sin=None):
         """x [B, S, d] -> q [B, S, n_q, D], k and v [B, S, n_kv, D], RoPE
         applied to q and k (``cos_sin``: tables made already)."""
-        B, S, d = x.shape
-        dims = self.dims
-
-        def proj(w):
-            return (x @ w.reshape(d, -1)).reshape(B, S, w.shape[1],
-                                                   dims.d_head)
-
-        q, k, v = proj(self.wq), proj(self.wk), proj(self.wv)
-        if dims.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        if cos_sin is None:
-            cos_sin = rope_cos_sin(positions, dims.d_head, dims.rope_theta)
-        return (apply_rope(q, positions, cos_sin=cos_sin),
-                apply_rope(k, positions, cos_sin=cos_sin), v)
+        w = {n: getattr(self, n) for n in ("wq", "wk", "wv") +
+             (("bq", "bk", "bv") if self.dims.qkv_bias else ())}
+        return project(self.dims, w, x, positions, cos_sin)
 
     def out(self, o: torch.Tensor) -> torch.Tensor:
         """[B, S, n_q, D] -> [B, S, d_model]."""
         B, S = o.shape[:2]
         return o.reshape(B, S, -1) @ self.wo.reshape(-1, self.dims.d_model)
-
-
-def attn_init(generator: torch.Generator, dims: AttnDims,
-              dtype=DEFAULT_DTYPE) -> Attention:
-    """An :class:`Attention` on the generator's device, weights drawn with
-    :func:`dense_init`, biases zero."""
-    p = Attention(dims, dtype, generator.device)
-    with torch.no_grad():
-        for name in ("wq", "wk", "wv", "wo"):
-            w = getattr(p, name)
-            w.copy_(dense_init(generator, tuple(w.shape), dtype))
-        if dims.qkv_bias:
-            for name in ("bq", "bk", "bv"):
-                getattr(p, name).zero_()
-    return p
 
 
 def _once(memo: dict | None, key, make):
@@ -326,3 +322,233 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
 def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
     hidden = torch.nn.functional.silu(x @ p.w_gate) * (x @ p.w_up)
     return hidden @ p.w_down
+
+
+# ---------------------------------------------------------------------------
+# the sublayers on a mesh: each module's parameters are the rank's shards,
+# their specs in ``module.shard_specs`` (``transformer_lm.TransformerLM``)
+# ---------------------------------------------------------------------------
+
+def gather_at_use(w: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
+    """The rank's shard ``w`` of a weight with every sharded dim gathered
+    but those in ``keep``: the ZeRO-3 gather at use, one layer at a
+    time."""
+    for i in range(w.dim()):
+        if i not in keep:
+            w = C.all_gather(w, mesh, sh.spec_axes(spec, i), i)
+    return w
+
+
+def tp_axes(mesh, dims, token_axes) -> tuple[str, ...]:
+    """The axes over which a sublayer runs tensor-parallel: those that
+    shard every (spec, dim) of ``dims`` alike, where none of them also
+    shards the tokens (ranks along them hold the same rows); else ()."""
+    axes = {sh.spec_axes(spec, d) for spec, d in dims}
+    if len(axes) != 1:
+        return ()
+    (axes,) = axes
+    return () if set(axes) & set(token_axes) else axes
+
+
+def _offset(mesh, axes, n_local: int) -> int:
+    """Where this rank's block of ``n_local`` starts along a dim sharded
+    over ``axes``."""
+    return sh.shard_index(mesh, axes, mesh.coords) * n_local
+
+
+def _kv_for_heads(k, v, h0: int, n_local: int, n_q: int):
+    """k, v with all kv heads -> those that q heads [h0, h0 + n_local)
+    read, laid out so that local q head i reads local kv head i // G'."""
+    G = n_q // k.shape[2]
+    if n_local % G == 0 or G % n_local == 0:
+        lo = h0 // G
+        n = max(1, n_local // G)
+        return k[:, :, lo:lo + n], v[:, :, lo:lo + n]
+    idx = torch.div(torch.arange(h0, h0 + n_local, device=k.device), G,
+                    rounding_mode="floor")
+    return k[:, :, idx], v[:, :, idx]
+
+
+def _heads_to_seq(t, mesh, head_axes, seq_axes, T_local: int):
+    """t [B, S, h, D] (this rank's kv heads of every fresh position) ->
+    [B, T_local, h * m, D]: all heads of the positions of this rank's cache
+    slice, by one all-to-all over ``head_axes`` (m ranks), positions past
+    S zero."""
+    m = math.prod(mesh.shape[a] for a in head_axes)
+    S = t.shape[1]
+    T = T_local * math.prod(mesh.shape[a] for a in seq_axes)
+    if S < T:
+        t = torch.nn.functional.pad(t, (0, 0, 0, 0, 0, T - S))
+    starts = []
+    for j in range(m):
+        coords = dict(mesh.coords)
+        rest = j
+        for a in reversed(head_axes):
+            coords[a] = rest % mesh.shape[a]
+            rest //= mesh.shape[a]
+        starts.append(sh.shard_index(mesh, seq_axes, coords) * T_local)
+    send = torch.stack([t[:, s:s + T_local] for s in starts])
+    recv = C.all_to_all(send, mesh, head_axes)      # [m, B, T_l, h, D]
+    B, h, D = t.shape[0], t.shape[2], t.shape[3]
+    return recv.permute(1, 2, 0, 3, 4).reshape(B, T_local, m * h, D)
+
+
+def _decode_attention(q, ck, cv, bias, mesh, seq_axes):
+    """One decode position's GQA attention over a cache whose positions
+    are sharded over ``seq_axes``: q [B, 1, n_q, D] (all heads), this
+    rank's ck/cv [B, T_l, n_kv, D], bias [.., 1, T_l].  The softmax runs
+    across the shards: the scores' max and the sum of their exponentials
+    are all-reduced, so each rank's probabilities are the unsharded ones;
+    the products with v are summed over the shards in fp32."""
+    B, S, n_q, D = q.shape
+    n_kv = ck.shape[2]
+    qg = q.reshape(B, S, n_kv, n_q // n_kv, D)
+    scores = torch.einsum("bskgd,btkd->bkgst", qg.to(torch.float32),
+                          ck.to(torch.float32))
+    while bias.dim() < scores.dim():
+        bias = bias[None]
+    scores.mul_(D ** -0.5).add_(bias)
+    top = C.all_reduce(scores.amax(-1, keepdim=True), mesh, seq_axes, "max")
+    p = torch.exp(scores.sub_(top))
+    total = C.all_reduce(p.sum(-1, keepdim=True), mesh, seq_axes)
+    probs = p.div_(total).to(cv.dtype)
+    out = torch.einsum("bkgst,btkd->bskgd", probs, cv).to(torch.float32)
+    out = C.all_reduce(out, mesh, seq_axes)
+    return out.to(q.dtype).reshape(B, S, n_q, D)
+
+
+def attn_apply_sharded(p: Attention, x: torch.Tensor, *,
+                       positions: torch.Tensor, kv_cache, cache_index: int,
+                       chunk: int = 0, impl: str = "xla", mesh,
+                       token_axes=(), seq_axes=(),
+                       memo: dict | None = None) -> torch.Tensor:
+    """:func:`attn_apply` on a mesh, for a prefill at offset 0 or a
+    decode step of one position.  x [B_l, S, d] is the rank's rows
+    (sharded over ``token_axes``); ``kv_cache`` the rank's cache slice
+    [B_l, T_l, n_kv, D], its positions sharded over ``seq_axes``.
+
+    q heads run Megatron-style over the axes that shard both wq's and
+    wo's Q_HEADS dims (the output projection's partial sums all-reduced
+    there); kv heads too when KV_HEADS is sharded alike, else every rank
+    computes them all.  A weight's EMBED and HEAD_DIM shards are gathered
+    at use.  A prefill writes its rank's cache slice (all heads of its
+    positions: one all-to-all from local heads) and attends over the fresh
+    tokens on its local heads, on the flash-attention kernel with
+    ``impl="pallas"``; a decode step gathers q's heads, writes the new
+    position on the rank that holds it, and attends over the sharded cache
+    (:func:`_decode_attention`), as the einsum path."""
+    dims, specs = p.dims, p.shard_specs
+    S = x.shape[1]
+    bias_names = ("bq", "bk", "bv") if dims.qkv_bias else ()
+    q_dims = [(specs["wq"], 1), (specs["wo"], 0)] + \
+        ([(specs["bq"], 0)] if dims.qkv_bias else [])
+    kv_dims = [(specs[n], 1) for n in ("wk", "wv")] + \
+        [(specs[n], 0) for n in bias_names[1:]]
+    aq = tp_axes(mesh, q_dims, token_axes)
+    akv = tp_axes(mesh, kv_dims, token_axes)
+    if akv != aq:
+        akv = ()
+    w = {}
+    for name in ("wq", "wk", "wv") + bias_names:
+        axes = aq if name[1] == "q" else akv
+        head_dim = 1 if name[0] == "w" else 0
+        w[name] = gather_at_use(getattr(p, name), specs[name], mesh,
+                                (head_dim,) if axes else ())
+    wo = gather_at_use(p.wo, specs["wo"], mesh, (0,) if aq else ())
+    rope = _once(memo, "rope", lambda: rope_cos_sin(
+        positions, dims.d_head, dims.rope_theta))
+    q, k, v = project(dims, w, x, positions, rope)
+    n_q_l = q.shape[2]
+    h0 = _offset(mesh, aq, n_q_l)
+    ck, cv = kv_cache
+    T_l = ck.shape[1]
+    t0 = _offset(mesh, seq_axes, T_l)
+    if cache_index == 0 and S > 1:
+        if akv:
+            kf = _heads_to_seq(k, mesh, akv, seq_axes, T_l)
+            vf = _heads_to_seq(v, mesh, akv, seq_axes, T_l)
+            n = max(0, min(T_l, S - t0))
+            ck[:, :n] = kf[:, :n].to(ck.dtype)
+            cv[:, :n] = vf[:, :n].to(cv.dtype)
+            kl, vl = k, v
+        else:
+            n = max(0, min(T_l, S - t0))
+            ck[:, :n] = k[:, t0:t0 + n].to(ck.dtype)
+            cv[:, :n] = v[:, t0:t0 + n].to(cv.dtype)
+            kl, vl = (k, v) if not aq else \
+                _kv_for_heads(k, v, h0, n_q_l, dims.n_q)
+        if impl in ("pallas", "flash"):
+            attend = flash_attention_xla if impl == "flash" \
+                else flash_attention
+            out = attend(q, kl, vl, causal=True, chunk=chunk)
+        else:
+            bias = _once(memo, ("bias", chunk), lambda: attention_bias(
+                positions, positions, causal=True, chunk=chunk))
+            out = gqa_attention(q, kl, vl, bias, impl="xla")
+    elif S == 1:
+        k = C.all_gather(k, mesh, akv, 2)
+        v = C.all_gather(v, mesh, akv, 2)
+        if t0 <= cache_index < t0 + T_l:
+            ck[:, cache_index - t0] = k[:, 0].to(ck.dtype)
+            cv[:, cache_index - t0] = v[:, 0].to(cv.dtype)
+
+        def cache_bias():                # [1, 1, 1, 1, T_l]
+            k_pos = t0 + torch.arange(T_l, device=x.device)
+            return attention_bias(positions, k_pos, causal=True, chunk=chunk,
+                                  kv_valid_len=cache_index + 1
+                                  )[:, None, None]
+
+        bias = _once(memo, ("cache bias", chunk), cache_bias)
+        out = _decode_attention(C.all_gather(q, mesh, aq, 2), ck, cv, bias,
+                                mesh, seq_axes)[:, :, h0:h0 + n_q_l]
+    else:
+        raise NotImplementedError(
+            f"a pass of {S} positions at offset {cache_index}: on a mesh "
+            f"the LM runs a prefill at offset 0 or one decode position")
+    B = x.shape[0]
+    y = out.reshape(B, S, -1) @ wo.reshape(-1, dims.d_model)
+    return C.all_reduce(y, mesh, aq)
+
+
+def mlp_apply_sharded(p: MLP, x: torch.Tensor, mesh,
+                      token_axes=()) -> torch.Tensor:
+    """:func:`mlp_apply` on a mesh: column-parallel gate and up,
+    row-parallel down (its partial sums all-reduced) over the axes that
+    shard the three MLP dims alike; the EMBED shards gathered at use."""
+    specs = p.shard_specs
+    am = tp_axes(mesh, [(specs["w_gate"], 1), (specs["w_up"], 1),
+                        (specs["w_down"], 0)], token_axes)
+    wg = gather_at_use(p.w_gate, specs["w_gate"], mesh, (1,) if am else ())
+    wu = gather_at_use(p.w_up, specs["w_up"], mesh, (1,) if am else ())
+    wd = gather_at_use(p.w_down, specs["w_down"], mesh, (0,) if am else ())
+    hidden = torch.nn.functional.silu(x @ wg) * (x @ wu)
+    return C.all_reduce(hidden @ wd, mesh, am)
+
+
+def embed_lookup(embed: torch.Tensor, spec, tokens: torch.Tensor, mesh,
+                 token_axes=(), dtype=DEFAULT_DTYPE) -> torch.Tensor:
+    """``embed[tokens]`` in ``dtype`` from the rank's shard of the
+    embedding [vocab, d]: vocab-parallel where VOCAB is sharded (each rank
+    looks up the ids in its rows, zeros elsewhere, and the rows are
+    all-reduced), the EMBED shard gathered at use."""
+    av = tp_axes(mesh, [(spec, 0)], token_axes)
+    w = gather_at_use(embed, spec, mesh, (0,) if av else ()).to(dtype)
+    ids = tokens.long()
+    if not av:
+        return w[ids]
+    n = w.shape[0]
+    ids = ids - _offset(mesh, av, n)
+    mine = (ids >= 0) & (ids < n)
+    x = torch.where(mine[..., None], w[ids.clamp(0, n - 1)], 0)
+    return C.all_reduce(x, mesh, av)
+
+
+def vocab_logits(x: torch.Tensor, w: torch.Tensor, spec, vocab_dim: int,
+                 mesh, token_axes=(), dtype=DEFAULT_DTYPE):
+    """(x [B_l, d] @ the unembedding in ``dtype``, the axes its vocab
+    columns are sharded over): ``w`` the rank's shard of the unembedding
+    [d, vocab] (``vocab_dim`` 1) or of the tied embedding [vocab, d]
+    (``vocab_dim`` 0).  The logits stay vocab-sharded where VOCAB is."""
+    av = tp_axes(mesh, [(spec, vocab_dim)], token_axes)
+    w = gather_at_use(w, spec, mesh, (vocab_dim,) if av else ()).to(dtype)
+    return x @ (w.T if vocab_dim == 0 else w), av

@@ -30,9 +30,12 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch import collectives as C
+from repro_torch import sharding as sh
 from repro_torch.common import DEFAULT_DTYPE, cdiv, resolve_device, round_up, \
     topk
-from repro_torch.models.layers import MLP, dense_init, mlp_apply, mlp_init
+from repro_torch.models.layers import MLP, dense_init, gather_at_use, \
+    mlp_apply, mlp_apply_sharded, mlp_init
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -137,11 +140,13 @@ def _routing(xt: torch.Tensor, router: torch.Tensor, cfg: MoEConfig,
     return gates.to(xt.dtype), expert_idx, metrics
 
 
-def _expert_ffn(p: MoE, buf: torch.Tensor) -> torch.Tensor:
-    """buf [E, C, d] -> [E, C, d] via each expert's SwiGLU."""
-    h = F.silu(torch.bmm(buf, p.w_gate), inplace=True)
-    h.mul_(torch.bmm(buf, p.w_up))
-    return torch.bmm(h, p.w_down)
+def _expert_ffn(p: MoE, buf: torch.Tensor, w=None) -> torch.Tensor:
+    """buf [E, C, d] -> [E, C, d] via each expert's SwiGLU (the weights
+    ``w`` = (w_gate, w_up, w_down) in place of ``p``'s when given)."""
+    w_gate, w_up, w_down = w or (p.w_gate, p.w_up, p.w_down)
+    h = F.silu(torch.bmm(buf, w_gate), inplace=True)
+    h.mul_(torch.bmm(buf, w_up))
+    return torch.bmm(h, w_down)
 
 
 def _slots(cfg: MoEConfig, n, multiple: int):
@@ -282,3 +287,60 @@ def moe_apply(p: MoE, x: torch.Tensor, cfg: MoEConfig, *, n_rows=None,
     if cfg.n_shared:
         out = out + mlp_apply(p.shared, x).reshape(B * S, d)
     return out.reshape(B, S, d), metrics
+
+
+def moe_apply_sharded(p: MoE, x: torch.Tensor, cfg: MoEConfig, mesh,
+                      token_axes=(), *,
+                      expert_idx: torch.Tensor | None = None):
+    """:func:`moe_apply` (scatter dispatch) on a mesh, with the experts
+    sharded over the axes of their EXPERTS dim (expert parallelism).  x
+    [B_l, S, d] is the rank's rows (sharded over ``token_axes``).  The
+    rows are gathered, so every rank routes all B x S tokens as the
+    unsharded layer does: the same choices, positions and capacity drops,
+    and the same metrics.  Each rank runs its own experts over their
+    slots, combines their outputs for its rows and all-reduces the sums
+    over the expert axes (for all rows where those axes also shard the
+    tokens); weight shards on other dims are gathered at use.
+    ``expert_idx`` [B * S, k], the whole batch's, pins the routing as in
+    :func:`moe_apply`."""
+    if cfg.dispatch != "scatter":
+        raise NotImplementedError(f"dispatch {cfg.dispatch!r} on a mesh: "
+                                  f"the mesh path dispatches by scatter")
+    specs = p.shard_specs
+    B_l, S, d = x.shape
+    xa = C.all_gather(x, mesh, token_axes, 0)
+    B = xa.shape[0]
+    xt = xa.reshape(B * S, d)
+    router = gather_at_use(p.router, specs["router"], mesh)
+    gates, expert_idx, metrics = _routing(xt, router, cfg, expert_idx)
+    ax = {sh.spec_axes(specs[n], 0) for n in ("w_gate", "w_up", "w_down")}
+    ax = ax.pop() if len(ax) == 1 else ()
+    w = tuple(gather_at_use(getattr(p, n), specs[n], mesh,
+                            (0,) if ax else ())
+              for n in ("w_gate", "w_up", "w_down"))
+    E_l = w[0].shape[0]
+    e0 = sh.shard_index(mesh, ax, mesh.coords) * E_l
+    capacity = scatter_capacity(cfg, B, S)
+    flat_e, slot, keep = scatter_slots(expert_idx, cfg.n_experts, capacity)
+    local_e = flat_e - e0
+    mine = keep & (local_e >= 0) & (local_e < E_l)
+    buf = _scatter_buffer(xt, local_e, slot, mine, E_l, capacity)
+    y = _expert_ffn(p, buf, w)
+    # the rows whose outputs this rank sums: its own, unless ranks along
+    # the expert axes hold other rows
+    k = cfg.top_k
+    own = not (set(mesh.axes(ax)) & set(mesh.axes(token_axes)))
+    r0 = sh.shard_index(mesh, token_axes, mesh.coords) * B_l if own else 0
+    n = B_l if own else B
+    a = slice(r0 * S * k, (r0 + n) * S * k)
+    out = _scatter_combine(y, local_e[a], slot[a], mine[a],
+                           gates[r0 * S:(r0 + n) * S])
+    out = C.all_reduce(out, mesh, ax)
+    if not own:
+        lo = sh.shard_index(mesh, token_axes, mesh.coords) * B_l * S
+        out = out[lo:lo + B_l * S]
+    metrics["dropped"] = (~keep).sum()
+    if cfg.n_shared:
+        out = out + mlp_apply_sharded(p.shared, x, mesh,
+                                      token_axes).reshape(B_l * S, d)
+    return out.reshape(B_l, S, d), metrics

@@ -21,8 +21,20 @@ as in the JAX package.  Training (:func:`forward`, :func:`loss_fn`) takes
 (``torch.utils.checkpoint``, as the JAX package checkpoints its scan
 body).  :func:`lm_from_arrays` carries a JAX ``init_params`` tree across
 and :func:`lm_to_arrays` carries it back, so both packages compute one
-function.  The JAX config's mesh knobs (``sharding_profile``,
-``seq_parallel``) have no field here: one card has no mesh.
+function.
+
+On a mesh of cards (``launch/mesh.py``) the LM is sharded as the
+reference shards it: ``sharding_profile`` picks the profile of
+``repro_torch/sharding.py`` that maps :func:`param_logical` and
+:func:`kv_cache_logical` onto the mesh, each rank holds its shard of every
+parameter and of the cache, and :func:`prefill` and :func:`decode_step`
+run on the shards (``layers.attn_apply_sharded``,
+``layers.mlp_apply_sharded``, ``moe.moe_apply_sharded``, vocab-parallel
+embedding and logits), with the collectives of
+``repro_torch/collectives.py`` where GSPMD would insert them.
+``seq_parallel`` names the residual's sequence axis ``"model"``, as the
+reference's layer boundary does; no profile has a rule for that name, so
+the residual keeps its sequence whole there too.
 """
 from __future__ import annotations
 
@@ -34,9 +46,11 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import sharding as sh
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.sharding import Ax
 
 
 @dataclasses.dataclass(frozen=True, kw_only=True)
@@ -61,6 +75,8 @@ class LMConfig:
     # execution knobs
     attn_impl: str = "xla"           # "xla" | "pallas" | "flash"
     remat: bool = True               # recompute each layer in the backward
+    sharding_profile: str = "tp"     # a key of sharding.PROFILES
+    seq_parallel: bool = False       # name the residual's seq dim 'model'
     dtype: Any = DEFAULT_DTYPE
 
     @property
@@ -130,89 +146,266 @@ class Block(nn.Module):
 class TransformerLM(nn.Module):
     """The LM's parameters: ``embed`` [vocab, d_model], one :class:`Block`
     per layer, ``ln_final`` and, without tied embeddings, ``unembed``
-    [d_model, vocab], on ``device`` (``None`` = the card).  Made
-    uninitialised; :func:`init_params` draws them and
-    :func:`lm_from_arrays` copies them in."""
+    [d_model, vocab], on ``device`` (``None`` = the card, or the mesh's
+    device).  Made uninitialised; :func:`init_params` draws them and
+    :func:`lm_from_arrays` copies them in.
+
+    With ``mesh`` each parameter is the rank's shard, of the shape its
+    spec gives (:func:`param_specs`; a layer's spec without the stacked
+    L dim), and each module keeps its parameters' specs in
+    ``shard_specs``; ``mesh`` is kept as ``lm.mesh`` (None without)."""
 
     #: the JAX package stacks these parameters on a leading L axis (its
     #: tree's ``layers``), which the optimizer's weight decay counts
     stacked_prefixes = ("layers.",)
 
-    def __init__(self, cfg: LMConfig, device=None):
+    def __init__(self, cfg: LMConfig, device=None, mesh=None):
         super().__init__()
+        if device is None and mesh is not None and mesh.device is not None:
+            device = mesh.device
         device = resolve_device(device)
+        # on a mesh: made on meta at full size, then each parameter is
+        # replaced by its shard
+        at = torch.device("meta") if mesh is not None else device
         self.embed = nn.Parameter(
             torch.empty(cfg.vocab, cfg.d_model, dtype=cfg.dtype,
-                        device=device), requires_grad=False)
-        self.layers = nn.ModuleList(Block(cfg, device)
+                        device=at), requires_grad=False)
+        self.layers = nn.ModuleList(Block(cfg, at)
                                     for _ in range(cfg.n_layers))
         self.ln_final = nn.Parameter(
-            torch.ones(cfg.d_model, dtype=torch.float32, device=device),
+            torch.ones(cfg.d_model, dtype=torch.float32, device=at),
             requires_grad=False)
         self.unembed = None
         if not cfg.tie_embeddings:
             self.unembed = nn.Parameter(
                 torch.empty(cfg.d_model, cfg.vocab, dtype=cfg.dtype,
-                            device=device), requires_grad=False)
+                            device=at), requires_grad=False)
+        self.mesh = mesh
+        if mesh is not None:
+            self._shard(cfg, mesh, device)
+
+    def _shard(self, cfg: LMConfig, mesh, device) -> None:
+        tree = param_specs(cfg, mesh)
+        for name, p in list(self.named_parameters()):
+            spec = _leaf_spec(tree, name)
+            owner_name, _, leaf = name.rpartition(".")
+            owner = self.get_submodule(owner_name)
+            shape = sh.local_shape(spec, p.shape, mesh)
+            make = torch.ones if leaf.startswith("ln") else torch.empty
+            setattr(owner, leaf, nn.Parameter(
+                make(shape, dtype=p.dtype, device=device),
+                requires_grad=False))
+            if "shard_specs" not in owner.__dict__:
+                owner.shard_specs = {}
+            owner.shard_specs[leaf] = spec
+
+    def spec(self, name: str):
+        """The spec of the parameter ``name`` (a dotted parameter name)."""
+        owner_name, _, leaf = name.rpartition(".")
+        return self.get_submodule(owner_name).shard_specs[leaf]
 
 
-def init_params(cfg: LMConfig, generator: torch.Generator) -> TransformerLM:
+def _tree_path(name: str) -> tuple[list[str], bool]:
+    """A dotted parameter name -> (its path in the JAX tree, whether the
+    tree stacks it on L): ``layers.3.attn.wq`` -> (layers/attn/wq, True)."""
+    parts = name.split(".")
+    if parts[0] == "layers":
+        return ["layers", *parts[2:]], True
+    return parts, False
+
+
+def _leaf_spec(tree: dict, name: str):
+    """The spec of parameter ``name`` in a tree of specs of the stacked
+    JAX tree (a layer's without its L dim)."""
+    path, stacked = _tree_path(name)
+    node = tree
+    for part in path:
+        node = node[part]
+    return sh.P(*node[1:]) if stacked else node
+
+
+def param_shapes(cfg: LMConfig) -> dict:
+    """The shape of every leaf of the JAX ``init_params`` tree (layer
+    leaves stacked on a leading L dim)."""
+    n, d, h = cfg.n_layers, cfg.d_model, cfg.d_head
+    attn = {"wq": (n, d, cfg.n_q, h), "wk": (n, d, cfg.n_kv, h),
+            "wv": (n, d, cfg.n_kv, h), "wo": (n, cfg.n_q, h, d)}
+    if cfg.qkv_bias:
+        attn |= {"bq": (n, cfg.n_q, h), "bk": (n, cfg.n_kv, h),
+                 "bv": (n, cfg.n_kv, h)}
+    layer = {"attn": attn, "ln_attn": (n, d), "ln_mlp": (n, d)}
+    if cfg.moe:
+        m = cfg.moe
+        E, f = m.n_experts, m.d_ff_expert
+        layer["moe"] = {"router": (n, d, E), "w_gate": (n, E, d, f),
+                        "w_up": (n, E, d, f), "w_down": (n, E, f, d)}
+        if m.n_shared:
+            fs = m.d_ff_shared or f
+            layer["moe"]["shared"] = {"w_gate": (n, d, fs),
+                                      "w_up": (n, d, fs),
+                                      "w_down": (n, fs, d)}
+    else:
+        layer["mlp"] = {"w_gate": (n, d, cfg.d_ff), "w_up": (n, d, cfg.d_ff),
+                        "w_down": (n, cfg.d_ff, d)}
+    tree = {"embed": (cfg.vocab, d), "layers": layer, "ln_final": (d,)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = (d, cfg.vocab)
+    return tree
+
+
+def param_logical(cfg: LMConfig) -> dict[str, Any]:
+    """Logical-axis tree mirroring :func:`param_shapes` (the reference's
+    ``param_logical``)."""
+    attn = {
+        "wq": Ax(None, sh.EMBED, sh.Q_HEADS, sh.HEAD_DIM),
+        "wk": Ax(None, sh.EMBED, sh.KV_HEADS, sh.HEAD_DIM),
+        "wv": Ax(None, sh.EMBED, sh.KV_HEADS, sh.HEAD_DIM),
+        "wo": Ax(None, sh.Q_HEADS, sh.HEAD_DIM, sh.EMBED),
+    }
+    if cfg.qkv_bias:
+        attn |= {"bq": Ax(None, sh.Q_HEADS, sh.HEAD_DIM),
+                 "bk": Ax(None, sh.KV_HEADS, sh.HEAD_DIM),
+                 "bv": Ax(None, sh.KV_HEADS, sh.HEAD_DIM)}
+    layer = {"attn": attn,
+             "ln_attn": Ax(None, None), "ln_mlp": Ax(None, None)}
+    if cfg.moe:
+        layer["moe"] = {
+            "router": Ax(None, sh.EMBED, None),
+            "w_gate": Ax(None, sh.EXPERTS, sh.EMBED, sh.MLP),
+            "w_up": Ax(None, sh.EXPERTS, sh.EMBED, sh.MLP),
+            "w_down": Ax(None, sh.EXPERTS, sh.MLP, sh.EMBED),
+        }
+        if cfg.moe.n_shared:
+            layer["moe"]["shared"] = {
+                "w_gate": Ax(None, sh.EMBED, sh.MLP),
+                "w_up": Ax(None, sh.EMBED, sh.MLP),
+                "w_down": Ax(None, sh.MLP, sh.EMBED),
+            }
+    else:
+        layer["mlp"] = {"w_gate": Ax(None, sh.EMBED, sh.MLP),
+                        "w_up": Ax(None, sh.EMBED, sh.MLP),
+                        "w_down": Ax(None, sh.MLP, sh.EMBED)}
+    tree = {"embed": Ax(sh.VOCAB, sh.EMBED),
+            "layers": layer,
+            "ln_final": Ax(None)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = Ax(sh.EMBED, sh.VOCAB)
+    return tree
+
+
+def kv_cache_logical() -> dict:
+    return {"k": Ax(None, sh.BATCH, sh.KV_SEQ, sh.KV_HEADS, None),
+            "v": Ax(None, sh.BATCH, sh.KV_SEQ, sh.KV_HEADS, None)}
+
+
+def profile(cfg: LMConfig, mesh) -> dict:
+    """The sharding profile ``cfg.sharding_profile`` on ``mesh``."""
+    if cfg.sharding_profile not in sh.PROFILES:
+        raise KeyError(f"sharding_profile {cfg.sharding_profile!r}: known "
+                       f"{sorted(sh.PROFILES)}")
+    return sh.PROFILES[cfg.sharding_profile](mesh)
+
+
+def param_specs(cfg: LMConfig, mesh) -> dict:
+    """The spec of every leaf of :func:`param_shapes` on ``mesh``."""
+    return sh.pspec_tree(param_shapes(cfg), param_logical(cfg), mesh,
+                         profile(cfg, mesh))
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator,
+                mesh=None) -> TransformerLM:
     """A fresh draw of every weight (the JAX package's ``init_params``
-    distribution), on the generator's device; an MoE layer's experts are
-    drawn one at a time (``moe_init``)."""
-    lm = TransformerLM(cfg, device=generator.device)
+    distribution), on the generator's device, one leaf at a time: the
+    embedding, then a layer's wq, wk, wv, wo (biases zero), and its
+    router and experts (an expert at a time, as ``moe_init`` draws them)
+    or its MLP, then the unembedding.  With ``mesh`` each leaf is drawn
+    whole and cut to the rank's shard: every rank's shards are slices of
+    the one-card draw from the same seed, and no rank holds more than one
+    whole leaf."""
+    lm = TransformerLM(cfg, device=generator.device, mesh=mesh)
+    d, h = cfg.d_model, cfg.d_head
+
+    def put(name, full, expert=None):
+        _put(lm, name, full, mesh, expert)
+
+    def draw(shape, dtype=cfg.dtype, scale=None):
+        return L.dense_init(generator, shape, dtype, scale)
+
     with torch.no_grad():
-        lm.embed.copy_(L.dense_init(generator, (cfg.vocab, cfg.d_model),
-                                    cfg.dtype, scale=1.0))
-        for blk in lm.layers:
-            blk.attn = L.attn_init(generator, cfg.attn_dims(), cfg.dtype)
+        put("embed", draw((cfg.vocab, d), scale=1.0))
+        for i, blk in enumerate(lm.layers):
+            at = f"layers.{i}."
+            for name, shape in (("wq", (d, cfg.n_q, h)),
+                                ("wk", (d, cfg.n_kv, h)),
+                                ("wv", (d, cfg.n_kv, h)),
+                                ("wo", (cfg.n_q, h, d))):
+                put(at + "attn." + name, draw(shape))
+            if cfg.qkv_bias:
+                for name in ("bq", "bk", "bv"):
+                    getattr(blk.attn, name).zero_()
             if cfg.moe:
-                blk.moe = moe_lib.moe_init(generator, cfg.d_model, cfg.moe,
-                                           cfg.dtype)
+                m = cfg.moe
+                f = m.d_ff_expert
+                put(at + "moe.router", draw((d, m.n_experts), torch.float32))
+                for name, shape in (("w_gate", (d, f)), ("w_up", (d, f)),
+                                    ("w_down", (f, d))):
+                    for e in range(m.n_experts):
+                        put(at + "moe." + name,
+                            draw(shape, scale=m.n_experts ** -0.5), e)
+                if m.n_shared:
+                    fs = m.d_ff_shared or f
+                    for name, shape in (("w_gate", (d, fs)),
+                                        ("w_up", (d, fs)),
+                                        ("w_down", (fs, d))):
+                        put(at + "moe.shared." + name, draw(shape))
             else:
-                blk.mlp = L.mlp_init(generator, cfg.d_model, cfg.d_ff,
-                                     cfg.dtype)
+                for name, shape in (("w_gate", (d, cfg.d_ff)),
+                                    ("w_up", (d, cfg.d_ff)),
+                                    ("w_down", (cfg.d_ff, d))):
+                    put(at + "mlp." + name, draw(shape))
         if lm.unembed is not None:
-            lm.unembed.copy_(L.dense_init(generator, (cfg.d_model, cfg.vocab),
-                                          cfg.dtype))
+            put("unembed", draw((d, cfg.vocab)))
     return lm
 
 
-def lm_from_arrays(cfg: LMConfig, tree: dict, device=None) -> TransformerLM:
+def _put(lm: TransformerLM, name: str, full, mesh, expert=None) -> None:
+    """Copy ``full``, the whole leaf of parameter ``name`` (of its expert
+    ``expert`` alone when given), into ``lm``: whole without ``mesh``, else
+    the rank's slice of it by the parameter's spec (an expert another rank
+    holds is skipped)."""
+    p = lm.get_parameter(name)
+    if mesh is None:
+        (p if expert is None else p[expert]).copy_(full)
+        return
+    spec = lm.spec(name)
+    if expert is not None:
+        e = expert - sh.shard_index(mesh, sh.spec_axes(spec, 0),
+                                    mesh.coords) * p.shape[0]
+        if not 0 <= e < p.shape[0]:
+            return
+        p, spec = p[e], sh.P(*spec[1:])
+    p.copy_(full[sh.local_slices(spec, full.shape, mesh, mesh.coords)])
+
+
+def lm_from_arrays(cfg: LMConfig, tree: dict, device=None,
+                   mesh=None) -> TransformerLM:
     """The LM whose weights are ``tree``, the JAX ``init_params`` tree with
     numpy (or array-like) leaves, layer leaves stacked on a leading L axis
     (an MoE layer's under ``layers["moe"]``: router, experts and
     ``shared``); each is cast to its parameter's dtype on ``device``
-    (``None`` = the card)."""
-    lm = TransformerLM(cfg, device=resolve_device(device))
-
-    def put(param, a):
-        param.copy_(torch.from_numpy(np.array(a, np.float32)))
-
+    (``None`` = the card, or the mesh's).  With ``mesh`` each parameter
+    takes the rank's slice of its leaf."""
+    lm = TransformerLM(cfg, device=device, mesh=mesh)
     with torch.no_grad():
-        put(lm.embed, tree["embed"])
-        put(lm.ln_final, tree["ln_final"])
-        if lm.unembed is not None:
-            put(lm.unembed, tree["unembed"])
-        lay = tree["layers"]
-        attn_names = ("wq", "wk", "wv", "wo") + \
-            (("bq", "bk", "bv") if cfg.qkv_bias else ())
-        for i, blk in enumerate(lm.layers):
-            for name in attn_names:
-                put(getattr(blk.attn, name), lay["attn"][name][i])
-            if cfg.moe:
-                moe = lay["moe"]
-                for name in ("router", "w_gate", "w_up", "w_down"):
-                    put(getattr(blk.moe, name), moe[name][i])
-                if cfg.moe.n_shared:
-                    for name in ("w_gate", "w_up", "w_down"):
-                        put(getattr(blk.moe.shared, name),
-                            moe["shared"][name][i])
-            else:
-                for name in ("w_gate", "w_up", "w_down"):
-                    put(getattr(blk.mlp, name), lay["mlp"][name][i])
-            put(blk.ln_attn, lay["ln_attn"][i])
-            put(blk.ln_mlp, lay["ln_mlp"][i])
+        for name, _ in lm.named_parameters():
+            path, stacked = _tree_path(name)
+            a = tree
+            for part in path:
+                a = a[part]
+            a = np.asarray(a)
+            if stacked:
+                a = a[int(name.split(".")[1])]
+            _put(lm, name, torch.from_numpy(np.array(a, np.float32)), mesh)
     return lm
 
 
@@ -312,21 +505,28 @@ def _layer_chunks(cfg: LMConfig) -> list[int]:
 
 
 def _block(cfg: LMConfig, p: Block, x, attend, metrics: list | None = None,
-           **route) -> torch.Tensor:
+           mesh=None, token_axes=(), **route) -> torch.Tensor:
     """One transformer layer: x [B, S, d] -> x'; ``attend(attn, h)`` is
     the attention sublayer's output for the normalised ``h``.  An MoE
     layer passes ``route`` (``n_rows``, ``expert_idx``) to
     :func:`~repro_torch.models.moe.moe_apply` and appends its metrics to
-    ``metrics`` when that is a list."""
+    ``metrics`` when that is a list.  With ``mesh`` the FFN runs on the
+    rank's shards, x being its rows (sharded over ``token_axes``)."""
     h = L.rmsnorm(x, p.ln_attn, cfg.norm_eps)
     x = x + attend(p.attn, h)
     h = L.rmsnorm(x, p.ln_mlp, cfg.norm_eps)
     if cfg.moe:
-        out, m = moe_lib.moe_apply(p.moe, h, cfg.moe, **route)
+        if mesh is None:
+            out, m = moe_lib.moe_apply(p.moe, h, cfg.moe, **route)
+        else:
+            out, m = moe_lib.moe_apply_sharded(p.moe, h, cfg.moe, mesh,
+                                               token_axes, **route)
         if metrics is not None:
             metrics.append(m)
         return x + out
-    return x + L.mlp_apply(p.mlp, h)
+    if mesh is None:
+        return x + L.mlp_apply(p.mlp, h)
+    return x + L.mlp_apply_sharded(p.mlp, h, mesh, token_axes)
 
 
 def _last_logits(cfg: LMConfig, lm: TransformerLM, x) -> torch.Tensor:
@@ -337,24 +537,127 @@ def _last_logits(cfg: LMConfig, lm: TransformerLM, x) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
-                  device=None) -> dict:
+                  device=None, mesh=None) -> dict:
     """{"k", "v"}: zeros [n_layers, batch, max_len, n_kv, d_head] on
-    ``device`` (``None`` = the card)."""
+    ``device`` (``None`` = the card).  With ``mesh``: the rank's shards
+    of them, by :func:`cache_spec`, and under "shape" the whole cache's
+    shape, from which a pass on the mesh reads its layout."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    if mesh is not None:
+        if device is None and mesh.device is not None:
+            device = mesh.device
+        local = sh.local_shape(cache_spec(cfg, mesh, shape), shape, mesh)
+        kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
+        return {"k": torch.zeros(local, **kw), "v": torch.zeros(local, **kw),
+                "shape": shape}
     kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
+def cache_spec(cfg: LMConfig, mesh, shape) -> sh.P:
+    """The spec of a KV cache of ``shape`` (k's and v's alike)."""
+    return sh.resolve_spec(kv_cache_logical()["k"].names, shape, mesh,
+                           profile(cfg, mesh))
+
+
+def serve_specs(cfg: LMConfig, mesh, batch: int, seq: int,
+                cache_len: int) -> dict:
+    """The reference's shardings of a serve step's tokens [batch, seq],
+    cache, logits [batch, vocab] and residual [batch, seq, d_model] (its
+    layer boundary's ``(BATCH, "model" if seq_parallel else None,
+    None)``) on ``mesh``."""
+    prof = profile(cfg, mesh)
+    return {
+        "tokens": sh.resolve_spec((sh.BATCH, None), (batch, seq), mesh, prof),
+        "cache": cache_spec(cfg, mesh, (cfg.n_layers, batch, cache_len,
+                                        cfg.n_kv, cfg.d_head)),
+        "logits": sh.resolve_spec((sh.BATCH, sh.VOCAB), (batch, cfg.vocab),
+                                  mesh, prof),
+        "residual": sh.resolve_spec(
+            (sh.BATCH, "model" if cfg.seq_parallel else None, None),
+            (batch, seq, cfg.d_model), mesh, prof),
+    }
+
+
+def _mesh_of(lm: TransformerLM, mesh):
+    """The mesh a pass runs on: the one the LM's shards were cut for."""
+    held = getattr(lm, "mesh", None)
+    if mesh is not None and mesh is not held:
+        raise ValueError(f"the LM's parameters are sharded for {held}, "
+                         f"not for {mesh}")
+    return held
+
+
+def _serve_pass_sharded(cfg: LMConfig, lm: TransformerLM, tokens, cache,
+                        start_pos: int, metrics: list | None = None,
+                        expert_idx: list | None = None):
+    """:func:`_serve_pass` on ``lm.mesh``: tokens [B_l, S] and the cache
+    are the rank's shards (the cache's whole shape under "shape"); the
+    logits come out as the rank's shard [B_l, vocab_l] of the reference's
+    ``(BATCH, VOCAB)``."""
+    mesh = lm.mesh
+    S = tokens.shape[1]
+    B, T = cache["shape"][1:3]
+    specs = serve_specs(cfg, mesh, B, S, T)
+    tok_axes = sh.spec_axes(specs["tokens"], 0)
+    cspec = specs["cache"]
+    if sh.spec_axes(cspec, 1) != tok_axes or any(
+            sh.spec_axes(cspec, i) for i in (0, 3, 4)):
+        raise NotImplementedError(f"a cache sharded as {cspec} beside tokens "
+                                  f"as {specs['tokens']}")
+    # the six profiles have no rule for the residual's "model": its
+    # sequence stays whole, as at the reference's layer boundary
+    if sh.spec_axes(specs["residual"], 1):
+        raise NotImplementedError(f"a residual sharded as "
+                                  f"{specs['residual']}")
+    seq_axes = sh.spec_axes(cspec, 2)
+    x = L.embed_lookup(lm.embed, lm.spec("embed"), tokens, mesh, tok_axes,
+                       cfg.dtype)
+    positions = start_pos + torch.arange(S, device=tokens.device)
+    memo = {}          # RoPE tables and masks, made once for all layers
+    for i, (blk, chunk) in enumerate(zip(lm.layers, _layer_chunks(cfg))):
+        def attend(attn, h, i=i, chunk=chunk):
+            return L.attn_apply_sharded(
+                attn, h, positions=positions,
+                kv_cache=(cache["k"][i], cache["v"][i]),
+                cache_index=start_pos, chunk=chunk, impl=cfg.attn_impl,
+                mesh=mesh, token_axes=tok_axes, seq_axes=seq_axes, memo=memo)
+        x = _block(cfg, blk, x, attend, metrics, mesh=mesh,
+                   token_axes=tok_axes,
+                   expert_idx=expert_idx[i] if expert_idx else None)
+    x = L.rmsnorm(x[:, -1], lm.ln_final, cfg.norm_eps)
+    if cfg.tie_embeddings:
+        logits, vax = L.vocab_logits(x, lm.embed, lm.spec("embed"), 0, mesh,
+                                     tok_axes, cfg.dtype)
+    else:
+        logits, vax = L.vocab_logits(x, lm.unembed, lm.spec("unembed"), 1,
+                                     mesh, tok_axes, cfg.dtype)
+    want = specs["logits"]
+    if (sh.spec_axes(want, 0), sh.spec_axes(want, 1)) != (tok_axes, vax):
+        raise NotImplementedError(f"logits as ({tok_axes}, {vax}) where the "
+                                  f"reference lays them out as {want}")
+    return logits, cache
+
+
 def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
                 cache: dict, start_pos: int, n_rows=None,
-                metrics: list | None = None):
+                metrics: list | None = None, mesh=None,
+                expert_idx: list | None = None):
     """Shared prefill/decode pass: runs tokens [B, S] at absolute offset
     ``start_pos`` against the cache, which it updates in place; returns
     (logits of the last position [B, vocab] in ``cfg.dtype``, cache).
     ``n_rows`` (a 0-d integer tensor on the device; None: B): the first
     rows are the real ones, the rest pad a bucket, and an MoE layer's
     capacity counts the real rows alone; each MoE layer's metrics are
-    appended to ``metrics`` when that is a list."""
+    appended to ``metrics`` when that is a list.  ``expert_idx`` (one
+    [B * S, k] tensor an MoE layer, the whole batch's even on a mesh) pins
+    each layer's routing, as ``moe_apply`` takes it.  On a mesh (the LM's,
+    ``mesh`` None or the same) see :func:`_serve_pass_sharded`."""
+    if _mesh_of(lm, mesh) is not None:
+        if n_rows is not None:
+            raise NotImplementedError("n_rows on a mesh")
+        return _serve_pass_sharded(cfg, lm, tokens, cache, start_pos,
+                                   metrics, expert_idx)
     S = tokens.shape[1]
     x = lm.embed.to(cfg.dtype)[tokens.long()]
     positions = start_pos + torch.arange(S, device=tokens.device)
@@ -365,24 +668,30 @@ def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
                                 kv_cache=(cache["k"][i], cache["v"][i]),
                                 cache_index=start_pos, chunk=chunk,
                                 impl=cfg.attn_impl, memo=memo)
-        x = _block(cfg, blk, x, attend, metrics, n_rows=n_rows)
+        x = _block(cfg, blk, x, attend, metrics, n_rows=n_rows,
+                   expert_idx=expert_idx[i] if expert_idx else None)
     return _last_logits(cfg, lm, x), cache
 
 
 def prefill(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
-            cache: dict, *, n_rows=None, metrics: list | None = None):
-    """tokens [B, P] at offset 0 -> (logits [B, vocab], cache); ``n_rows``
-    and ``metrics`` as in :func:`_serve_pass`."""
-    return _serve_pass(cfg, lm, tokens, cache, 0, n_rows, metrics)
+            cache: dict, *, n_rows=None, metrics: list | None = None,
+            mesh=None, expert_idx: list | None = None):
+    """tokens [B, P] at offset 0 -> (logits [B, vocab], cache); ``n_rows``,
+    ``metrics``, ``mesh`` and ``expert_idx`` as in :func:`_serve_pass`."""
+    return _serve_pass(cfg, lm, tokens, cache, 0, n_rows, metrics, mesh,
+                       expert_idx)
 
 
 def decode_step(cfg: LMConfig, lm: TransformerLM, token: torch.Tensor,
                 cache: dict, pos: int, *, n_rows=None,
-                metrics: list | None = None):
+                metrics: list | None = None, mesh=None,
+                expert_idx: list | None = None):
     """token [B, 1] at absolute position ``pos`` -> (logits, cache); every
     row at one position (:func:`decode_step_ragged` takes a position per
-    row); ``n_rows`` and ``metrics`` as in :func:`_serve_pass`."""
-    return _serve_pass(cfg, lm, token, cache, pos, n_rows, metrics)
+    row); ``n_rows``, ``metrics``, ``mesh`` and ``expert_idx`` as in
+    :func:`_serve_pass`."""
+    return _serve_pass(cfg, lm, token, cache, pos, n_rows, metrics, mesh,
+                       expert_idx)
 
 
 def decode_step_ragged(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,

@@ -130,8 +130,13 @@ def test_overrides_apply_and_refuse_what_one_card_lacks():
     cfg = arch.model_cfg("train_4k")
     assert cfg.moe.top_k == 2 and cfg.remat is False
     assert arch.train_microbatches == 2
-    for bad in ({"sharding_profile": "fsdp"}, {"seq_parallel": "true"},
-                {"moe.no_such_field": "1"}):
+    # the mesh knobs apply as the reference's do
+    mesh_knobs = tsteps._apply_overrides(
+        tregistry.get_arch("olmoe-1b-7b"),
+        {"sharding_profile": "fsdp", "seq_parallel": "true"})
+    cfg = mesh_knobs.model_cfg("decode_32k")
+    assert (cfg.sharding_profile, cfg.seq_parallel) == ("fsdp", True)
+    for bad in ({"no_such_field": "fsdp"}, {"moe.no_such_field": "1"}):
         with pytest.raises(KeyError, match="override"):
             tsteps.build_bundle("olmoe-1b-7b", "decode_32k", device="meta",
                                 overrides=bad)
@@ -377,12 +382,15 @@ def test_dryrun_main_writes_records_and_refuses_meshes(tmp_path, capsys):
     rec = (tmp_path / "gat-cora__molecule__1card__t.json").read_text()
     assert '"fits": true' in rec and '"n_chips": 1' in rec
     assert "DRY-RUN PASS" in capsys.readouterr().out
-    for flag in ("--multi-pod", "--both-meshes"):
-        with pytest.raises(SystemExit, match="multi-card slice"):
-            dryrun.main([flag, "--out", str(tmp_path)])
+    # the production meshes price per card (tests/test_torch_dryrun_mesh.py)
+    dryrun.main(["--arch", "qwen2-1.5b", "--shape", "long_500k",
+                 "--multi-pod", "--override", "n_layers=1", "--out",
+                 str(tmp_path)])
+    rec = (tmp_path / "qwen2-1.5b__long_500k__mp.json").read_text()
+    assert '"n_chips": 512' in rec
     with pytest.raises(SystemExit) as e:
         dryrun.main(["--arch", "qwen2-1.5b", "--shape", "decode_32k",
-                     "--override", "seq_parallel=true", "--out",
+                     "--override", "no_such_field=true", "--out",
                      str(tmp_path)])
     assert e.value.code == 1
     assert "FAILED qwen2-1.5b__decode_32k__1card" in capsys.readouterr().out
