@@ -65,7 +65,16 @@ the flash kernel and olmoe-1b-7b with its routes pinned, at full width and
 M1-M3 at full depth on a 2x2 mesh, each rank's peak memory held to its dry
 run, M2's flash kernel held to its plain version at each rank's shape, the
 flash launches of every rank counted).  ``python3 chip_smoke.py --phase M`` runs the toolchain and
-phase M alone (with 4 cards: M1-M3).
+phase M alone (with 4 cards: M1-M3).  Last, phase Q: the query engine
+over the cards present, driven by this one process, on an index and dense
+state of its own (Q0: the retrieval kernels at a card's shard shapes on
+the last card while the first is current; Q1: the reference's
+engine-scaling workloads on 1, 2 and 4 cards against the sequential loop;
+Q2: RQ1, RQ2 and D1-D4 on every card, bit-equal to one card, each kernel
+counted on each card; Q3: D2's doc shards on a ("data", "docs") mesh; Q4:
+S1's ql and top10 served across the cards; Q5: the fat step per card of
+the production meshes, priced on the host).  ``python3 chip_smoke.py
+--phase Q`` runs the toolchain and phase Q alone (with 4 cards: every row).
 Every phase that fails stops the run with a non-zero exit.  The last two
 lines are a JSON object per kernel and the result line::
 
@@ -292,26 +301,32 @@ def compile_checked(pipe, be, report: dict | None = None, **kw):
     return op
 
 
-def zero_launches() -> None:
+def zero_launches(device=None) -> None:
     """Set every kernel's launch counts to 0: the count its wrapper keeps
-    on the host and the count the kernel keeps on the card."""
+    on the host and the counts the kernel keeps on every card (on
+    ``device`` alone when it is given: a rank of phase M its own)."""
     import torch
     from repro_torch import kernels
-    torch.cuda.synchronize()
+    for i in range(torch.cuda.device_count()):
+        if device is None or torch.device(device) == torch.device("cuda", i):
+            torch.cuda.synchronize(i)
     for w in kernels.wrappers().values():
         w.launches = 0
-    kernels.device_launches(reset=True)
+    kernels.device_launches(device, reset=True)
 
 
-def read_launches(*names) -> dict:
-    """name -> {"device": runs of the kernel counted by the kernel itself
-    on the card, launched or replayed in a captured graph; "host":
-    launches counted by its wrapper on the host, eager or recorded into a
-    graph being captured} since :func:`zero_launches`."""
+def read_launches(*names, device=None) -> dict:
+    """name -> {"device": runs of the kernel counted by the kernel itself,
+    launched or replayed in a captured graph, summed over the cards (or
+    on ``device`` alone); "host": launches counted by its wrapper on the
+    host, eager or recorded into a graph being captured} since
+    :func:`zero_launches`."""
     import torch
     from repro_torch import kernels
-    torch.cuda.synchronize()
-    dev, ws = kernels.device_launches(), kernels.wrappers()
+    for i in range(torch.cuda.device_count()):
+        if device is None or torch.device(device) == torch.device("cuda", i):
+            torch.cuda.synchronize(i)
+    dev, ws = kernels.device_launches(device), kernels.wrappers()
     return {n: {"device": dev[n], "host": ws[n].launches} for n in names}
 
 
@@ -4242,7 +4257,8 @@ def mesh_cell(mesh, name: str, arch_id: str, shape: str, over) -> dict:
     torch.cuda.synchronize()
     dist.barrier()
     torch.cuda.reset_peak_memory_stats()
-    zero_launches()
+    own = torch.cuda.current_device()
+    zero_launches(own)
     with collectives.recording() as rec:
         logits, _ = b.fn(*b.args)
     ev = [(torch.cuda.Event(enable_timing=True),
@@ -4252,7 +4268,7 @@ def mesh_cell(mesh, name: str, arch_id: str, shape: str, over) -> dict:
         logits, _ = b.fn(*b.args)
         z.record()
     torch.cuda.synchronize()
-    flash = read_launches("flash_attention")["flash_attention"]
+    flash = read_launches("flash_attention", device=own)["flash_attention"]
     peak = torch.cuda.max_memory_allocated() - base
     finite = bool(torch.isfinite(logits).all())
     # one more step, profiled on rank 0 (the others run it unprofiled:
@@ -4278,7 +4294,7 @@ def mesh_cell(mesh, name: str, arch_id: str, shape: str, over) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     dist.barrier()
-    kernels.device_launches(reset=True)
+    kernels.device_launches(torch.cuda.current_device(), reset=True)
     return out
 
 
@@ -4430,6 +4446,402 @@ def phase_mesh(smi: str) -> dict:
     return {"flash": flash}
 
 
+# ---------------------------------------------------------------------------
+# phase Q: the query engine over the local cards
+# ---------------------------------------------------------------------------
+
+#: Q1: the reference's engine-scaling workloads (benchmarks/ir_bench.py
+#: ENGINE_WORKLOADS) over 256 queries tiled from the T topics, its ladder,
+#: the best of Q_REPEATS timed runs after one warm-up
+Q_QUERIES, Q_LADDER, Q_REPEATS = 256, (16, 64, 128), 3
+#: the card counts of Q1's rows (those present)
+Q_CARDS = (1, 2, 4)
+#: Q0: the per-card query counts of a shard (the default ladder's 8, 16
+#: and 32 over 4 cards) at which the kernels are held to their plain
+#: versions on the last card
+Q_SHARD_NQ = (2, 4, 8)
+#: the CPU rehearsal's "cards" (chip_smoke.DEVICE = "cpu")
+Q_CPU_CARDS = 4
+#: the checks of Q1-Q4 that failed: each is logged where it fails, and
+#: phase Q fails at its end, once every figure is printed
+Q_FAILS: list = []
+
+
+def q_check(ok: bool, what) -> bool:
+    if not ok:
+        Q_FAILS.append(what)
+        log(f"[Q] FAILED: {what}")
+    return ok
+
+
+def q_cards() -> int:
+    import torch
+    return Q_CPU_CARDS if DEVICE == "cpu" else torch.cuda.device_count()
+
+
+def query_mesh(n: int, doc_shards=None):
+    """The query mesh of the first ``n`` cards (CPU "cards" in a
+    rehearsal)."""
+    from repro_torch.launch.mesh import make_query_mesh
+    if DEVICE == "cpu":
+        return make_query_mesh(devices=["cpu"] * n, doc_shards=doc_shards)
+    return make_query_mesh(max_devices=n, doc_shards=doc_shards)
+
+
+def _same_result(a: dict, b: dict) -> bool:
+    """Docids, scores (and features) equal bit for bit, on the host."""
+    keys = ("docids", "scores") + (("features",) if "features" in a else ())
+    return all(same_bits(a[k].cpu(), b[k].cpu()) for k in keys)
+
+
+def _ranking_gap(a: dict, b: dict) -> tuple[bool, int, float]:
+    """(docids equal, scores whose bits differ, largest relative gap)."""
+    import torch
+    sa, sb = a["scores"].cpu(), b["scores"].cpu()
+    fin = sa.isfinite() & sb.isfinite()
+    gap = ((sa - sb).abs() / sb.abs().clamp(min=1e-30))[fin]
+    return (bool(torch.equal(a["docids"].cpu(), b["docids"].cpu())),
+            int((sa.view(torch.int32) != sb.view(torch.int32)).sum()),
+            float(gap.max()) if gap.numel() else 0.0)
+
+
+def phase_q_kernels(index, state) -> None:
+    """Q0: each retrieval kernel at a card's shard of the main path's
+    chunks (nq 2, 4, 8) on the last card while the first is current, held
+    to its plain version bit for bit (dense_topk 1e-5); with two cards or
+    more, inputs on two cards raise."""
+    import torch
+    from repro_torch.index import dense as DN
+    from repro_torch.kernels.dense_scoring.ops import streaming_dense_topk
+    from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
+    from repro_torch.kernels.pq_scoring.ops import streaming_pq_topk
+    from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
+    from repro_torch.kernels.topk.ops import streaming_topk
+    from repro_torch.kernels.topk.ref import streaming_topk_ref
+    n = q_cards()
+    last = torch.device(DEVICE) if DEVICE == "cpu" else \
+        torch.device("cuda", n - 1)
+    g = torch.Generator(device=DEVICE).manual_seed(25)
+    emb = state["dense"].emb.to(last)
+    pq = state["ivfpq"]
+    for nq in Q_SHARD_NQ:
+        s = torch.randn(nq, index.n_docs, device=DEVICE, generator=g).to(last)
+        q = torch.randn(nq, emb.shape[1], device=DEVICE, generator=g)
+        q = (q / q.norm(dim=1, keepdim=True)).to(last)
+        codes = pq.codes[:6912][None].expand(nq, -1, -1).contiguous().to(last)
+        table = DN.adc_table(pq.codebook, q.to(pq.codes.device)).to(last)
+        for k in TOPK_KS:
+            v1, i1 = streaming_topk(s, k=k)
+            v2, i2 = streaming_topk_ref(s, k=k)
+            assert same_bits(v1, v2) and torch.equal(i1, i2), ("topk", nq, k)
+            v1, i1 = streaming_dense_topk(emb, q, k=k)
+            v2, i2 = dense_topk_ref(emb, q, k=k)
+            torch.testing.assert_close(v1, v2, rtol=0, atol=1e-5)
+            assert float((i1 == i2).float().mean()) >= 0.99, ("dense", nq, k)
+        for k in PQ_KS:
+            v1, i1 = streaming_pq_topk(codes, table, k=k)
+            v2, i2 = pq_topk_ref(codes, table, k=k)
+            assert same_bits(v1, v2) and torch.equal(i1, i2), ("pq", nq, k)
+    mixed = "no second card"
+    if n > 1 and DEVICE != "cpu":
+        try:
+            streaming_dense_topk(emb, q.to("cuda:0"), k=10)
+            raise AssertionError("a kernel with inputs on two cards ran")
+        except ValueError as e:
+            mixed = f"raises ({e})"
+    log(f"[Q0] on {last} while {torch.cuda.current_device() if DEVICE != 'cpu' else 'cpu'} "
+        f"is current: topk [nq, {index.n_docs}] and dense_topk on D2's "
+        f"store at nq {Q_SHARD_NQ} x k in {TOPK_KS}, pq_topk on [nq, 6912, "
+        f"{pq.codes.shape[1]}] codes at k in {PQ_KS}: equal to their plain "
+        f"versions; inputs on two cards: {mixed}")
+
+
+def phase_q1(index, forms, smi: str) -> None:
+    """Q1: the reference's engine-scaling workloads (experiment_k1000:
+    three Retrieve(k=1000) unoptimised; serving_pruned_k10: BM25 and QL
+    % 10 optimised) over 256 tiled T topics, ladder (16, 64, 128), on 1,
+    2 and 4 cards and on the sequential loop (chunks of 8, a barrier each
+    stage): queries/s, speedup, rankings bit-equal to one card's (read
+    once before any barrier), entries per stage <= 3."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.core.compiler import Context
+    from repro_torch.core.plan import ExperimentPlan
+    topics = forms["T"]
+    reps = Q_QUERIES // len(topics.qids) + 1
+    Q = rt.make_queries(np.tile(np.asarray(topics.terms), (reps, 1))[:Q_QUERIES],
+                        np.tile(np.asarray(topics.weights),
+                                (reps, 1))[:Q_QUERIES],
+                        np.arange(Q_QUERIES, dtype=np.int32), device=DEVICE)
+    workloads = {
+        "experiment_k1000": ([rt.Retrieve("BM25", k=1000),
+                              rt.Retrieve("QL", k=1000),
+                              rt.Retrieve("TF_IDF", k=1000)], False),
+        "serving_pruned_k10": ([rt.Retrieve("BM25") % 10,
+                                rt.Retrieve("QL") % 10], True)}
+    counts = [c for c in Q_CARDS if c <= q_cards()]
+
+    def timed(plan, be, record):
+        res = plan.execute(Q, ctx=Context(be), record=record)
+        be.barrier(res)
+        best = float("inf")
+        for _ in range(Q_REPEATS):
+            t0 = time.perf_counter()
+            res = plan.execute(Q, ctx=Context(be), record=record)
+            be.barrier(res)
+            best = min(best, time.perf_counter() - t0)
+        return best, res
+
+    seq = rt.TorchBackend(index, default_k=1000, query_chunk=8,
+                          sharded=False, device=DEVICE)
+    for name, (pipes, optimize) in workloads.items():
+        work = Q_QUERIES * len(pipes)
+        t_seq, want = timed(ExperimentPlan(pipes, seq, optimize=optimize),
+                            seq, "cold")
+        rows, one = [], None
+        for c in counts:
+            be = rt.TorchBackend(index, default_k=1000, engine=rt.ShardedQueryEngine(
+                query_mesh(c), ladder=Q_LADDER))
+            plan = ExperimentPlan(pipes, be, optimize=optimize)
+            # read before any barrier: the peer copies into the home card
+            # are ordered behind each card's work
+            first = plan.execute(Q, ctx=Context(be), record=None)
+            first = [{k: v.cpu() for k, v in r.items()} for r in first]
+            t, res = timed(plan, be, None)
+            one = res if one is None else one
+            gaps = [_ranking_gap(a, b) for a, b in
+                    zip(list(res) + list(first), list(one) + list(one))]
+            eq = q_check(all(g[0] and g[1] == 0 for g in gaps),
+                         ("Q1 bit-equal to one card", name, c, gaps))
+            eng = be.engine
+            q_check(eng.max_compiles_per_stage() <= len(Q_LADDER),
+                    ("Q1 entries a stage", name, c,
+                     eng.max_compiles_per_stage()))
+            rows.append({"cards": c, "qps": round(work / t, 1),
+                         "speedup_vs_sequential": round(t_seq / t, 3),
+                         "max_recompiles_per_stage":
+                             eng.max_compiles_per_stage(),
+                         "bit_equal_to_one_card": eq})
+            del be, plan, res, first
+        same_seq = all(_ranking_gap(a, b)[0] for a, b in zip(one, want))
+        log(f"[Q1] {name}: {len(pipes)} pipelines x {Q_QUERIES} queries, "
+            f"ladder {Q_LADDER}; sequential (chunks of 8) "
+            f"{round(work / t_seq, 1)} queries/s; {rows}; docids of one card "
+            f"equal to the sequential loop's: {same_seq}; {smi}")
+    if q_cards() < max(Q_CARDS):
+        log(f"[Q1] the rows of {[c for c in Q_CARDS if c > q_cards()]} "
+            f"cards did not run: {q_cards()} card(s) present")
+
+
+def phase_q2(index, forms, state, smi: str) -> dict:
+    """Q2: the main path on every card present against one card: RQ1
+    kernels, RQ2 optimised, D1-D4 optimised on the 250 T topics at the
+    default ladder, docids and scores bit-equal; the retrieval kernels'
+    launches counted on each card (above 0 on every one); MRT on one card
+    and on n.  Returns the launch window of the n-card runs."""
+    import torch
+    import repro_torch as rt
+    from repro_torch import kernels
+    from repro_torch.core import BackendDescriptor
+    from repro_torch.index.robust04 import NPROBE, PQ_M, PQ_REFINE
+    n = q_cards()
+    topics = forms["T"]
+    Q = rt.make_queries(topics.terms, topics.weights, topics.qids,
+                        device=DEVICE)
+    kcaps = BackendDescriptor.default({"fat", "fused_topk", "fused_scoring"})
+    #: the backends' state: RQ1 on the kernels' caps, RQ2 and D1-D3 on
+    #: the flat and IVF state, D4 on IVF-PQ
+    kinds = {"kernels": {"descriptor": kcaps},
+             "dense": {"dense": state["dense"], "ivf": state["ivf"]},
+             "pq": {"dense": state["dense"], "ivfpq": state["ivfpq"],
+                    "pq_m": PQ_M, "pq_refine": PQ_REFINE}}
+    cells = {
+        "RQ1 kernels": (rt.Retrieve("BM25") % 10, "kernels",
+                        "fused_topk_retrieve"),
+        "RQ2 optimised": ((rt.Retrieve("BM25") >> (rt.Extract("QL") **
+                                                   rt.Extract("TF_IDF")))
+                          % 1000, "dense", "fused_fat_retrieve"),
+        "D1": ((rt.Retrieve("BM25", k=200) >> rt.DenseRerank(alpha=0.3))
+               % 10, "dense", "fused_dense_rerank"),
+        "D2": (rt.DenseRetrieve(k=10, nprobe=0) % 10, "dense",
+               "fused_dense_retrieve"),
+        "D3": (rt.DenseRetrieve(k=10, nprobe=NPROBE) % 10, "dense",
+               "fused_dense_retrieve"),
+        "D4": (rt.DenseRetrieve(k=10, nprobe=NPROBE, pq=True) % 10, "pq",
+               "fused_dense_retrieve")}
+
+    def experiment(pipe, be):
+        r = rt.Experiment([pipe], Q, topics.qrels, ["map"], backend=be,
+                          optimize=True, measure_time=True)
+        return r["table"][0], r["results"][0]
+
+    ones = {k: rt.TorchBackend(index, default_k=1000, device=DEVICE, **kw)
+            for k, kw in kinds.items()}
+    one = {}
+    for name, (pipe, kind_of, kind) in cells.items():
+        assert compile_checked(pipe, ones[kind_of]).kind == kind, name
+        one[name] = experiment(pipe, ones[kind_of])
+    del ones
+    eng = rt.ShardedQueryEngine(query_mesh(n))
+    bes = {k: rt.TorchBackend(index, default_k=1000, engine=eng, **kw)
+           for k, kw in kinds.items()}
+    for name, (pipe, kind_of, kind) in cells.items():
+        assert compile_checked(pipe, bes[kind_of]).kind == kind, name
+        experiment(pipe, bes[kind_of])     # each card's replica, built
+    names = ("topk", "fused_scoring", "dense_topk", "pq_topk")
+    zero_launches()
+    out = {}
+    for name, (pipe, kind_of, _) in cells.items():
+        out[name] = experiment(pipe, bes[kind_of])
+    window = read_launches(*names)
+    cards = eng.cards if DEVICE != "cpu" else []
+    per_card = {str(c): kernels.device_launches(c) for c in cards}
+    for c, counts in per_card.items():
+        for k in names:
+            q_check(counts[k] > 0, f"Q2: kernel {k} did not run on {c}")
+    for name in cells:
+        (r1, R1), (rn, Rn) = one[name], out[name]
+        eq = q_check(_same_result(R1, Rn), (
+            f"Q2 {name}: {n} cards against one (docids equal, score bits "
+            f"off, largest relative gap)", _ranking_gap(R1, Rn)))
+        log(f"[Q2] {name}: {n} card(s) bit-equal to one card {eq}; map "
+            f"{rn['map']:.4f}; mrt_ms one card {r1['mrt_ms']:.4f}, {n} "
+            f"card(s) {rn['mrt_ms']:.4f}; {smi}")
+    log(f"[Q2] launches on the {n}-card runs: {window}; on each card "
+        f"(counted by the kernels): {per_card}; {smi}")
+    return window
+
+
+def phase_q3(state) -> None:
+    """Q3: D2's store cut into doc shards on a ("data", "docs") mesh
+    (2x2 on 4 cards; 1 x n below), each shard copied to its group's
+    cards: bit-equal to the unsharded search."""
+    import torch
+    import repro_torch as rt
+    from repro_torch.core.engine import StageProgram
+    from repro_torch.index import dense as DN
+    n = min(q_cards(), 4)
+    docs = 2 if n >= 2 else 1
+    eng = rt.ShardedQueryEngine(query_mesh(n, doc_shards=docs))
+    dense = state["dense"]
+    g = torch.Generator(device=DEVICE).manual_seed(3)
+    qv = torch.randn(250, dense.dim, device=DEVICE, generator=g)
+    qv = qv / qv.norm(dim=1, keepdim=True)
+    k = 10
+    want = DN.dense_retrieve_exact_fused(dense, qv, k=k)
+    for n_shards in sorted({docs, 2 * docs}):
+        progs = []
+        for copies, off in DN.shard_dense_index(dense, n_shards,
+                                                devices=eng.mesh.devices):
+            kk = min(k, int(copies[0].emb.shape[0]))
+
+            def bound(i, copies=copies, off=off, kk=kk):
+                def fn(q):
+                    d, v = DN.dense_retrieve_exact_fused(copies[i], q, k=kk)
+                    return d + off, v
+                return fn
+            progs.append(StageProgram(key=("Q3", n_shards, off),
+                                      fn=bound(0), bind=bound))
+        got_d, got_v = eng.run_doc_sharded(progs, None, qv, k=k)
+        eq = q_check(np_equal(got_d, want[0]) and np_equal(got_v, want[1]),
+                     f"Q3: {n_shards} shards against unsharded D2")
+        log(f"[Q3] D2's store in {n_shards} doc shards on the "
+            f"{eng.mesh.name} {eng.mesh.axis_names} mesh: bit-equal to the "
+            f"unsharded search {eq} (250 queries, k={k})")
+
+
+def np_equal(a, b) -> bool:
+    import numpy as np
+    a = np.asarray(a)
+    b = b.cpu().numpy() if hasattr(b, "cpu") else np.asarray(b)
+    if a.dtype == np.float32:
+        a, b = a.view(np.uint32), b.view(np.uint32)
+    return a.shape == b.shape and bool((a == b).all())
+
+
+def phase_q4(index, forms) -> None:
+    """Q4: S1's tenants ql and top10 served on the n-card engine: results
+    bit-equal to run_pipeline's, no entry made after warm-up."""
+    import numpy as np
+    import repro_torch as rt
+    from repro_torch.core import BackendDescriptor, ir
+    from repro_torch.core.descriptor import DEFAULT_CAPABILITIES
+    n = q_cards()
+    desc = BackendDescriptor.default(DEFAULT_CAPABILITIES - {"pruned_topk"})
+    be = rt.TorchBackend(index, default_k=1000, descriptor=desc,
+                         engine=rt.ShardedQueryEngine(query_mesh(n)))
+    server = rt.MultiPipelineServer(
+        {"ql": rt.Retrieve("BM25", k=100) >> rt.Extract("QL")}, be,
+        rt.ServeConfig.default(optimize=False, max_queue=4096))
+    server.add_pipeline(rt.Retrieve("BM25") % 10, name="top10",
+                        optimize=True)
+    assert [op.kind for op in ir.chain(compile_checked(
+        rt.Retrieve("BM25") % 10, be))] == ["fused_topk_retrieve"]
+    T = rt.make_queries(forms["T"].terms, forms["T"].weights,
+                        forms["T"].qids, device=DEVICE)
+    server.warmup({k: v[:1] for k, v in T.items()})
+    t0 = time.perf_counter()
+    reqs = {}
+    for name in ("ql", "top10"):
+        reqs[name] = server.submit(T, pipeline=name)
+        server.pump()
+    for name, pipe, opt in (("ql", rt.Retrieve("BM25", k=100) >>
+                             rt.Extract("QL"), False),
+                            ("top10", rt.Retrieve("BM25") % 10, True)):
+        res = [r.wait(60) for r in reqs[name]]
+        want = rt.run_pipeline(pipe, T, backend=be, optimize=opt)
+        for key in ("docids", "scores"):
+            got = np.concatenate([r[key] for r in res])
+            q_check(np_equal(got, want[key]), f"Q4: served {name} {key}")
+    s = server.stats()
+    q_check(s["recompiles_since_warmup"] == 0,
+            f"Q4: {s['recompiles_since_warmup']} entries after warm-up")
+    log(f"[Q4] S1's ql and top10 served on {n} card(s): "
+        f"{int(T['qid'].shape[0])} T topics each "
+        f"in {time.perf_counter() - t0:.2f} s, results bit-equal to "
+        f"run_pipeline's, recompiles since warm-up "
+        f"{s['recompiles_since_warmup']}, engine devices "
+        f"{s['engine']['devices']}")
+
+
+def phase_q5() -> None:
+    """Q5 (host): the fat-postings step per card of the production
+    meshes, priced on ``meta``."""
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import pipeline_dryrun
+    for multi_pod in (False, True):
+        rec = pipeline_dryrun.run(mesh_lib.make_production_mesh(
+            multi_pod=multi_pod))
+        assert rec["fits"] and rec["collectives"].get("all-gather"), rec
+        log(f"[Q5] fat step per card of {rec['mesh']} ({rec['n_chips']} "
+            f"cards): peak {rec['bytes_per_device']} bytes (fits "
+            f"{rec['fits']}), flops {rec['flops_per_chip']:.4g}, bytes "
+            f"{rec['bytes_per_chip']:.4g}, collectives {rec['collectives']}"
+            f"; t_compute {rec['t_compute']:.4g} s, t_memory "
+            f"{rec['t_memory']:.4g} s, t_collective {rec['t_collective']:.4g}"
+            f" s (host, the op counter)")
+
+
+def phase_query_mesh(index, forms, state, smi: str) -> dict:
+    """Phase Q: the query engine over the cards present (Q0-Q5); returns
+    the launch window of Q2's n-card main path."""
+    t0 = time.perf_counter()
+    phase_q_kernels(index, state)
+    phase_q1(index, forms, smi)
+    window = phase_q2(index, forms, state, smi)
+    phase_q3(state)
+    phase_q4(index, forms)
+    phase_q5()
+    n = q_cards()
+    if n < 4:
+        log(f"[Q] {n} card(s) present: Q1's rows of more cards, and Q2-Q4 "
+            f"across cards, did not run (they need 2 and 4 cards); Q1-Q4 "
+            f"ran on the {n}-card mesh through the multi-card code")
+    log(f"[Q] phase Q {time.perf_counter() - t0:.1f} s; {smi}")
+    assert not Q_FAILS, Q_FAILS
+    return window
+
+
 def main(argv=None) -> int:
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -4450,6 +4862,17 @@ def main(argv=None) -> int:
         mesh = phase_mesh(smi)
         log(f"[done] phase M alone {time.perf_counter() - t_start:.1f} s; "
             f"flash launches of the ranks' cells {mesh['flash']}")
+        log(smi)
+        return 0
+    if argv == ["--phase", "Q"]:
+        # phase Q alone (the query engine on the cards present: Q1's 2-
+        # and 4-card rows with 4 cards), on an index and dense state of
+        # its own
+        index, forms = phase_index()
+        state = phase_dense_build(index)
+        window = phase_query_mesh(index, forms, state, smi)
+        log(f"[done] phase Q alone {time.perf_counter() - t_start:.1f} s; "
+            f"launches of Q2's main path over the cards {window}")
         log(smi)
         return 0
     if argv:
@@ -4573,6 +4996,18 @@ def main(argv=None) -> int:
     windows.append({"flash_attention": {"device": mesh["flash"],
                                         "host": mesh["flash"]}})
     log(f"[main] phase M {time.perf_counter() - t0:.1f} s")
+    # phase Q, the query engine over the cards present, on an index and
+    # dense state of its own (phase Z freed the earlier ones): the
+    # launches of Q2's main path, summed over the cards, join the rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    index, forms = phase_index()
+    state = phase_dense_build(index)
+    windows.append(phase_query_mesh(index, forms, state, smi))
+    del index, forms, state
+    log(f"[main] phase Q {time.perf_counter() - t0:.1f} s (index and dense "
+        f"state included)")
     launches = {}
     for w in windows:
         for name, c in w.items():

@@ -26,6 +26,18 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def on_card(device):
+    """A context in which ``device`` is the current CUDA device (nothing
+    for another device type): an operation that names no device, each
+    stream it takes, and a kernel's C entry (its attributes, descriptors
+    and launch) then belong to that card, whichever card the caller has
+    made current."""
+    import contextlib
+    device = torch.device(device)
+    return (torch.cuda.device(device) if device.type == "cuda"
+            else contextlib.nullcontext())
+
+
 def card() -> str:
     """The first card's name and power limit, as ``nvidia-smi`` reports
     them: the stamp every time measured on the card carries."""

@@ -15,6 +15,7 @@ the pipeline source and is then derived structurally
 from __future__ import annotations
 
 import dataclasses
+import functools
 import hashlib
 import itertools
 import os
@@ -40,16 +41,102 @@ from repro_torch.index.inverted import BLOCK, InvertedIndex
 _BACKEND_UID = itertools.count()
 
 
+def _to_card(obj, device):
+    """A copy of a tensor, or of an index dataclass with every tensor in
+    it (nested dataclasses too), on ``device``: ``.to`` another card, a
+    clone on the same one (the replicas of a mesh of CPU "cards" are
+    their own tensors, as those of the cards are)."""
+    if isinstance(obj, torch.Tensor):
+        return obj.clone() if obj.device == device else obj.to(device)
+    if dataclasses.is_dataclass(obj):
+        return dataclasses.replace(obj, **{
+            f.name: _to_card(getattr(obj, f.name), device)
+            for f in dataclasses.fields(obj)
+            if isinstance(getattr(obj, f.name), torch.Tensor)
+            or dataclasses.is_dataclass(getattr(obj, f.name))})
+    return obj
+
+
+class Replica:
+    """What a stage program reads on one card of the backend's engine: the
+    index, the dense embeddings, the query projection, IVF and IVF-PQ, and
+    the statics the stages size their gathers by.  The home card's replica
+    is the backend's own state; another card's copies each piece from the
+    home card at its first use (nothing is rebuilt there: the IVF k-means
+    runs once).  A stage's batched function takes its card's replica as
+    its first argument (``TorchBackend.map_query_chunks``)."""
+
+    def __init__(self, backend: "TorchBackend", device, *, home: bool):
+        self.device = device
+        # the backend owns its replicas: a strong reference back would be
+        # a cycle that keeps a dropped backend (and its engine's captured
+        # graphs) alive until a collection pass
+        self._be = weakref.ref(backend)
+        self._home = home
+        self._state: dict = {}
+        self.max_postings = backend.max_postings
+        self.max_blocks_per_term = backend.max_blocks_per_term
+        self.total_blocks = backend.total_blocks
+
+    def _get(self, name: str):
+        own = getattr(self._be(), name)
+        if self._home:
+            return own
+        if name not in self._state:
+            self._state[name] = _to_card(own, self.device)
+        return self._state[name]
+
+    @property
+    def index(self) -> InvertedIndex:
+        return self._get("index")
+
+    @property
+    def dense(self):
+        return self._get("dense")
+
+    @property
+    def qproj(self) -> torch.Tensor:
+        return self._get("_qproj")
+
+    @property
+    def ivf(self):
+        return self._get("ivf")
+
+    @property
+    def ivfpq(self):
+        return self._get("ivfpq")
+
+    def embed_queries(self, Q) -> torch.Tensor:
+        """Q's terms/weights [NQ, MAXQ] -> unit query vectors [NQ, dim],
+        through this card's projection."""
+        from repro_torch.index.dense import embed_queries
+        return embed_queries(self.qproj, Q["terms"], Q["weights"])
+
+
+def _same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether two devices are one (``"cuda"`` is the current card)."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda":
+        return True
+    cur = torch.cuda.current_device()
+    return (cur if a.index is None else a.index) == \
+        (cur if b.index is None else b.index)
+
+
 class TorchBackend:
     """Execution backend over the torch index: capability descriptor plus
-    bucketed query execution on one device (the engine), the dense second
-    stage's state (embeddings, query projection, IVF and IVF-PQ indexes)
-    and the generate stage's LMs (``register_lm``).
+    bucketed query execution over the cards of its engine, the dense
+    second stage's state (embeddings, query projection, IVF and IVF-PQ
+    indexes), a replica of that state on each card of the engine, and the
+    generate stage's LMs (``register_lm``, on the home card only).
 
     The optimisation surface consulted by the rewrite/fusion passes lives
     on ``self.descriptor``; pass ``descriptor=BackendDescriptor.default(
-    capability_set)`` to restrict it.  ``device=None`` means the card and
-    raises without one; the index is moved there if it lives elsewhere.
+    capability_set)`` to restrict it.  ``device=None`` means the engine's
+    home card when an ``engine=`` is given, else the card, and raises
+    without one; a device other than the engine's home card raises.  The
+    index is moved there if it lives elsewhere.
 
     The dense state is built on first use, so a sparse-only backend pays
     nothing for it: ``dense`` (pass one to share it across backends), the
@@ -58,8 +145,12 @@ class TorchBackend:
     ``pq_m`` subspaces (``ivf=`` / ``ivfpq=`` supply ready ones).
 
     Stages run through a :class:`~repro_torch.core.engine
-    .ShardedQueryEngine` with the ladder ``bucket_ladder``, or ``engine=``
-    to share one.  Without ``bucket_ladder`` the ladder is
+    .ShardedQueryEngine` on ``device`` alone with the ladder
+    ``bucket_ladder``, or ``engine=`` to share one or to span a query mesh
+    of cards (``ShardedQueryEngine(make_query_mesh(...))``): each card's
+    shard of a chunk then reads that card's :class:`Replica`, and the
+    results are gathered on the home card, bit-equal to one card's.
+    Without ``bucket_ladder`` the ladder is
     ``(query_chunk,)`` when ``query_chunk`` is given, so the engine chunks
     the query axis as the sequential loop does, and ``(8, 16, 32)`` when
     neither is.  ``sharded=False``, or ``REPRO_ENGINE=sequential`` in the
@@ -73,7 +164,13 @@ class TorchBackend:
                  engine: ShardedQueryEngine | None = None,
                  bucket_ladder=None, ivf=None, ivf_lists: int | None = None,
                  ivfpq=None, pq_m: int = 8, pq_refine: int = 4):
+        if engine is not None and device is None:
+            device = engine.device
         self.device = resolve_device(device)
+        if engine is not None and not _same_device(self.device,
+                                                   engine.device):
+            raise ValueError(f"the backend's device {self.device} is not "
+                             f"its engine's home card {engine.device}")
         self.uid = next(_BACKEND_UID)
         if index.device != self.device:
             index = dataclasses.replace(
@@ -113,6 +210,11 @@ class TorchBackend:
         self.engine = (engine if engine is not None
                        else ShardedQueryEngine(self.device, ladder=bucket_ladder)
                        if sharded else None)
+        cards = self.engine.cards if self.engine is not None else \
+            (self.device,)
+        #: one Replica a card of the engine's data axis, made at first use
+        self._replicas = [None] * len(cards)
+        self._cards = cards
 
     # -- generate-stage LMs --------------------------------------------------
     def register_lm(self, name: str, cfg, params=None, *, seed: int = 0):
@@ -189,23 +291,39 @@ class TorchBackend:
         from repro_torch.index.dense import embed_queries
         return embed_queries(self._qproj, Q["terms"], Q["weights"])
 
+    def replica(self, i: int = 0) -> Replica:
+        """The state card ``i`` of the engine's data axis reads (0, the
+        home card: this backend's own)."""
+        rep = self._replicas[i]
+        if rep is None:
+            rep = self._replicas[i] = Replica(self, self._cards[i],
+                                              home=i == 0)
+        return rep
+
     def map_query_chunks(self, fn, Q, *extra, key=None):
-        """Run the batched ``fn(terms, weights, *extra)`` (``fn(*extra)``
-        when Q is None) over the query axis and return its outputs (a
-        tensor or a tuple of tensors) for all queries.  Routed through the
-        engine when there is one (the default); ``key`` (the stage's
-        structural key) names the engine's cache entry, scoped by this
-        backend's uid: stage keys do not embed the index, which ``fn``
-        closes over, so an engine shared across backends would otherwise
-        mix them.  Without an engine, the sequential loop."""
+        """Run the batched ``fn(replica, terms, weights, *extra)``
+        (``fn(replica, *extra)`` when Q is None) over the query axis and
+        return its outputs (a tensor or a tuple of tensors) for all
+        queries, on the home card.  ``replica`` is the :class:`Replica` of
+        the card the shard runs on: ``fn`` reads the index and the dense
+        state from it, never from this backend.  Routed through the engine
+        when there is one (the default); ``key`` (the stage's structural
+        key) names the engine's cache entry, scoped by this backend's uid:
+        stage keys do not embed the index, which ``fn`` reads, so an engine
+        shared across backends would otherwise mix them.  Without an
+        engine, the sequential loop on the home card."""
         if self.engine is not None:
             scoped = None if key is None else (self.uid, key)
-            return self.engine.run(StageProgram(key=scoped, fn=fn), Q, *extra)
-        return self.map_query_chunks_sequential(fn, Q, *extra)
+            return self.engine.run(StageProgram(
+                key=scoped, fn=functools.partial(fn, self.replica(0)),
+                bind=lambda i: functools.partial(fn, self.replica(i))),
+                Q, *extra)
+        return self.map_query_chunks_sequential(
+            functools.partial(fn, self.replica(0)), Q, *extra)
 
     def barrier(self, tree=None):
         """Wait until the device has computed ``tree`` (the engine's
-        barrier, a synchronize of the card; nothing on the CPU)."""
+        barrier, a synchronize of every card; nothing on the CPU)."""
         if self.engine is not None:
             return self.engine.barrier(tree)
         if self.device.type == "cuda":
@@ -258,7 +376,9 @@ def _aggregate_rows(docs, scores, k_out):
                        d[:, 1:] != d[:, :-1]], 1)
     seg = torch.cumsum(first.long(), 1) - 1
     agg = torch.zeros((NQ, n), dtype=s.dtype, device=s.device)
-    agg.scatter_add_(1, seg, s)
+    # a sequential sum on the card too (see retrieve._aggregate_sparse)
+    rows = torch.arange(NQ, device=s.device)[:, None].expand(NQ, n)
+    agg.index_put_((rows, seg), s, accumulate=True)
     rep = torch.where(first & (d >= 0), torch.gather(agg, 1, seg), -torch.inf)
     top_s, idx = topk(rep, k_out)
     ok = torch.isfinite(top_s)

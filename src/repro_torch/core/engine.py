@@ -1,9 +1,17 @@
-"""Shape-bucketed query execution engine on one device (the port of
-``src/repro/core/engine.py``).
+"""Shape-bucketed query execution engine over the local cards (the port
+of ``src/repro/core/engine.py``).
 
 The backend runs every stage's batched function through this engine, built
-from the reference's mechanisms, on one card:
+from the reference's mechanisms:
 
+* **Data-parallel cards** — the query axis of every bucketed stage is cut
+  over the ``data`` axis of a query mesh
+  (:func:`repro_torch.launch.mesh.make_query_mesh`: every local card by
+  default, one process driving them all): a chunk of bucket *b* runs as
+  *b / n* rows on each of the *n* cards, card *i* running the program
+  bound to its own state (:attr:`StageProgram.bind`, the backend's replica
+  on that card).  Each card keeps its pieces for the next stage; only the
+  materialised output is gathered on the home card (the mesh's first).
 * **Bucket ladder** — query batches are padded up to a small fixed ladder
   of chunk sizes, and each ``(stage key, bucket, trailing shapes)`` is an
   entry of a bounded program cache, counted as a compile when it is
@@ -35,8 +43,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from repro_torch.common import (LRU, resolve_device, select_ladder_bucket,
-                                tree_flatten, tree_map)
+from repro_torch.common import (LRU, on_card, resolve_device,
+                                select_ladder_bucket, tree_flatten, tree_map)
 from repro_torch.obs.metrics import MetricsRegistry
 from repro_torch.obs.tracing import NOOP_TRACER
 
@@ -93,9 +101,18 @@ class StageProgram:
     graph).  A stage's ``key()`` embeds its static params and version
     marker but not the backend's tensors, which ``fn`` closes over, so
     ``TorchBackend.map_query_chunks`` scopes it by the backend's uid.
-    ``key=None`` marks an anonymous program that runs uncached."""
+    ``key=None`` marks an anonymous program that runs uncached.
+
+    ``bind(i)``, when given, is the program bound to the state on card
+    *i* of the cards it runs on (the backend's replica there); without it
+    ``fn`` runs on every card and reads nothing but its arguments."""
     key: Any
     fn: Callable
+    bind: Callable[[int], Callable] | None = None
+
+    def on(self, i: int) -> Callable:
+        """The program card ``i`` runs."""
+        return self.fn if self.bind is None else self.bind(i)
 
 
 def _leaf_sig(x):
@@ -159,9 +176,13 @@ class _PinnedGraph:
         # buffers, so the caller's are not touched before the first replay
         scratch = tuple(tree_map(_clone, a) if j in donated else a
                         for j, a in enumerate(self.static))
-        side = torch.cuda.Stream(device)
-        side.wait_stream(torch.cuda.current_stream(device))
-        with torch.no_grad():
+        # capture and replay on the engine's home card, whichever card the
+        # caller has made current: the side stream, the capture stream and
+        # the replay's stream all belong to it
+        self.device = device
+        with torch.cuda.device(device), torch.no_grad():
+            side = torch.cuda.Stream(device)
+            side.wait_stream(torch.cuda.current_stream(device))
             with torch.cuda.stream(side):
                 fn(*scratch)
             torch.cuda.current_stream(device).wait_stream(side)
@@ -174,13 +195,14 @@ class _PinnedGraph:
         _check_donated(self, args)
         new, _ = tree_flatten(args)
         old, _ = tree_flatten(self.static)
-        for x, buf in zip(new, old):
-            # the signature matched, so the other leaves are the captured
-            # ones: the same modules and values
-            if isinstance(buf, torch.Tensor) and \
-                    x.data_ptr() != buf.data_ptr():
-                buf.copy_(x)
-        self.graph.replay()
+        with torch.cuda.device(self.device):
+            for x, buf in zip(new, old):
+                # the signature matched, so the other leaves are the
+                # captured ones: the same modules and values
+                if isinstance(buf, torch.Tensor) and \
+                        x.data_ptr() != buf.data_ptr():
+                    buf.copy_(x)
+            self.graph.replay()
         return tree_map(lambda y: y if id(y) in self.donated else y.clone(),
                         self.out)
 
@@ -209,24 +231,60 @@ class _Eager:
             return self.fn(*args)
 
 
+def _on(card: torch.device, fn, args):
+    """``fn(*args)`` with ``card`` current (``common.on_card``)."""
+    with on_card(card):
+        return fn(*args)
+
+
+def _query_mesh(mesh, max_devices):
+    """``mesh`` as a query mesh: a ``Mesh`` as it is, a device as the
+    one-card mesh on it, None as every local card (``max_devices``)."""
+    from repro_torch.launch.mesh import Mesh, make_query_mesh
+    if isinstance(mesh, Mesh):
+        if mesh.devices is None:
+            raise ValueError(f"{mesh} holds no devices: build the engine's "
+                             f"mesh with make_query_mesh")
+        return mesh
+    if mesh is None:
+        return make_query_mesh(max_devices=max_devices)
+    return make_query_mesh(devices=[resolve_device(mesh)])
+
+
 class ShardedQueryEngine:
-    """Executes batched stage functions over the query axis: padded to
-    bucketed shapes, cached by program key, on one device.  The name is the
-    reference's, so the serving layer and its statistics read the same;
-    it serves one device, where the reference shards across a mesh.
+    """Executes batched stage functions over the query axis: cut over the
+    ``data`` axis of a query mesh of cards, padded to bucketed shapes,
+    cached by program key.  ``mesh=None`` spans every local card
+    (``max_devices`` keeps the first ones), as the reference's engine
+    spans ``jax.local_devices()``; a device (``"cpu"``, ``"cuda:1"``)
+    makes the one-card mesh on it.  One process drives every card: the
+    serving layer, the planner and their scheduler stay in it.
 
     The program cache requires that a stage function's behaviour is fully
     determined by its ``key`` (plus the backend the engine serves).
     ``Transformer.key()`` provides exactly this for pipeline stages."""
 
-    def __init__(self, device=None, *, ladder: Sequence[int] | None = None,
+    def __init__(self, mesh=None, *, max_devices: int | None = None,
+                 ladder: Sequence[int] | None = None,
                  max_jit_entries: int | None = 512,
                  max_chunk_entries: int | None = 64,
                  registry: MetricsRegistry | None = None):
-        self.device = resolve_device(device)
-        self.n_devices = 1
+        self.mesh = _query_mesh(mesh, max_devices)
+        # on a 2-D (query x doc-shard) mesh the "data" axis carries the
+        # query batch; the bucketed stages run on the cards of the first
+        # doc group, and run_doc_sharded gives doc shard j the cards of
+        # group j
+        grid = self.mesh.devices
+        #: the cards of the data axis, in mesh order; the first is home
+        self.cards = tuple(grid[:, 0] if grid.ndim == 2 else grid)
+        self.device = self.cards[0]
+        self.n_devices = len(self.cards)
         self.ladder = (tuple(sorted(int(b) for b in ladder)) if ladder
                        else default_bucket_ladder(self.n_devices))
+        if any(b % self.n_devices for b in self.ladder):
+            raise ValueError(
+                f"bucket ladder {self.ladder} not divisible by device count "
+                f"{self.n_devices}")
         #: (stage key, bucket, trailing signature) -> the program (a
         #: captured graph for a pinned program on the card).  LRU-bounded:
         #: a long-lived server meets unboundedly many stage keys, and each
@@ -237,8 +295,9 @@ class ShardedQueryEngine:
         #: bounds each by len(self.ladder) while the stage stays resident
         self.compiles: LRU = LRU(None if max_jit_entries is None
                                  else 4 * max_jit_entries)
-        #: id(full tensor) -> (weakref, chunk plan, [padded pieces]); an
-        #: entry also dies with its source tensor through the weakref
+        #: id(full tensor) -> (weakref, (chunk plan, cards), [each chunk's
+        #: pieces, one a card in card order]); an entry also dies with its
+        #: source tensor through the weakref
         self._chunk_cache: LRU = LRU(max_chunk_entries)
         self.metrics = registry if registry is not None else MetricsRegistry()
         self._m_dispatches = self.metrics.counter(
@@ -326,7 +385,7 @@ class ShardedQueryEngine:
         return tuple(plan)
 
     # -- chunk extraction / caching ----------------------------------------
-    def _remember(self, full, plan, pieces) -> None:
+    def _remember(self, full, layout, pieces) -> None:
         # a piece that IS the full tensor (one exact-fit chunk) would make
         # the entry self-referential and immortal: nothing to cache there
         if any(p is full for p in pieces):
@@ -342,14 +401,19 @@ class ShardedQueryEngine:
             ref = weakref.ref(full, forget)
         except TypeError:
             return                                # non-weakrefable leaf
-        self._chunk_cache.put(key, (ref, plan, pieces))
+        self._chunk_cache.put(key, (ref, layout, pieces))
 
-    def _pieces(self, arr, plan):
-        """Per-chunk pieces of ``arr``, padded with zero rows to their
-        buckets.  Tensors the engine itself produced hit the chunk cache
-        and skip the slice and the pad."""
+    def _pieces(self, arr, plan, cards):
+        """Each card's piece of each chunk of ``arr``, chunk-major (card
+        ``i``'s piece of chunk ``c`` at ``c * len(cards) + i``): the chunk
+        padded with zero rows to its bucket and cut into one equal shard a
+        card, each sent to its card (stream-ordered with both cards'
+        current streams).  Tensors the engine itself produced on these
+        cards hit the chunk cache and skip the slice, the pad and the
+        copy."""
+        layout = (plan, cards)
         ent = self._chunk_cache.get(id(arr))
-        if ent is not None and ent[0]() is arr and ent[1] == plan:
+        if ent is not None and ent[0]() is arr and ent[1] == layout:
             self._m_chunk.inc(1, ("hit",))
             return ent[2]
         self._m_chunk.inc(1, ("miss",))
@@ -359,8 +423,13 @@ class ShardedQueryEngine:
             if n < bucket:
                 piece = torch.cat(
                     [piece, piece.new_zeros((bucket - n,) + piece.shape[1:])])
-            pieces.append(piece)
-        self._remember(arr, plan, pieces)
+            if len(cards) == 1:
+                pieces.append(piece)
+                continue
+            per = bucket // len(cards)
+            pieces += [piece[i * per:(i + 1) * per].to(c, non_blocking=True)
+                       for i, c in enumerate(cards)]
+        self._remember(arr, layout, pieces)
         return pieces
 
     # -- the program cache --------------------------------------------------
@@ -420,16 +489,21 @@ class ShardedQueryEngine:
 
     def run(self, program: StageProgram, Q, *extra):
         """Execute one stage program over the query axis:
-        ``program.fn(terms, weights, *extra)`` (or ``fn(*extra)`` when Q is
-        None) on padded chunks of the ladder's shapes, ``program.key``
-        naming the cache entry.  Returns the concatenated outputs, trimmed
-        to the real rows.  A batch that fits the largest bucket is one
-        :meth:`submit_chunk`; a bigger one is chunk-planned."""
-        args = self._args_of(Q, extra)
+        ``program.on(i)(terms, weights, *extra)`` (or ``(*extra)`` when Q is
+        None) on each card's shard of padded chunks of the ladder's shapes,
+        ``program.key`` naming the cache entry.  Returns the concatenated
+        outputs on the home card, trimmed to the real rows.  A batch that
+        fits the largest bucket is one :meth:`submit_chunk`; a bigger one
+        is chunk-planned."""
+        return self._run(program, self._args_of(Q, extra), self.cards)
+
+    def _run(self, program: StageProgram, args, cards):
         nq = int(args[0].shape[0])
         if 0 < nq <= self.ladder[-1]:
-            return self.submit_chunk(program, Q, *extra)
-        return self._run_plan(program, args, self.chunk_plan(nq))
+            plan = ((0, nq, self.select_bucket(nq)),)
+        else:
+            plan = self.chunk_plan(nq)
+        return self._run_plan(program, args, plan, cards)
 
     def submit_chunk(self, program: StageProgram, Q, *extra,
                      bucket: int | None = None):
@@ -443,7 +517,7 @@ class ShardedQueryEngine:
         elif bucket not in self.ladder or nq > bucket:
             raise ValueError(f"bucket {bucket} not a ladder rung covering "
                              f"{nq} queries (ladder {self.ladder})")
-        return self._run_plan(program, args, ((0, nq, bucket),))
+        return self._run_plan(program, args, ((0, nq, bucket),), self.cards)
 
     def run_pinned(self, program: StageProgram, *args,
                    donate_argnums: tuple = ()):
@@ -454,7 +528,8 @@ class ShardedQueryEngine:
         same LRU and counted by the same compile counters as the bucketed
         entries.  Tensors enter the signature by shape and dtype, modules
         (the weights, read in place) by identity, any other argument by
-        value.
+        value.  A pinned program runs on the home card alone, as the
+        reference's ``run_pinned`` jits with no shardings.
 
         On the card the entry is a captured CUDA graph (see
         :class:`_PinnedGraph`); ``donate_argnums`` names the arguments the
@@ -469,9 +544,9 @@ class ShardedQueryEngine:
         jk = (program.key, "pinned", sig)
         ent = self._jit_cache.get(jk)
         if ent is None:
-            on_card = any(isinstance(x, torch.Tensor) and x.is_cuda
-                          for x in leaves)
-            if on_card:
+            cuda_args = any(isinstance(x, torch.Tensor) and x.is_cuda
+                            for x in leaves)
+            if cuda_args:
                 try:
                     ent = _PinnedGraph(program.key, program.fn, args,
                                        donate_argnums, self.device)
@@ -495,26 +570,32 @@ class ShardedQueryEngine:
         outputs concatenated and trimmed: a pinned program per ladder rung,
         as the generate stage runs its greedy decode."""
         plan = self.chunk_plan(int(rows.shape[0]))
-        outs = [self.run_pinned(program, *consts, piece, torch.full(
-            (), n, dtype=torch.long, device=piece.device))
-            for piece, (_, n, _) in zip(self._pieces(rows, plan), plan)]
+        home = (self.device,)
+        outs = [(self.run_pinned(program, *consts, piece, torch.full(
+            (), n, dtype=torch.long, device=piece.device)),)
+            for piece, (_, n, _) in zip(self._pieces(rows, plan, home),
+                                        plan)]
         return self._materialize(outs, plan)
 
-    def _run_plan(self, program: StageProgram, args, plan):
-        key, fn = program.key, program.fn
+    def _run_plan(self, program: StageProgram, args, plan, cards):
+        key = program.key
+        fns = [program.on(i) for i in range(len(cards))]
         sig = tuple((tuple(a.shape[1:]), str(a.dtype)) for a in args)
-        pieces = [self._pieces(a, plan) for a in args]
+        pieces = [self._pieces(a, plan, cards) for a in args]
         outs = []
-        for i, (start, n, bucket) in enumerate(plan):
-            # keyless calls stay out of the program cache
+        for ci, (start, n, bucket) in enumerate(plan):
+            # keyless calls stay out of the program cache; an entry is
+            # counted once a chunk, whatever the number of cards
             if key is not None:
                 self._enter(key, bucket, sig)
             with self.tracer.span("engine.dispatch", "engine", bucket=bucket,
                                   n=n, key=_key_label(key)):
-                outs.append(fn(*[p[i] for p in pieces]))
+                outs.append(tuple(
+                    _on(card, fn, [p[ci * len(cards) + i] for p in pieces])
+                    for i, (card, fn) in enumerate(zip(cards, fns))))
             self._m_dispatches.inc()
         full = self._materialize(outs, plan)
-        self._remember_outputs(full, outs, plan)
+        self._remember_outputs(full, outs, (plan, cards))
         return full
 
     def map_queries(self, fn, Q, *extra, key=None):
@@ -527,14 +608,32 @@ class ShardedQueryEngine:
         (each closing over its contiguous shard and emitting *global* doc
         ids, e.g. built over ``index.dense.shard_dense_index``), then merge
         the per-shard ``(docids, scores)`` across shards on the host with
-        :func:`merge_shard_topk`.  The shards' programs are enqueued one
-        after another with no wait; the barrier before the merge is the one
-        synchronisation point."""
-        parts = [self.run(p, Q, *extra) for p in programs]
+        :func:`merge_shard_topk`.  On a ``("data", "docs")`` mesh shard *j*
+        runs on the cards of doc group *j* (modulo the groups),
+        data-parallel over their ``data`` axis, each card's program
+        ``bind(i)`` bound to the shard's copy there
+        (``shard_dense_index(..., devices=)``); on a 1-D mesh every shard
+        runs on the data cards.  The shards' programs are enqueued one
+        after another with no wait; the barrier before the merge is the
+        one synchronisation point."""
+        args = self._args_of(Q, extra)
+        grid = self.mesh.devices
+        groups = ([tuple(grid[:, j]) for j in range(grid.shape[1])]
+                  if grid.ndim == 2 else [self.cards])
+        parts = [self._run(p, args, groups[j % len(groups)])
+                 for j, p in enumerate(programs)]
         self.barrier(parts)
         return merge_shard_topk(parts, k=k)
 
     def _materialize(self, outs, plan):
+        """The chunks' outputs (each a tuple of the cards' outputs) as one
+        output on the home card: each chunk's cards concatenated in card
+        order (a card-to-card copy, never through the host), then the
+        chunks, the tail trimmed to its real rows."""
+        home = self.device
+        outs = [o[0] if len(o) == 1 else tree_map(
+            lambda *xs: torch.cat([x.to(home, non_blocking=True)
+                                   for x in xs], 0), *o) for o in outs]
         _, n_tail, b_tail = plan[-1]
         if len(outs) == 1:
             if n_tail == b_tail:
@@ -549,22 +648,25 @@ class ShardedQueryEngine:
 
         return tree_map(cat, *outs)
 
-    def _remember_outputs(self, full, outs, plan) -> None:
+    def _remember_outputs(self, full, outs, layout) -> None:
         """Seed the chunk cache so the next stage consuming ``full`` reuses
-        the padded chunk outputs instead of slicing again."""
+        each card's padded chunk outputs, where they lie, instead of
+        slicing and sending again."""
         flat_full, _ = tree_flatten(full)
-        flat_outs = [tree_flatten(o)[0] for o in outs]
+        flat_outs = [[tree_flatten(o)[0] for o in chunk] for chunk in outs]
         for li, leaf in enumerate(flat_full):
-            self._remember(leaf, plan, [fo[li] for fo in flat_outs])
+            self._remember(leaf, layout, [fo[li] for chunk in flat_outs
+                                          for fo in chunk])
 
     # -- barriers / reporting ----------------------------------------------
     def barrier(self, tree):
         """Wait until every tensor in ``tree`` is computed (a synchronize
-        of the engine's device on the card).  The engine itself never
-        waits: this is for the planner's timed stage boundaries and for
-        benchmark harnesses."""
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+        of every card of the mesh).  The engine itself never waits: this
+        is for the planner's timed stage boundaries and for benchmark
+        harnesses."""
+        for d in dict.fromkeys(self.mesh.devices.flat):
+            if d.type == "cuda":
+                torch.cuda.synchronize(d)
         return tree
 
     def cache_info(self) -> dict:
@@ -580,6 +682,7 @@ class ShardedQueryEngine:
     def stats(self) -> dict:
         return {
             "devices": self.n_devices,
+            "cards": [str(d) for d in self.mesh.devices.flat],
             "ladder": list(self.ladder),
             "dispatches": self.n_dispatches,
             "compiled_variants": self.n_compiles_total,

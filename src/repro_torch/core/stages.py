@@ -5,7 +5,10 @@ stage, the dense second stage and the RAG answer stage.
 Leaf stages close over *static* config only; array state (learned weights)
 lives in ``self.state`` and is trained through ``fit()``.  Execution is
 batched over the query axis and bucketed by the backend's engine
-(``backend.map_query_chunks``, keyed by the stage's ``key()``).
+(``backend.map_query_chunks``, keyed by the stage's ``key()``): each
+stage's batched function takes the replica of the card its shard runs on
+(``core.compiler.Replica``) and reads the index, the dense state and the
+statics from it, never from the backend on the home card.
 """
 from __future__ import annotations
 
@@ -34,9 +37,9 @@ class Retrieve(Transformer):
         k = min(self.params["k"] or be.default_k, be.index.n_docs)
         model = self.params["model"]
 
-        def run(terms, weights):
-            return RT.retrieve_topk(be.index, terms, weights, model=model,
-                                    k=k, max_postings=be.max_postings)
+        def run(rep, terms, weights):
+            return RT.retrieve_topk(rep.index, terms, weights, model=model,
+                                    k=k, max_postings=rep.max_postings)
 
         docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -55,14 +58,13 @@ class PrunedRetrieve(Transformer):
         be = ctx.backend
         k = min(self.params["k"], be.index.n_docs)
         model = self.params["model"]
-        budget = min(RT.block_budget(k, self.params["n_terms"]),
-                     be.total_blocks)
-        mbt = be.max_blocks_per_term
+        n_terms = self.params["n_terms"]
 
-        def run(terms, weights):
-            return RT.retrieve_pruned(be.index, terms, weights, model=model,
-                                      k=k, n_blocks=budget,
-                                      max_blocks_per_term=mbt)
+        def run(rep, terms, weights):
+            budget = min(RT.block_budget(k, n_terms), rep.total_blocks)
+            return RT.retrieve_pruned(
+                rep.index, terms, weights, model=model, k=k, n_blocks=budget,
+                max_blocks_per_term=rep.max_blocks_per_term)
 
         docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -82,13 +84,17 @@ class MultiRetrieve(Transformer):
         be = ctx.backend
         k = min(self.params["k"] or be.default_k, be.index.n_docs)
         models = self.params["models"]
-        mw = torch.tensor(self.params["weights"], dtype=torch.float32,
-                          device=be.device)
+        model_w = self.params["weights"]
+        on_card = {}
 
-        def run(terms, weights):
-            return RT.retrieve_multi(be.index, terms, weights, mw,
+        def run(rep, terms, weights):
+            mw = on_card.get(rep.device)
+            if mw is None:
+                mw = on_card[rep.device] = torch.tensor(
+                    model_w, dtype=torch.float32, device=rep.device)
+            return RT.retrieve_multi(rep.index, terms, weights, mw,
                                      models=models, k=k,
-                                     max_postings=be.max_postings)
+                                     max_postings=rep.max_postings)
 
         docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -108,11 +114,11 @@ class FatRetrieve(Transformer):
         be = ctx.backend
         k = min(self.params["k"] or be.default_k, be.index.n_docs)
 
-        def run(terms, weights):
+        def run(rep, terms, weights):
             return RT.retrieve_fat(
-                be.index, terms, weights, rank_model=self.params["model"],
+                rep.index, terms, weights, rank_model=self.params["model"],
                 feature_models=self.params["features"], k=k,
-                max_postings=be.max_postings)
+                max_postings=rep.max_postings)
 
         docs, scores, feats = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores,
@@ -135,10 +141,10 @@ class FusedTopKRetrieve(Transformer):
         k = min(self.params["k"], be.index.n_docs)
         model = self.params["model"]
 
-        def run(terms, weights):
-            return RT.retrieve_topk_fused(be.index, terms, weights,
+        def run(rep, terms, weights):
+            return RT.retrieve_topk_fused(rep.index, terms, weights,
                                           model=model, k=k,
-                                          max_postings=be.max_postings)
+                                          max_postings=rep.max_postings)
 
         docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -159,11 +165,11 @@ class FusedFatRetrieve(Transformer):
         be = ctx.backend
         k = min(self.params["k"], be.index.n_docs)
 
-        def run(terms, weights):
+        def run(rep, terms, weights):
             return RT.retrieve_fat_fused(
-                be.index, terms, weights, rank_model=self.params["model"],
+                rep.index, terms, weights, rank_model=self.params["model"],
                 feature_models=self.params["features"], k=k,
-                max_postings=be.max_postings)
+                max_postings=rep.max_postings)
 
         docs, scores, feats = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores,
@@ -229,25 +235,26 @@ def _dense_retrieve(be, Q, *, k: int, nprobe: int, pq: bool, fused: bool,
     (``nprobe`` and ``pq``), IVF-flat (``nprobe``) or brute force."""
     from repro_torch.index import dense as DN
     if nprobe and pq:
-        state = be.ivfpq
+        name = "ivfpq"
         search = (DN.ivfpq_retrieve_topk_fused if fused
                   else DN.ivfpq_retrieve_topk)
-        kw = {"nprobe": min(nprobe, state.n_lists), "refine": be.pq_refine}
+        kw = {"nprobe": min(nprobe, be.ivfpq.n_lists),
+              "refine": be.pq_refine}
         if fused:
             kw.update(shortlist=shortlist, block=block)
     elif nprobe:
-        state = be.ivf
+        name = "ivf"
         search = DN.ivf_retrieve_topk_fused if fused else DN.ivf_retrieve_topk
-        kw = {"nprobe": min(nprobe, state.n_lists)}
+        kw = {"nprobe": min(nprobe, be.ivf.n_lists)}
     else:
-        state = be.dense
+        name = "dense"
         search = (DN.dense_retrieve_exact_fused if fused
                   else DN.dense_retrieve_exact)
         kw = {}
 
-    def run(terms, weights):
-        qv = be.embed_queries({"terms": terms, "weights": weights})
-        return search(state, qv, k=k, **kw)
+    def run(rep, terms, weights):
+        qv = rep.embed_queries({"terms": terms, "weights": weights})
+        return search(getattr(rep, name), qv, k=k, **kw)
 
     docs, scores = be.map_query_chunks(run, Q, key=key)
     return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -271,14 +278,13 @@ class FusedDenseRerank(Transformer):
         p = self.params
         k_in = min(p["k_in"], be.index.n_docs)
         k = min(p["k"], be.index.n_docs)
-        emb = be.dense.emb
 
-        def run(terms, weights):
-            qv = be.embed_queries({"terms": terms, "weights": weights})
+        def run(rep, terms, weights):
+            qv = rep.embed_queries({"terms": terms, "weights": weights})
             return RT.retrieve_dense_rerank_fused(
-                be.index, emb, terms, weights, qv, model=p["model"],
-                k_in=k_in, k=k, alpha=p["alpha"],
-                max_postings=be.max_postings)
+                rep.index, rep.dense.emb, terms, weights, qv,
+                model=p["model"], k_in=k_in, k=k, alpha=p["alpha"],
+                max_postings=rep.max_postings)
 
         docs, scores = be.map_query_chunks(run, Q, key=self.key())
         return Q, {"qid": Q["qid"], "docids": docs, "scores": scores}
@@ -354,11 +360,11 @@ class RM3Expand(Transformer):
         be = ctx.backend
         fb = self.params["fb_docs"]
 
-        def run(terms, weights, docids, scores):
-            return RT.rm3_expand(be.index, terms, weights, docids, scores,
+        def run(rep, terms, weights, docids, scores):
+            return RT.rm3_expand(rep.index, terms, weights, docids, scores,
                                  fb_terms=self.params["fb_terms"],
                                  alpha=self.params["alpha"],
-                                 max_fwd=be.index.max_fwd_len)
+                                 max_fwd=rep.index.max_fwd_len)
 
         t2, w2 = be.map_query_chunks(run, Q, R["docids"][:, :fb],
                                      R["scores"][:, :fb], key=self.key())
@@ -380,10 +386,10 @@ class Extract(Transformer):
     def execute(self, ctx, Q, R):
         be = ctx.backend
 
-        def run(terms, weights, docids):
+        def run(rep, terms, weights, docids):
             return RT.extract_feature_docvectors(
-                be.index, terms, weights, docids, model=self.params["model"],
-                max_fwd=be.index.max_fwd_len)
+                rep.index, terms, weights, docids, model=self.params["model"],
+                max_fwd=rep.index.max_fwd_len)
 
         f = be.map_query_chunks(run, Q, R["docids"],
                                 key=self.key())[..., None]  # [NQ, K, 1]
@@ -479,12 +485,12 @@ class DenseRerank(Transformer):
 
     def execute(self, ctx, Q, R):
         be = ctx.backend
-        emb = be.dense.emb
         alpha = self.params["alpha"]
 
-        def run(terms, weights, docids, scores):
-            qv = be.embed_queries({"terms": terms, "weights": weights})
-            return RT.dense_rerank_scores(emb, qv, docids, scores, alpha)
+        def run(rep, terms, weights, docids, scores):
+            qv = rep.embed_queries({"terms": terms, "weights": weights})
+            return RT.dense_rerank_scores(rep.dense.emb, qv, docids, scores,
+                                          alpha)
 
         s = be.map_query_chunks(run, Q, R["docids"], R["scores"],
                                 key=self.key())
@@ -591,15 +597,22 @@ class Generate(Transformer):
                          prompt_docs=int(prompt_docs))
 
     def _assembler(self, be):
+        """The batched assembler ``(replica, terms, weights, docids)``: the
+        prompts of a card's shard, from that card's forward file."""
         cfg, _ = be.lm(self.params["model"])
-        return assemble_prompt_fn(
-            be.index, vocab=cfg.vocab,
-            max_prompt_len=self.params["max_prompt_len"],
-            prompt_docs=self.params["prompt_docs"])
+        P, docs = self.params["max_prompt_len"], self.params["prompt_docs"]
+
+        def assemble(rep, terms, weights, docids):
+            return assemble_prompt_fn(
+                rep.index, vocab=cfg.vocab, max_prompt_len=P,
+                prompt_docs=docs)(terms, weights, docids)
+
+        return assemble
 
     def assemble(self, ctx, Q, R):
-        """Prompts [NQ, max_prompt_len] for the incoming ranking (shared by
-        the offline path below and the server's decode pool)."""
+        """Prompts [NQ, max_prompt_len] for the incoming ranking, gathered
+        on the home card (shared by the offline path below and the server's
+        decode pool)."""
         return ctx.backend.map_query_chunks(self._assembler(ctx.backend), Q,
                                             R["docids"], key=self.key())
 
@@ -612,7 +625,8 @@ class Generate(Transformer):
             max_new_tokens=self.params["max_new_tokens"])
         if be.engine is not None:
             # one pinned program per ladder rung: a captured CUDA graph of
-            # the prefill and every decode step on the card
+            # the prefill and every decode step on the home card, where
+            # the prompts are gathered and the LM lies
             from repro_torch.core.engine import StageProgram
             prompts = self.assemble(ctx, Q, R)
             prog = StageProgram(key=(be.uid, self.key(), "generate"), fn=gen)
@@ -620,8 +634,8 @@ class Generate(Transformer):
         else:
             assemble = self._assembler(be)
 
-            def run(terms, weights, docids):
-                return gen(lm, assemble(terms, weights, docids))
+            def run(rep, terms, weights, docids):
+                return gen(lm, assemble(rep, terms, weights, docids))
 
             tokens = be.map_query_chunks(run, Q, R["docids"])
         return Q, {"qid": Q["qid"], "docids": R["docids"],

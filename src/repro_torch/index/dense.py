@@ -521,20 +521,42 @@ def ivfpq_retrieve_topk_fused(pq: IVFPQIndex, qvecs, *, k: int, nprobe: int,
 # Doc-axis sharding: per-shard top-k + cross-shard merge
 # ---------------------------------------------------------------------------
 
-def shard_dense_index(dense: DenseIndex,
-                      n_shards: int) -> list[tuple[DenseIndex, int]]:
-    """Partition the document axis into ``n_shards`` contiguous slices
-    (views of the store, no copy).  Returns ``(shard, offset)`` pairs;
-    ``offset`` maps shard-local row ids back to global doc ids.  Contiguity
-    is what makes the cross-shard merge tie-break identically to the
-    single-index oracle (lower global id wins in both)."""
+def shard_dense_index(dense: DenseIndex, n_shards: int,
+                      devices=None) -> list[tuple]:
+    """Partition the document axis into ``n_shards`` contiguous slices.
+    Returns ``(shard, offset)`` pairs; ``offset`` maps shard-local row ids
+    back to global doc ids.  Contiguity is what makes the cross-shard merge
+    tie-break identically to the single-index oracle (lower global id wins
+    in both).
+
+    Without ``devices`` each shard is a view of the store (no copy).  With
+    ``devices``, the ``[data, docs]`` array of a ``("data", "docs")`` query
+    mesh (``make_query_mesh(doc_shards=).devices``), shard *j* is placed on
+    every card of doc group *j* (modulo the groups) as copies, a view
+    cannot span cards: ``shard`` is then a tuple of DenseIndex, one a card
+    of the group in ``data`` order.  Offsets stay global either way."""
     D = int(dense.emb.shape[0])
     n_shards = int(n_shards)
     if n_shards < 1 or n_shards > D:
         raise ValueError(f"n_shards={n_shards} outside [1, {D}]")
     cuts = [round(i * D / n_shards) for i in range(n_shards + 1)]
-    return [(dataclasses.replace(dense, emb=dense.emb[lo:hi]), lo)
-            for lo, hi in zip(cuts[:-1], cuts[1:])]
+    views = [(dataclasses.replace(dense, emb=dense.emb[lo:hi]), lo)
+             for lo, hi in zip(cuts[:-1], cuts[1:])]
+    if devices is None:
+        return views
+    grid = np.asarray(devices, dtype=object)
+    if grid.ndim != 2:
+        raise ValueError(f"devices must be a [data, docs] array of a query "
+                         f"mesh, got shape {grid.shape}")
+
+    def copy(view, dev):
+        dev = torch.device(dev)
+        emb = (view.emb.clone() if view.emb.device == dev
+               else view.emb.to(dev))
+        return dataclasses.replace(view, emb=emb)
+
+    return [(tuple(copy(view, d) for d in grid[:, j % grid.shape[1]]), lo)
+            for j, (view, lo) in enumerate(views)]
 
 
 def sharded_dense_topk(shards, qvecs, *, k: int):

@@ -114,7 +114,11 @@ def _aggregate_sparse(doc_ids, scores, k):
     first = torch.cat([torch.ones_like(d[:, :1], dtype=torch.bool), new], 1)
     seg = torch.cumsum(first.long(), 1) - 1
     agg = torch.zeros((NQ, n), dtype=s.dtype, device=s.device)
-    agg.scatter_add_(1, seg, s)
+    # an accumulating index_put_ adds a document's contributions in their
+    # order on the card too (a sorted, sequential sum), where scatter_add_'s
+    # atomics add them in an order that changes from run to run
+    rows = torch.arange(NQ, device=s.device)[:, None].expand(NQ, n)
+    agg.index_put_((rows, seg), s, accumulate=True)
     rep = torch.where(first, torch.gather(agg, 1, seg), -torch.inf)
     rep = torch.where(d >= 0, rep, -torch.inf)     # drop padding docs
     top_s, idx = topk(rep, k)

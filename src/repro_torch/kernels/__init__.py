@@ -34,23 +34,29 @@ def wrappers() -> dict:
             "flash_attention": flash_attention}
 
 
-def device_launches(*, reset: bool = False) -> dict[str, int]:
-    """Runs of each kernel on the current CUDA device, counted by the
-    kernel itself, since the last reset (``reset=True`` sets the counts to
-    0 after reading them).  Builds the kernels if they are not built; call
-    it between runs, after a synchronise, never while a stream is being
-    captured."""
+def device_launches(device=None, *, reset: bool = False) -> dict[str, int]:
+    """Runs of each kernel counted by the kernel itself since the last
+    reset, on the CUDA ``device`` given, or summed over every card present
+    when ``device`` is None (``reset=True`` sets the counts read to 0
+    after reading them).  Each card keeps its own counts, read under that
+    card.  Builds the kernels if they are not built; call it between runs,
+    after a synchronise, never while a stream is being captured."""
     import ctypes
+
+    import torch
 
     from repro_torch.kernels import _build
     lib = _build.library()
-    out = {}
-    for name, readers in DEVICE_COUNTERS.items():
-        total = 0
-        for reader in readers:
-            count = ctypes.c_uint(0)
-            _build.check(getattr(lib, reader)(ctypes.addressof(count),
-                                              int(reset)), reader)
-            total += count.value
-        out[name] = total
+    cards = ([torch.device(device)] if device is not None else
+             [torch.device("cuda", i)
+              for i in range(torch.cuda.device_count())])
+    out = {name: 0 for name in DEVICE_COUNTERS}
+    for card in cards:
+        with torch.cuda.device(card):
+            for name, readers in DEVICE_COUNTERS.items():
+                for reader in readers:
+                    count = ctypes.c_uint(0)
+                    _build.check(getattr(lib, reader)(
+                        ctypes.addressof(count), int(reset)), reader)
+                    out[name] += count.value
     return out

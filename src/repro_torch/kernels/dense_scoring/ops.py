@@ -13,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import cdiv
+from repro_torch.common import on_card
 from repro_torch.kernels import _build
 from repro_torch.kernels.pricing import priced, topk_outputs
 from repro_torch.kernels.dense_scoring.ref import dense_topk_ref
@@ -107,12 +108,13 @@ def streaming_dense_topk(emb: torch.Tensor, qvec: torch.Tensor,
     n_seg, seg_len, tile = plan(nq, n, k, group, n_sm)
     cand_vals = torch.empty((nq, n_seg, k), dtype=torch.float32, device=dev)
     cand_idxs = torch.empty((nq, n_seg, k), dtype=torch.int32, device=dev)
-    err = _build.library().repro_dense_topk(
-        emb.data_ptr(), 0 if shared else n * dim, q.data_ptr(),
-        None if base is None else base.data_ptr(), nq, n, dim, k, group,
-        n_seg, seg_len, tile, cand_vals.data_ptr(), cand_idxs.data_ptr(),
-        vals.data_ptr(), idxs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        err = _build.library().repro_dense_topk(
+            emb.data_ptr(), 0 if shared else n * dim, q.data_ptr(),
+            None if base is None else base.data_ptr(), nq, n, dim, k, group,
+            n_seg, seg_len, tile, cand_vals.data_ptr(), cand_idxs.data_ptr(),
+            vals.data_ptr(), idxs.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "repro_dense_topk")
     streaming_dense_topk.launches += 1
     return vals, idxs

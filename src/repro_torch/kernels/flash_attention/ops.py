@@ -27,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import on_card
 from repro_torch.kernels import _build
 from repro_torch.kernels.flash_attention.ref import NEG, attention_mask, \
     flash_attention_ref
@@ -137,11 +138,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return out[..., :D]
     if T == 0:
         raise ValueError("no keys: T == 0")
-    err = _build.library().repro_flash_attention(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T,
-        H, HKV, D_run, int(causal), int(chunk),
-        int(q.dtype == torch.bfloat16), scale,
-        torch.cuda.current_stream(q.device).cuda_stream)
+    with on_card(q.device):
+        err = _build.library().repro_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S,
+            T, H, HKV, D_run, int(causal), int(chunk),
+            int(q.dtype == torch.bfloat16), scale,
+            torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "repro_flash_attention")
     flash_attention.launches += 1
     return out[..., :D].contiguous() if D_run != D else out

@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import on_card
 from repro_torch.kernels import _build
 from repro_torch.kernels.fused_scoring.ref import fused_scoring_ref
 from repro_torch.kernels.pricing import priced
@@ -79,10 +80,12 @@ def fused_scoring(tf, dl, df, cf, *, models: tuple[str, ...], stats: dict):
         code |= SUPPORTED.index(m) << (4 * j)
     if n:
         n_docs, total = float(stats["n_docs"]), float(stats["total_terms"])
-        err = _build.library().repro_fused_scoring(
-            *(c.data_ptr() for c in cols), n, group, code, len(models),
-            n_docs, float(stats["avg_doclen"]), total, total / n_docs,
-            out.data_ptr(), torch.cuda.current_stream(out.device).cuda_stream)
+        with on_card(out.device):
+            err = _build.library().repro_fused_scoring(
+                *(c.data_ptr() for c in cols), n, group, code, len(models),
+                n_docs, float(stats["avg_doclen"]), total, total / n_docs,
+                out.data_ptr(),
+                torch.cuda.current_stream(out.device).cuda_stream)
         _build.check(err, "repro_fused_scoring")
         fused_scoring.launches += 1
     return out

@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.common import cdiv, round_up
+from repro_torch.common import on_card
 from repro_torch.kernels import _build
 from repro_torch.kernels.pricing import priced, topk_outputs
 from repro_torch.kernels.pq_scoring.ref import pq_topk_ref
@@ -120,11 +121,12 @@ def streaming_pq_topk(codes: torch.Tensor, table: torch.Tensor,
     if nq == 0:
         return vals, idxs
     cluster, seg_len, tile = plan(n, m, n_codes, block)
-    err = _build.library().repro_pq_topk(
-        codes.data_ptr(), table.data_ptr(), table.stride(0), table.stride(1),
-        None if base is None else base.data_ptr(), nq, n, m, n_codes, k,
-        cluster, seg_len, tile, vals.data_ptr(), idxs.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    with on_card(dev):
+        err = _build.library().repro_pq_topk(
+            codes.data_ptr(), table.data_ptr(), table.stride(0),
+            table.stride(1), None if base is None else base.data_ptr(), nq,
+            n, m, n_codes, k, cluster, seg_len, tile, vals.data_ptr(),
+            idxs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     _build.check(err, "repro_pq_topk")
     streaming_pq_topk.launches += 1
     return vals, idxs

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.common import on_card
 from repro_torch.kernels import _build
 from repro_torch.kernels.pricing import priced, topk_outputs
 from repro_torch.kernels.segments import plan_segments
@@ -78,10 +79,11 @@ def streaming_topk(scores: torch.Tensor, *, k: int):
         cand_vals = torch.empty((nq, n_seg, k), dtype=torch.float32,
                                 device=dev)
         cand_idxs = torch.empty((nq, n_seg, k), dtype=torch.int32, device=dev)
-        err = _build.library().repro_topk_f32(
-            rows.data_ptr(), nq, n, row_stride, k, n_seg, seg_len,
-            cand_vals.data_ptr(), cand_idxs.data_ptr(), vals.data_ptr(),
-            idxs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        with on_card(dev):
+            err = _build.library().repro_topk_f32(
+                rows.data_ptr(), nq, n, row_stride, k, n_seg, seg_len,
+                cand_vals.data_ptr(), cand_idxs.data_ptr(), vals.data_ptr(),
+                idxs.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _build.check(err, "repro_topk_f32")
         streaming_topk.launches += 1
     return vals.reshape(*scores.shape[:-1], k), idxs.reshape(*scores.shape[:-1], k)

@@ -11,8 +11,10 @@ set of its axes, through which ``repro_torch/collectives.py`` moves
 shards.  :func:`make_production_mesh` (the reference's 16x16 and 2x16x16)
 and :func:`make_host_mesh` (1x1) are shape-only: they have no group, sit
 at rank 0's coordinates (or those given), and serve the dry run, whose
-tensors lie on ``meta``.  The serving engine's query mesh
-(``make_query_mesh``) waits for the engine's slice.
+tensors lie on ``meta``.  :func:`make_query_mesh` is the serving
+engine's: the ``("data",)`` or ``("data", "docs")`` mesh over the local
+cards, driven by one process (no group), its ``devices`` laid out
+row-major as ``jax.make_mesh`` lays out its list.
 
 Each figure below is quoted for the card the port is measured on,
 ``NVIDIA H100 80GB HBM3, 700.00 W`` (the H100 SXM datasheet and the
@@ -50,15 +52,19 @@ class Mesh:
     it), and this rank's place on them (``coords``: name -> index).  A
     live mesh also holds ``device`` (this rank's card, or the CPU) and a
     process group for every set of its axes; a shape-only one holds none
-    and stands for the mesh in a dry run."""
+    and stands for the mesh in a dry run.  A query mesh
+    (:func:`make_query_mesh`) holds ``devices``, every card of the mesh in
+    an array of its shape, and ``device``, its first (the home card); one
+    process drives them all, so it has no group."""
 
     def __init__(self, shape, axis_names, *, coords=None, groups=None,
-                 device=None):
+                 device=None, devices=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, shape))
         self.coords = dict(coords or {a: 0 for a in self.axis_names})
         self.size = math.prod(self.shape.values())
         self.device = device
+        self.devices = devices
         self._groups = groups
 
     @property
@@ -85,8 +91,9 @@ class Mesh:
         return self._groups[self.axes(axes)]
 
     def __repr__(self):
-        return (f"Mesh({self.name} {self.axis_names}, at {self.coords}"
-                f"{'' if self.live else ', shape-only'})")
+        kind = ("" if self.live else ", one process" if self.devices
+                is not None else ", shape-only")
+        return f"Mesh({self.name} {self.axis_names}, at {self.coords}{kind})"
 
 
 def _coords(rank: int, shape, names) -> dict[str, int]:
@@ -172,6 +179,53 @@ def make_production_mesh(*, multi_pod: bool = False, coords=None) -> Mesh:
 def make_host_mesh() -> Mesh:
     """The degenerate 1x1 mesh: one card, no collective."""
     return Mesh((1, 1), ("data", "model"))
+
+
+def make_query_mesh(*, max_devices: int | None = None,
+                    doc_shards: int | None = None, devices=None) -> Mesh:
+    """The ``("data",)`` mesh over the local cards that the query engine
+    (``core/engine.py``) data-parallels the query axis over, as the
+    reference's ``make_query_mesh`` builds it over ``jax.local_devices()``.
+    ``devices=None`` means every CUDA device (raises without one);
+    ``max_devices`` keeps the first ones (at least 1, at most all).  The
+    tests pass ``devices=["cpu"] * n``.
+
+    ``doc_shards`` selects the 2-D ``(query x doc-shard)`` layout
+    ``("data", "docs")``: the query axis data-parallels over the first
+    axis while each ``docs`` group holds one contiguous slice of the
+    document axis (``index.dense.shard_dense_index(..., devices=)``),
+    merged across shards by ``core.engine.merge_shard_topk``.  The device
+    count must be divisible by ``doc_shards``.  One process drives every
+    card of the mesh: it has no process group."""
+    import numpy as np
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device: pass devices=['cpu'] * n to build a query "
+                "mesh on the CPU")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if devices and devices[0].type == "cuda":
+        devices = [torch.device("cuda", torch.cuda.current_device()
+                                if d.index is None else d.index)
+                   for d in devices]
+    if max_devices is not None:
+        devices = devices[:max(1, min(max_devices, len(devices)))]
+    if doc_shards is None:
+        shape, names = (len(devices),), ("data",)
+    else:
+        doc_shards = int(doc_shards)
+        if doc_shards < 1 or len(devices) % doc_shards:
+            raise ValueError(
+                f"doc_shards={doc_shards} must divide the device count "
+                f"{len(devices)}")
+        shape, names = (len(devices) // doc_shards, doc_shards), \
+            ("data", "docs")
+    grid = np.empty(len(devices), dtype=object)
+    grid[:] = devices
+    return Mesh(shape, names, device=devices[0],
+                devices=grid.reshape(shape))
 
 
 def free_port() -> int:
