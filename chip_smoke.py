@@ -64,8 +64,12 @@ the flash kernel and olmoe-1b-7b with its routes pinned, at full width and
 2 layers in bf16, sharded against rank 0's card alone; with 4 cards, cells
 M1-M3 at full depth on a 2x2 mesh, each rank's peak memory held to its dry
 run, M2's flash kernel held to its plain version at each rank's shape, the
-flash launches of every rank counted).  ``python3 chip_smoke.py --phase M`` runs the toolchain and
-phase M alone (with 4 cards: M1-M3).  Last, phase Q: the query engine
+flash launches of every rank counted; check 3: one AdamW step of the same
+LMs in fp32 on the flash training path, sharded against rank 0's card
+alone; with 4 cards, cell M4: qwen2-1.5b's train_4k at full width and
+depth on the 2x2 mesh, 256 x 4,096 tokens a step, each rank's peak held to
+its dry run).  ``python3 chip_smoke.py --phase M`` runs the toolchain and
+phase M alone (with 4 cards: M1-M4).  Last, phase Q: the query engine
 over the cards present, driven by this one process, on an index and dense
 state of its own (Q0: the retrieval kernels at a card's shard shapes on
 the last card while the first is current; Q1: the reference's
@@ -459,8 +463,14 @@ def phase_small_parity():
     from repro_torch.index.dense import build_dense_index
     dense = {dev: build_dense_index(rt.build_index(corpus, device=dev))
              for dev in ("cpu", "cuda")}
+    # the build sums each document's entries in their order on the card
+    # too: a second build there is bit-equal to the first
+    again = build_dense_index(rt.build_index(corpus, device="cuda"))
+    assert same_bits(again.emb, dense["cuda"].emb), \
+        "two dense builds on the card differ"
     torch.testing.assert_close(dense["cuda"].emb.cpu(), dense["cpu"].emb,
                                rtol=1e-5, atol=1e-6)
+    card_cpu_equal = same_bits(dense["cuda"].emb.cpu(), dense["cpu"].emb)
     dpipes = [(rt.Retrieve("BM25", k=200) >> rt.DenseRerank(alpha=0.3)) % 10,
               rt.DenseRetrieve(k=10, nprobe=0) % 10,
               rt.DenseRetrieve(k=10, nprobe=8) % 10,
@@ -481,8 +491,9 @@ def phase_small_parity():
         torch.testing.assert_close(b["scores"], a["scores"], rtol=2e-5,
                                    atol=1e-5)
         n_ties += _check_docids(a["docids"], a["scores"], b["docids"])
-    log("[small] dense: embeddings built on the card within rtol 1e-5 / atol "
-        "1e-6 of the CPU's; D1-D4 (fused) agree card vs CPU, docids equal "
+    log("[small] dense: two builds on the card bit-equal; the card's "
+        "embeddings within rtol 1e-5 / atol 1e-6 of the CPU's (bit-equal: "
+        f"{card_cpu_equal}); D1-D4 (fused) agree card vs CPU, docids equal "
         f"except {n_ties} rank(s) inside a score tie")
     _small_rag(corpus, topics, dense["cpu"])
 
@@ -700,10 +711,19 @@ def phase_dense_build(index) -> dict:
     """The dense state of the Robust04-scale collection on the card, and
     the backends of the dense main path over it."""
     import repro_torch as rt
-    from repro_torch.index.dense import pq_store_bytes
+    from repro_torch.index.dense import build_dense_index, pq_store_bytes
     from repro_torch.index.robust04 import PQ_M, PQ_REFINE, robust04_dense
     dense, ivf, ivfpq, info = robust04_dense(index)
     n = index.n_docs
+    # a second build of the embeddings: bit-equal to the first
+    t0 = time.perf_counter()
+    again = build_dense_index(index)
+    again_s = time.perf_counter() - t0
+    assert same_bits(again.emb, dense.emb), \
+        "two Robust04-scale dense builds on the card differ"
+    del again
+    log(f"[dense] a second build of the embeddings {again_s:.2f} s: "
+        f"bit-equal to the first")
     flat = dense.emb.numel() * dense.emb.element_size() / n
     pq = pq_store_bytes(ivfpq) / n
     log(f"[dense] built on {dense.emb.device}: embeddings [{n}, {dense.dim}] "
@@ -4048,7 +4068,24 @@ M_TIMED = 3
 #: a rank's measured peak within this factor of its dry run's
 M_PEAK_REL = 0.05
 #: seconds a rank may take
-M_TIMEOUT = 300
+M_TIMEOUT = 900
+#: check 3, the sharded train step against one card: the LMs at full
+#: width and M_CHECK_LAYERS layers in fp32 on the flash training path
+#: (qwen2 fsdp, internlm2 tp, olmoe tp + EP), one AdamW step of one
+#: batch of M_TRAIN_BATCH x M_TRAIN_SEQ tokens at learning rate M_TRAIN_LR
+M_TRAIN_ARCHS = ("qwen2-1.5b", "internlm2-1.8b", "olmoe-1b-7b")
+M_TRAIN_BATCH, M_TRAIN_SEQ, M_TRAIN_LR = 8, 512, 1e-3
+#: its limits: ce, moe_aux, moe_z and grad_norm within this relative of
+#: the one-card step's; each gradient, gathered, within this relative
+#: norm of one card's; each parameter after the step by the floor rule of
+#: tests/test_torch_train_lm.py::test_train_step_matches_reference
+M_TRAIN_RTOL, M_TRAIN_GRAD_REL = 1e-5, 1e-4
+#: cell M4: qwen2-1.5b x train_4k at full width and depth on the 2x2 mesh
+#: (bf16, remat, the flash training path, the cell's batch of 256 x
+#: 4,096), its micro-batches the first of M4_MICRO whose dry-run peak a
+#: card holds: one warm-up step and one timed step
+M4 = ("M4", "qwen2-1.5b", "train_4k", {"attn_impl": "flash"})
+M4_MICRO = (16, 32, 64)
 
 
 def _mesh_gather(logits, mesh, spec):
@@ -4156,22 +4193,23 @@ def mesh_check(mesh, arch_id: str, over) -> dict:
     return out
 
 
-def _flash_shapes(fn):
+def _flash_shapes(fn, entry: str = "flash_attention"):
     """(``fn()``, the set of (q shape, k shape, dtype, causal, chunk) that
-    the LM layers handed the flash kernel's entry during it)."""
+    the LM layers handed the flash kernel's ``entry`` during it: its
+    inference entry, or ``"flash_attention_xla"``, the training one)."""
     from repro_torch.models import layers
-    seen, inner = set(), layers.flash_attention
+    seen, inner = set(), getattr(layers, entry)
 
-    def spy(q, k, v, *, causal=True, chunk=0):
+    def spy(q, k, v, *, causal=True, chunk=0, **kw):
         seen.add((tuple(q.shape), tuple(k.shape), str(q.dtype), causal,
                   chunk))
-        return inner(q, k, v, causal=causal, chunk=chunk)
+        return inner(q, k, v, causal=causal, chunk=chunk, **kw)
 
-    layers.flash_attention = spy
+    setattr(layers, entry, spy)
     try:
         return fn(), seen
     finally:
-        layers.flash_attention = inner
+        setattr(layers, entry, inner)
 
 
 #: the (batch, kv head) groups of a rank's flash call held against the
@@ -4183,7 +4221,9 @@ def mesh_flash_check(shapes, seed: int) -> list[dict]:
     """The flash kernel at each of a rank's ``shapes`` (from
     :func:`_flash_shapes`) on N(0, 1) bf16 inputs: held against the plain
     version's fp32 result on M_FLASH_GROUPS (``attention_errors``; 2e-2
-    absolute, REL_TOL, ROW_REL_TOL), and timed beside its bound."""
+    absolute, REL_TOL, ROW_REL_TOL), and timed beside its bound, its plain
+    version on one (batch, kv head) group and, where no chunk masks it,
+    ``scaled_dot_product_attention`` (causal, GQA)."""
     import torch
     from repro_torch.kernels.flash_attention.ops import flash_attention
     from repro_torch.kernels.flash_attention.ref import flash_attention_ref
@@ -4211,6 +4251,22 @@ def mesh_flash_check(shapes, seed: int) -> list[dict]:
             torch.cuda.empty_cache()
         ms = time_ms(lambda: flash_attention(q, k, v, causal=causal,
                                              chunk=chunk), iters=3)
+        # the plain version on the first group alone (whole, its fp32
+        # scores of the larger shapes would not fit the card)
+        b, j = groups[0]
+        one = [t[b:b + 1, :, sl].float() for t, sl in
+               ((q, slice(G * j, G * j + G)), (k, slice(j, j + 1)),
+                (v, slice(j, j + 1)))]
+        plain = time_ms(lambda: flash_attention_ref(
+            *one, causal=causal, chunk=chunk), iters=3)
+        del one
+        library = None
+        if not chunk:
+            sdpa = torch.nn.functional.scaled_dot_product_attention
+            qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+            library = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal,
+                                           enable_gqa=True), iters=3)
+            del qt, kt, vt
         ops = 4 * B * H * D * _visible_pairs(S, chunk) if causal else \
             4 * B * H * D * S * ks[1]
         nbytes = q.element_size() * (2 * q.numel() + k.numel() + v.numel())
@@ -4220,7 +4276,8 @@ def mesh_flash_check(shapes, seed: int) -> list[dict]:
                     "causal": causal, "chunk": chunk, "groups": groups,
                     "max_abs_err": diff, "rel": rel, "row": row,
                     "ok": diff <= 2e-2 and rel <= REL_TOL and row <= 1.0,
-                    "ms": ms, "bound_ms": bound})
+                    "ms": ms, "bound_ms": bound, "library_ms": library,
+                    "plain_ms_one_group": plain})
         del q, k, v, a
         torch.cuda.empty_cache()
     return out
@@ -4298,11 +4355,217 @@ def mesh_cell(mesh, name: str, arch_id: str, shape: str, over) -> dict:
     return out
 
 
+def _whole(t, spec, mesh, reduce: bool = False):
+    """The whole leaf from the rank's shard ``t`` of ``spec``; with
+    ``reduce`` (a rank's unreduced gradient) summed first over the axes
+    its spec leaves free."""
+    from repro_torch import collectives as C
+    from repro_torch import sharding as sh
+    from repro_torch.models.layers import gather_at_use
+    if reduce:
+        used = {a for i in range(t.dim()) for a in sh.spec_axes(spec, i)}
+        t = C.all_reduce(t.clone(), mesh, tuple(
+            a for a in mesh.axis_names if a not in used))
+    return gather_at_use(t, spec, mesh)
+
+
+def _train_pass(cfg, lm, batch, opt, n: int, routes=None, pins=None):
+    """One AdamW step of ``lm`` on ``batch`` by hand (the loss's gradient
+    at 1/``n`` of it, then ``optimizer.update``): (its metrics, the
+    gradients by name, unreduced on a mesh)."""
+    import torch
+    from repro_torch.models import transformer_lm as tlm
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    state = ts.init_state(lm)
+    loss, met = tlm.loss_fn(cfg, lm, batch, metrics=routes, expert_idx=pins)
+    names = [name for name, _ in lm.named_parameters()]
+    grads = dict(zip(names, torch.autograd.grad(loss / n,
+                                                list(lm.parameters()))))
+    del loss
+    _, _, om = opt_lib.update(opt, grads, state["opt"], lm)
+    metrics = {k: float(v.detach()) for k, v in {**met, **om}.items()}
+    del state
+    return metrics, grads
+
+
+def mesh_train_check(mesh, arch_id: str) -> dict:
+    """Check 3 on one rank: one AdamW step of ``arch_id`` at full width
+    and M_CHECK_LAYERS layers in fp32 on ``attn_impl="flash"``, on rank 0's
+    card alone and then on ``mesh`` (the seed-0 draw cut to the rank's
+    shards, the batch's rows by ``shard_batch``); rank 0 compares the
+    metrics, every gradient gathered from the shards (summed over the
+    ranks that hold its leaf alike) and every parameter after the step.
+    An MoE LM whose picks on the mesh differ from the one-card step's is
+    held with its routes pinned to them; the share of equal picks is
+    reported."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.models import transformer_lm as tlm
+    from repro_torch.train import optimizer as opt_lib
+    cfg = dataclasses.replace(get_arch(arch_id).model_cfg(),
+                              n_layers=M_CHECK_LAYERS, dtype=torch.float32,
+                              attn_impl="flash")
+    dev = mesh.device
+    g = torch.Generator(dev).manual_seed(2)
+    B, S = M_TRAIN_BATCH, M_TRAIN_SEQ
+    batch = {k: torch.randint(0, cfg.vocab, (B, S), device=dev, generator=g)
+             for k in ("tokens", "targets")}
+    batch["targets"][:, -1] = -1
+    opt = opt_lib.AdamWConfig(lr=M_TRAIN_LR, warmup_steps=1, total_steps=10)
+    rank0 = mesh.coords == {a: 0 for a in mesh.axis_names}
+    one, routes = {}, []
+    if rank0:
+        lm = tlm.init_params(cfg, torch.Generator(dev).manual_seed(0))
+        one["metrics"], grads = _train_pass(cfg, lm, batch, opt, 1, routes)
+        one["grads"] = {k: v.detach() for k, v in grads.items()}
+        one["params"] = {k: p.detach() for k, p in lm.named_parameters()}
+        del lm, grads
+    pins = None
+    if cfg.moe:
+        pins = [torch.empty(B * S, cfg.moe.top_k, dtype=torch.int64,
+                            device=dev) for _ in range(M_CHECK_LAYERS)]
+        for i, t in enumerate(pins):
+            if rank0:
+                t.copy_(routes[i]["expert_idx"])
+            dist.broadcast(t, 0)
+    lm = tlm.init_params(cfg, torch.Generator(dev).manual_seed(0), mesh=mesh)
+    local = tlm.shard_batch(cfg, mesh, batch, 1)
+    out = {"arch": arch_id, "dtype": "float32", "attn_impl": "flash",
+           "batch": [B, S], "pinned": False}
+    if cfg.moe:
+        seen = []
+        with torch.no_grad():
+            tlm.loss_fn(cfg, lm, local, metrics=seen)
+        same = sum(int((m["expert_idx"] == p).sum())
+                   for m, p in zip(seen, pins))
+        out["route_agree"] = same / sum(p.numel() for p in pins)
+        out["pinned"] = out["route_agree"] < 1.0
+    metrics, grads = _train_pass(cfg, lm, local, opt, mesh.size,
+                                 pins=pins if out["pinned"] else None)
+    whole_g = {k: _whole(v.detach(), lm.spec(k), mesh, reduce=True)
+               for k, v in grads.items()}
+    del grads
+    whole_p = {k: _whole(p.detach(), lm.spec(k), mesh)
+               for k, p in lm.named_parameters()}
+    del lm
+    if rank0:
+        out["metrics"] = metrics
+        out["metrics_one_card"] = one["metrics"]
+        out["metric_rel"] = {
+            k: abs(metrics[k] - v) / max(abs(v), 1e-30)
+            for k, v in one["metrics"].items() if k != "lr"}
+        grad_rel, param_excess = {}, {}
+        for k, w in one["grads"].items():
+            grad_rel[k] = float(torch.linalg.vector_norm(whole_g[k] - w)
+                                / torch.linalg.vector_norm(w).clamp_min(
+                                    1e-30))
+            floor = w.abs() < 1e-4 * w.abs().max()
+            want = one["params"][k]
+            err = (whole_p[k] - want).abs()
+            bound = torch.where(floor, torch.full_like(err, M_TRAIN_LR),
+                                1e-5 + 1e-4 * want.abs().max())
+            param_excess[k] = float((err / bound).max())
+        out["grad_rel"] = max(grad_rel.values())
+        out["grad_rel_leaf"] = max(grad_rel, key=grad_rel.get)
+        out["param_excess"] = max(param_excess.values())
+        out["param_excess_leaf"] = max(param_excess, key=param_excess.get)
+        out["ok"] = (all(r <= M_TRAIN_RTOL
+                         for r in out["metric_rel"].values())
+                     and out["grad_rel"] <= M_TRAIN_GRAD_REL
+                     and out["param_excess"] <= 1.0
+                     and math.isfinite(metrics["ce"]))
+    del one, whole_g, whole_p
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def mesh_train_cell(mesh) -> dict:
+    """Cell M4 on one rank: the smallest micro-batch count of M4_MICRO
+    whose dry run at the rank's coordinates fits the card, the flash
+    kernel at the rank's shapes of it against its plain version
+    (:func:`mesh_flash_check`), then the bundle on ``mesh``: one warm-up
+    step (its collectives recorded) and one step between CUDA events, the
+    rank's peak memory above what it held before the build, the flash
+    kernel's launches over both, and the loss and gradient norm of
+    each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import collectives
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_bundle
+    name, arch_id, shape, over = M4
+    shape_only = mesh_lib.Mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                               coords=mesh.coords)
+    t0 = time.perf_counter()
+    tried = {}
+    for n in M4_MICRO:
+        o = {**over, "train_microbatches": str(n)}
+        dry, shapes = _flash_shapes(lambda: run_cell(
+            arch_id, shape, mesh=shape_only, overrides=o, verbose=False),
+            "flash_attention_xla")
+        tried[n] = dry["bytes_per_device"]
+        if dry["bytes_per_device"] <= mesh_lib.memory_bytes():
+            break
+    else:
+        raise AssertionError(f"M4: no micro-batch count of {M4_MICRO} fits "
+                             f"a card: dry-run peaks {tried}")
+    dry_s = time.perf_counter() - t0
+    flash_check = mesh_flash_check(shapes, 11 + dist.get_rank())
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    b = build_bundle(arch_id, shape, mesh=mesh, overrides=o)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    own = torch.cuda.current_device()
+    zero_launches(own)
+    state, batch = b.args
+    with collectives.recording() as rec:
+        state, m0 = b.fn(state, batch)
+    a, z = (torch.cuda.Event(enable_timing=True),
+            torch.cuda.Event(enable_timing=True))
+    a.record()
+    state, m1 = b.fn(state, batch)
+    z.record()
+    torch.cuda.synchronize()
+    flash = read_launches("flash_attention", device=own)["flash_attention"]
+    peak = torch.cuda.max_memory_allocated() - base
+    steps = [{k: float(v) for k, v in m.items()} for m in (m0, m1)]
+    out = {"cell": name, "arch": arch_id, "shape": shape, "overrides": o,
+           "micro": n, "dry_peaks_tried": tried, "ms": a.elapsed_time(z),
+           "peak": peak, "dry_peak": dry["bytes_per_device"],
+           "dry_memory": dry["memory"], "dry_s": round(dry_s, 2),
+           "build_s": round(build_s, 2),
+           "collective_bytes": rec.total, "collectives": rec.bytes,
+           "dry_collective_bytes": dry["collective_bytes_per_chip"],
+           "dry_collectives": dry["collectives"],
+           "dry_flops": dry["flops_per_chip"], "metrics": steps,
+           "finite": all(math.isfinite(s["ce"]) and
+                         math.isfinite(s["grad_norm"]) for s in steps),
+           "flash": flash, "flash_check": flash_check,
+           "n_layers": len(state["params"].layers), "steps": 2,
+           "tokens": int(batch["tokens"].numel()),
+           "global_tokens": int(batch["rows"] * batch["tokens"].shape[1])}
+    del b, state, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
 def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     """One rank of phase M (``chip_smoke.py --mesh-rank``): joins the NCCL
-    group on card ``rank``, runs check 1 on the mesh of all ranks and,
-    with 4, check 2's cells on the 2x2 mesh; writes its results to
-    ``<out_dir>/rank<rank>.json``."""
+    group on card ``rank``, runs checks 1 and 3 on the mesh of all ranks
+    and, with 4, check 2's cells and cell M4 on the 2x2 mesh; writes its
+    results to ``<out_dir>/rank<rank>.json``."""
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     import torch
     import torch.distributed as dist
@@ -4312,14 +4575,20 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
     shape = M_SHAPE if world == 4 else (1, world)
     mesh = mesh_lib.make_card_mesh(shape)
     res = {"rank": rank, "coords": mesh.coords, "mesh": mesh.name,
-           "device": str(mesh.device), "check": [], "cells": []}
+           "device": str(mesh.device), "check": [], "train_check": [],
+           "cells": []}
     t0 = time.perf_counter()
     for arch_id, over in M_CHECK_ARCHS:
         res["check"].append(mesh_check(mesh, arch_id, over))
     res["check_s"] = round(time.perf_counter() - t0, 2)
+    t0 = time.perf_counter()
+    for arch_id in M_TRAIN_ARCHS:
+        res["train_check"].append(mesh_train_check(mesh, arch_id))
+    res["train_check_s"] = round(time.perf_counter() - t0, 2)
     if world == 4:
         for cell in M_CELLS:
             res["cells"].append(mesh_cell(mesh, *cell))
+        res["m4"] = mesh_train_cell(mesh)
     res["s"] = round(time.perf_counter() - t0, 2)
     Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
     dist.barrier()
@@ -4328,19 +4597,24 @@ def mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
 
 
 def phase_mesh(smi: str) -> dict:
-    """Phase M: the LM serve steps on a mesh of cards, one process a card
-    (NCCL).  The kernels are built in this process first; the card is
-    freed before the ranks start.  Check 1 on a mesh of the cards present
-    (2x2 with 4 or more, 1 x n else): qwen2-1.5b, internlm2-1.8b (on the
-    flash kernel) and olmoe-1b-7b (its routes pinned) at full width and 2
-    layers in bf16, a prefill and a decode step against rank 0's card
-    alone.  With 4 cards, check 2: cells M1-M3 at
+    """Phase M: the LM serve and train steps on a mesh of cards, one
+    process a card (NCCL).  The kernels are built in this process first;
+    the card is freed before the ranks start.  Check 1 on a mesh of the
+    cards present (2x2 with 4 or more, 1 x n else): qwen2-1.5b,
+    internlm2-1.8b (on the flash kernel) and olmoe-1b-7b (its routes
+    pinned) at full width and 2 layers in bf16, a prefill and a decode
+    step against rank 0's card alone.  Check 3 on the same mesh: one
+    AdamW step of the same LMs in fp32 on the flash training path against
+    rank 0's card alone (:func:`mesh_train_check`).  With 4 cards, cell
+    M4 (:func:`mesh_train_cell`: qwen2-1.5b x train_4k at full width and
+    depth, each rank's peak within M_PEAK_REL of its dry run, its flash
+    launches equal on every rank) after check 2: cells M1-M3 at
     full depth on the 2x2 mesh, each rank's peak memory within
     M_PEAK_REL of its dry run, the collective bytes a step beside the dry
     run's, M2's flash kernel at each rank's shapes against its plain
     version and its launches equal on every rank (the layers a step),
     finite logits, ms a step.  Returns the flash launches of all ranks'
-    check-2 steps."""
+    check-2 and M4 steps."""
     import torch
     from repro_torch.kernels import _build
     from repro_torch.launch import mesh as mesh_lib
@@ -4393,10 +4667,28 @@ def phase_mesh(smi: str) -> dict:
         if "dropped" in c and c["dropped"] != c["dropped_one_card"]:
             bad.append((c["arch"], "dropped", c["dropped"],
                         c["dropped_one_card"]))
+    for c in ranks[0]["train_check"]:
+        log(f"[M check 3] {c['arch']} (full width, {M_CHECK_LAYERS} layers, "
+            f"batch {c['batch']}, {c['dtype']}, {c['attn_impl']}) one AdamW "
+            f"step on the mesh vs rank 0's card alone (limits: metrics "
+            f"relative {M_TRAIN_RTOL}, gradients relative norm "
+            f"{M_TRAIN_GRAD_REL}, parameters the floor rule, <= 1 of their "
+            f"bound): metrics {c['metrics']} vs {c['metrics_one_card']}, "
+            f"relative {c['metric_rel']}; gradients worst {c['grad_rel']:.3e}"
+            f" ({c['grad_rel_leaf']}); parameters worst "
+            f"{c['param_excess']:.4f} of their bound "
+            f"({c['param_excess_leaf']})" + (
+                f"; expert picks unpinned equal to the one-card step's "
+                f"{c['route_agree']}, held "
+                f"{'pinned' if c['pinned'] else 'unpinned'}"
+                if "route_agree" in c else ""))
+        if not c["ok"]:
+            bad.append(("check 3", c["arch"]))
+    log(f"[M check 3] {ranks[0]['train_check_s']} s on rank 0")
     flash = 0
     if world < 4:
         assert not bad, bad
-        log(f"[M] cells M1-M3 did not run: they need 4 cards and "
+        log(f"[M] cells M1-M4 did not run: they need 4 cards and "
             f"{n} {'is' if n == 1 else 'are'} present")
         return {"flash": 0}
     for i, (name, arch_id, shape, over) in enumerate(M_CELLS):
@@ -4423,7 +4715,9 @@ def phase_mesh(smi: str) -> dict:
                     f"{f['rel']:.3e} ({REL_TOL}), worst element "
                     f"{f['row']:.3f} of its allowance; {f['ms']:.4f} ms, "
                     f"bound {f['bound_ms']:.4f} ms, "
-                    f"{f['bound_ms'] / f['ms']:.3f} of it; {smi}")
+                    f"{f['bound_ms'] / f['ms']:.3f} of it; plain version "
+                    f"on one group {f['plain_ms_one_group']:.4f} ms, "
+                    f"library {f['library_ms']} ms; {smi}")
                 if not f["ok"]:
                     bad.append((name, r, "flash check", f))
         if over and over.get("attn_impl") == "pallas" and \
@@ -4442,6 +4736,49 @@ def phase_mesh(smi: str) -> dict:
         if launches != {want}:
             bad.append((name, "flash", launches, want))
         flash += sum(c["flash"]["device"] for c in cells)
+    cells = [r["m4"] for r in ranks]
+    for r, c in enumerate(cells):
+        ratio = c["peak"] / c["dry_peak"]
+        log(f"[M M4] rank {r} {ranks[r]['coords']}: {c['arch']} x "
+            f"{c['shape']} {c['overrides']}, {c['n_layers']} layers, "
+            f"{c['micro']} micro-batches (dry-run peaks tried "
+            f"{c['dry_peaks_tried']}), {c['tokens']} tokens a rank a step; "
+            f"ms of the timed step {c['ms']:.2f}; metrics {c['metrics']}; "
+            f"peak {c['peak']} bytes, dry run {c['dry_peak']} (memory "
+            f"{c['dry_memory']}; {c['dry_s']} s), measured / dry run "
+            f"{ratio:.4f}; collective bytes a step {c['collective_bytes']} "
+            f"{c['collectives']}, dry run {c['dry_collective_bytes']} "
+            f"{c['dry_collectives']}; dry-run flops {c['dry_flops']:.4g}; "
+            f"build {c['build_s']} s; flash launches {c['flash']}; {smi}")
+        if not c["finite"] or abs(ratio - 1) > M_PEAK_REL:
+            bad.append(("M4", r, c["finite"], ratio))
+        for f in c["flash_check"]:
+            log(f"[M M4] rank {r}: flash kernel at the rank's shape q "
+                f"{f['q']} k/v {f['k']} {f['dtype']} causal {f['causal']} "
+                f"chunk {f['chunk']} against its plain version on (batch, "
+                f"kv head) groups {f['groups']}: max abs err "
+                f"{f['max_abs_err']:.4f} (2e-2), relative {f['rel']:.3e} "
+                f"({REL_TOL}), worst element {f['row']:.3f} of its "
+                f"allowance; {f['ms']:.4f} ms, bound {f['bound_ms']:.4f} ms "
+                f"({f['bound_ms'] / f['ms']:.3f} of it), plain version on "
+                f"one group {f['plain_ms_one_group']:.4f} ms, library "
+                f"{f['library_ms']} ms; {smi}")
+            if not f["ok"]:
+                bad.append(("M4", r, "flash check", f))
+        if not c["flash_check"]:
+            bad.append(("M4", r, "flash check missing"))
+    # the forward and remat's recompute of every layer, each micro-batch
+    # of each step, on every rank
+    want = 2 * cells[0]["n_layers"] * cells[0]["micro"] * cells[0]["steps"]
+    launches = {c["flash"]["device"] for c in cells} | \
+        {c["flash"]["host"] for c in cells}
+    if launches != {want}:
+        bad.append(("M4", "flash", launches, want))
+    slowest = max(c["ms"] for c in cells)
+    log(f"[M M4] ms a step a rank: {[c['ms'] for c in cells]}; max "
+        f"{slowest:.2f}; tokens a second over the mesh "
+        f"{cells[0]['global_tokens'] / (slowest / 1e3):.1f}; {smi}")
+    flash += sum(c["flash"]["device"] for c in cells)
     assert not bad, bad
     return {"flash": flash}
 
@@ -4858,7 +5195,7 @@ def main(argv=None) -> int:
     smi = phase_toolchain()
     log(f"[toolchain] card: {smi}")
     if argv == ["--phase", "M"]:
-        # phase M alone (the 4-card run of cells M1-M3)
+        # phase M alone (the 4-card run of cells M1-M4)
         mesh = phase_mesh(smi)
         log(f"[done] phase M alone {time.perf_counter() - t_start:.1f} s; "
             f"flash launches of the ranks' cells {mesh['flash']}")
@@ -4989,8 +5326,9 @@ def main(argv=None) -> int:
     phase_serve_demo()
     phase_lm_bundles(smi)
     log(f"[main] phase X {time.perf_counter() - t0:.1f} s")
-    # phase M, the LM serve steps on a mesh of the cards present: each
-    # rank's flash launches of cells M1-M3 join the flash row
+    # phase M, the LM serve and train steps on a mesh of the cards
+    # present: each rank's flash launches of cells M1-M4 join the flash
+    # row
     t0 = time.perf_counter()
     mesh = phase_mesh(smi)
     windows.append({"flash_attention": {"device": mesh["flash"],

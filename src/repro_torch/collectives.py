@@ -13,6 +13,18 @@ result.  ``io_bytes`` keeps the operand's and the result's bytes, which
 On a shape-only mesh (the dry run, tensors on ``meta``) each call makes
 its result, of the right shape, and moves nothing; a tensor that holds
 data on such a mesh raises, since it would be left unreduced.
+
+Under autograd (a tensor that requires grad, grad mode on) each call is
+differentiable, its backward the exact transpose of its forward over the
+ranks: all-gather and reduce-scatter are each other's, all-reduce is its
+own, and so is all-to-all.  So a rank's backward gives the derivative of
+the sum of every rank's loss: a loss that every rank computes whole (a
+replicated value) is backpropagated at 1/(the ranks) of it, and a
+parameter that several ranks hold alike gets the sum of their gradients
+(``train/optimizer.py`` sums each leaf's over the axes its spec leaves
+free).  The backward's collectives are recorded as the forward's are, and
+stay shape-only on a shape-only mesh.  The serve paths, under
+``torch.no_grad``, make the plain calls.
 """
 from __future__ import annotations
 
@@ -101,9 +113,8 @@ def _gather_into(out: torch.Tensor, x: torch.Tensor, group) -> None:
     fn(out, x, group=group)
 
 
-def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """The shards of ``x`` over ``axes`` concatenated along ``dim`` in
-    the order of their index over ``axes`` (the first axis major)."""
+def _all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """:func:`all_gather` without autograd."""
     axes, n = _span(mesh, axes)
     if n == 1:
         return x
@@ -118,10 +129,9 @@ def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out
 
 
-def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
+def _all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
                ) -> torch.Tensor:
-    """``x`` summed (``op="sum"``) or maximised (``"max"``) over the ranks
-    of ``axes``, in place; returns ``x``."""
+    """:func:`all_reduce` without autograd: in place, returning ``x``."""
     import torch.distributed as dist
     axes, n = _span(mesh, axes)
     if n == 1:
@@ -133,9 +143,8 @@ def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
     return x
 
 
-def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
-    """``x`` summed over the ranks of ``axes``, each keeping its block of
-    ``dim`` (by its index over ``axes``)."""
+def _reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """:func:`reduce_scatter` without autograd."""
     import torch.distributed as dist
     axes, n = _span(mesh, axes)
     if n == 1:
@@ -151,9 +160,8 @@ def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
     return out
 
 
-def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
-    """``x`` [n, ...] (n the ranks of ``axes``): block j goes to the rank
-    of index j, and block j of the result came from the rank of index j."""
+def _all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """:func:`all_to_all` without autograd."""
     import torch.distributed as dist
     axes, n = _span(mesh, axes)
     if n == 1:
@@ -165,3 +173,94 @@ def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
         dist.all_to_all_single(out, src, group=mesh.group(axes))
     _record("all-to-all", x, out)
     return out
+
+
+def _grad(x: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and x.requires_grad
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _all_gather(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, *ctx.args), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes, dim):
+        ctx.args = (mesh, axes, dim)
+        return _reduce_scatter(x, mesh, axes, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, *ctx.args), None, None, None
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _all_reduce(x.clone(), mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.clone(), *ctx.args), None, None
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axes):
+        ctx.args = (mesh, axes)
+        return _all_to_all(x, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, *ctx.args), None, None
+
+
+def all_gather(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """The shards of ``x`` over ``axes`` concatenated along ``dim`` in
+    the order of their index over ``axes`` (the first axis major); its
+    backward is a reduce-scatter."""
+    if _grad(x) and _span(mesh, axes)[1] > 1:
+        return _AllGather.apply(x, mesh, axes, dim)
+    return _all_gather(x, mesh, axes, dim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axes, dim: int) -> torch.Tensor:
+    """``x`` summed over the ranks of ``axes``, each keeping its block of
+    ``dim`` (by its index over ``axes``); its backward is an
+    all-gather."""
+    if _grad(x) and _span(mesh, axes)[1] > 1:
+        return _ReduceScatter.apply(x, mesh, axes, dim)
+    return _reduce_scatter(x, mesh, axes, dim)
+
+
+def all_reduce(x: torch.Tensor, mesh, axes, op: str = "sum"
+               ) -> torch.Tensor:
+    """``x`` summed (``op="sum"``) or maximised (``"max"``) over the ranks
+    of ``axes``: in place, returning ``x``, without autograd; under
+    autograd (a sum) into a new tensor, its backward an all-reduce of the
+    gradient.  A maximum takes no gradient."""
+    if _span(mesh, axes)[1] == 1:
+        return x
+    if op == "sum" and _grad(x):
+        return _AllReduce.apply(x, mesh, axes)
+    if _grad(x):
+        raise RuntimeError(f"an all-reduce {op} under autograd: detach its "
+                           f"input")
+    return _all_reduce(x, mesh, axes, op)
+
+
+def all_to_all(x: torch.Tensor, mesh, axes) -> torch.Tensor:
+    """``x`` [n, ...] (n the ranks of ``axes``): block j goes to the rank
+    of index j, and block j of the result came from the rank of index j;
+    its backward is the same exchange of the gradient's blocks."""
+    if _grad(x) and _span(mesh, axes)[1] > 1:
+        return _AllToAll.apply(x, mesh, axes)
+    return _all_to_all(x, mesh, axes)

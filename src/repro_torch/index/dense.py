@@ -63,21 +63,32 @@ def build_dense_index(index: InvertedIndex, dim: int = 64, seed: int = 0,
                       chunk: int = 1 << 21) -> DenseIndex:
     """Random-projection doc embeddings from the forward file, on the
     index's device: each entry's projection row scaled by ``log1p(tf)`` and
-    added into its document (``index_add_`` over doc-contiguous chunks of
-    ``chunk`` entries, which bound the gathered [chunk, dim] buffer), then
-    each row normalised."""
+    added into its document, then each row normalised.
+
+    The sum runs in entry order, as the reference's ``np.add.at`` adds:
+    step j adds every document's j-th entry to its row (the documents
+    longest first, so those with a j-th entry are a prefix), in pieces of
+    at most ``chunk`` documents, which bound the gathered [chunk, dim]
+    buffer.  No two rows of a step coincide, so the sum is the same
+    sequence of float32 adds on the CPU and on the card, where
+    ``index_add_``'s atomics add a document's entries in an order that
+    changes from run to run."""
     dev = index.device
     proj = projection(index.vocab, dim, seed, dev)
     D = index.n_docs
     emb = torch.zeros((D, dim), dtype=torch.float32, device=dev)
-    F = int(index.fwd_terms.shape[0])
-    for s in range(0, F, chunk):
-        e = min(s + chunk, F)
-        pos = torch.arange(s, e, device=dev)
-        doc = torch.searchsorted(index.fwd_start, pos, right=True) - 1
-        tf = index.fwd_tfs[s:e].to(torch.float32)
-        emb.index_add_(0, doc, proj[index.fwd_terms[s:e].long()]
-                       * torch.log1p(tf)[:, None])
+    starts = index.fwd_start
+    lens = starts[1:] - starts[:-1]
+    order = torch.argsort(lens, descending=True, stable=True)
+    # docs with a j-th entry, for each j
+    have = D - np.cumsum(np.bincount(lens.cpu().numpy(), minlength=1))
+    for j, n in enumerate(have.tolist()):
+        for c in range(0, n, chunk):
+            doc = order[c:min(c + chunk, n)]
+            at = starts[doc] + j
+            tf = index.fwd_tfs[at].to(torch.float32)
+            emb[doc] += proj[index.fwd_terms[at].long()] * \
+                torch.log1p(tf)[:, None]
     emb /= torch.linalg.norm(emb, dim=1, keepdim=True).clamp(min=1e-6)
     return DenseIndex(emb, dim, seed)
 

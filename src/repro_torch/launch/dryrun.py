@@ -14,13 +14,17 @@ Without a mesh flag each cell is priced on one card (records tagged
 mesh, ``--both-meshes`` of its 16x16 and of the 2x16x16 (``sp``, ``mp``):
 a shape-only mesh at rank 0's coordinates, whose collectives
 (``repro_torch/collectives.py``) are recorded and move nothing;
-``run_cell(..., mesh=)`` prices a cell on any shape-only mesh.  Each
+``run_cell(..., mesh=)`` prices a cell on any shape-only mesh.  On a
+mesh an LM's train_4k is priced per card as its serve cells are: the
+rank's parameter shards and ZeRO-1 moments, its rows of the batch, and
+the backward's collectives (the gathers' reduce-scatters, the
+all-reduces, the optimizer's reduce-scatter and all-gather).  Each
 record keeps the reference's keys and adds ``fits``: the card's peak
 bytes against the card's memory.  ``t_compute`` prices the step's
 operations at the peak of its dtype (bf16 tensor cores for the LMs, fp32
-for the zoo), ``t_collective`` the collective bytes over NVLink.  A cell
-that a later slice puts on a mesh (training, the zoo) is skipped there
-and says so; a failing cell is recorded and the exit is 1.
+for the zoo), ``t_collective`` the collective bytes over NVLink.  A zoo
+cell, which a later slice puts on a mesh, is skipped there and says so;
+a failing cell is recorded and the exit is 1.
 """
 from __future__ import annotations
 

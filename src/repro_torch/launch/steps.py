@@ -12,13 +12,15 @@ inputs are valid draws (ids below their vocabularies).
 train state, the KV cache).
 
 With ``mesh`` (``launch/mesh.py``: a live mesh of cards, or a shape-only
-one with ``device="meta"``) the LM serve steps take the rank's shards of
-their arguments, laid out as the reference's ``in_shardings`` say, and
-return the logits and cache as its ``out_shardings`` say; the bundle
-carries both as the port's specs (``repro_torch/sharding.py``).  The
-draws are the one-card draws, each cut to the rank's shard.  The train
-steps and the zoo's bundles on a mesh of more than one card wait for the
-training and zoo slices (:class:`WaitsForSlice`).
+one with ``device="meta"``) the LM steps take the rank's shards of their
+arguments, laid out as the reference's ``in_shardings`` say, and return
+their results as its ``out_shardings`` say; the bundle carries both as
+the port's specs (``repro_torch/sharding.py``).  The serve steps return
+the logits and the cache; the train step updates the rank's state (its
+parameters' shards and its ZeRO-1 moments) in place and returns the
+global metrics.  The draws are the one-card draws, each cut to the rank's
+shard.  The zoo's bundles on a mesh of more than one card wait for the
+zoo's slice (:class:`WaitsForSlice`).
 """
 from __future__ import annotations
 
@@ -132,16 +134,32 @@ def _lm_model_flops(cfg, tokens: int, kind: str) -> float:
 
 
 def _lm_train(arch: ArchDef, cell, draw: _Draw, opt_cfg) -> StepBundle:
+    """A train step that updates its state in place.  On a mesh the state
+    is the rank's shards (the parameters by ``param_specs``, the moments
+    ZeRO-1, the step replicated) and the batch, drawn whole, the rank's
+    rows of it (``transformer_lm.shard_batch``: its share of each
+    micro-batch in turn; with one micro-batch its ``(BATCH, None)``
+    block)."""
     cfg = arch.model_cfg("train_4k")
+    mesh = draw.mesh
+    n_micro = arch.train_microbatches
     state = ts.init_state(draw.params(tlm, cfg))
     B, S = cell["batch"], cell["seq"]
     batch = {"tokens": draw.ints((B, S), cfg.vocab),
              "targets": draw.ints((B, S), cfg.vocab)}
-    fn = ts.make_train_step(functools.partial(tlm.loss_fn, cfg), opt_cfg,
-                            n_micro=arch.train_microbatches)
+    in_sh = out_sh = None
+    if mesh is not None:
+        batch = tlm.shard_batch(cfg, mesh, batch, n_micro)
+        tok = tlm.train_specs(cfg, mesh, B, S)["tokens"]
+        st = tlm.state_specs(cfg, mesh)
+        in_sh = (st, {"tokens": tok, "targets": tok})
+        out_sh = (st, sh.P())
+    fn = ts.make_train_step(functools.partial(tlm.loss_fn, cfg, mesh=mesh),
+                            opt_cfg, n_micro=n_micro)
     return StepBundle(
         name="train_step", fn=fn, args=(state, batch), donate_argnums=(0,),
-        model_flops_per_step=_lm_model_flops(cfg, B * S, "train"))
+        model_flops_per_step=_lm_model_flops(cfg, B * S, "train"),
+        in_shardings=in_sh, out_shardings=out_sh)
 
 
 def _lm_serve(arch: ArchDef, shape_name: str, cell,
@@ -490,12 +508,11 @@ def build_bundle(arch_id: str, shape_name: str, *, device=None, mesh=None,
     if mesh is not None and not mesh.live and device.type != "meta":
         raise ValueError(f"a shape-only mesh ({mesh}) takes tensors on "
                          f"meta, not on {device}")
-    if mesh is not None and (arch.family != "lm" or cell["kind"] == "train"):
+    if mesh is not None and arch.family != "lm":
         if mesh.size > 1:
             raise WaitsForSlice(
                 f"{arch_id} x {shape_name} on a mesh of {mesh.size} cards: "
-                f"{'training' if cell['kind'] == 'train' else 'the zoo'} on "
-                f"the mesh waits for its slice of the port")
+                f"the zoo on the mesh waits for its slice of the port")
         mesh = None                   # one card
     draw = _Draw(device, mesh)
     if arch.family == "lm":

@@ -331,8 +331,9 @@ def mlp_apply(p: MLP, x: torch.Tensor) -> torch.Tensor:
 
 def gather_at_use(w: torch.Tensor, spec, mesh, keep=()) -> torch.Tensor:
     """The rank's shard ``w`` of a weight with every sharded dim gathered
-    but those in ``keep``: the ZeRO-3 gather at use, one layer at a
-    time."""
+    but those in ``keep``: the ZeRO-3 gather at use, one layer at a time.
+    Under autograd its backward reduce-scatters the whole weight's
+    gradient, summed over the ranks that used it, back to the shards."""
     for i in range(w.dim()):
         if i not in keep:
             w = C.all_gather(w, mesh, sh.spec_axes(spec, i), i)
@@ -417,15 +418,28 @@ def _decode_attention(q, ck, cv, bias, mesh, seq_axes):
     return out.to(q.dtype).reshape(B, S, n_q, D)
 
 
+def _attend_fresh(q, k, v, positions, chunk: int, impl: str, memo):
+    """Causal attention of q over the fresh tokens' k and v, within
+    ``chunk``: the flash-attention kernel (``impl="pallas"``),
+    ``flash_attention_xla`` (``"flash"``), else the einsum path."""
+    if impl in ("pallas", "flash"):
+        attend = flash_attention_xla if impl == "flash" else flash_attention
+        return attend(q, k, v, causal=True, chunk=chunk)
+    bias = _once(memo, ("bias", chunk), lambda: attention_bias(
+        positions, positions, causal=True, chunk=chunk))
+    return gqa_attention(q, k, v, bias, impl="xla")
+
+
 def attn_apply_sharded(p: Attention, x: torch.Tensor, *,
-                       positions: torch.Tensor, kv_cache, cache_index: int,
-                       chunk: int = 0, impl: str = "xla", mesh,
-                       token_axes=(), seq_axes=(),
+                       positions: torch.Tensor, kv_cache=None,
+                       cache_index: int = 0, chunk: int = 0,
+                       impl: str = "xla", mesh, token_axes=(), seq_axes=(),
                        memo: dict | None = None) -> torch.Tensor:
-    """:func:`attn_apply` on a mesh, for a prefill at offset 0 or a
-    decode step of one position.  x [B_l, S, d] is the rank's rows
-    (sharded over ``token_axes``); ``kv_cache`` the rank's cache slice
-    [B_l, T_l, n_kv, D], its positions sharded over ``seq_axes``.
+    """:func:`attn_apply` on a mesh, for a training pass (no cache), a
+    prefill at offset 0 or a decode step of one position.  x [B_l, S, d]
+    is the rank's rows (sharded over ``token_axes``); ``kv_cache`` the
+    rank's cache slice [B_l, T_l, n_kv, D], its positions sharded over
+    ``seq_axes``.
 
     q heads run Megatron-style over the axes that shard both wq's and
     wo's Q_HEADS dims (the output projection's partial sums all-reduced
@@ -434,8 +448,11 @@ def attn_apply_sharded(p: Attention, x: torch.Tensor, *,
     at use.  A prefill writes its rank's cache slice (all heads of its
     positions: one all-to-all from local heads) and attends over the fresh
     tokens on its local heads, on the flash-attention kernel with
-    ``impl="pallas"``; a decode step gathers q's heads, writes the new
-    position on the rank that holds it, and attends over the sharded cache
+    ``impl="pallas"``; a training pass attends as a prefill does, without
+    a cache, on ``flash_attention_xla`` with ``impl="flash"``, and is
+    differentiable (the collectives' backward, ``collectives.py``); a
+    decode step gathers q's heads, writes the new position on the rank
+    that holds it, and attends over the sharded cache
     (:func:`_decode_attention`), as the einsum path."""
     dims, specs = p.dims, p.shard_specs
     S = x.shape[1]
@@ -460,10 +477,14 @@ def attn_apply_sharded(p: Attention, x: torch.Tensor, *,
     q, k, v = project(dims, w, x, positions, rope)
     n_q_l = q.shape[2]
     h0 = _offset(mesh, aq, n_q_l)
-    ck, cv = kv_cache
-    T_l = ck.shape[1]
-    t0 = _offset(mesh, seq_axes, T_l)
-    if cache_index == 0 and S > 1:
+    if kv_cache is None:
+        kl, vl = (k, v) if akv or not aq else \
+            _kv_for_heads(k, v, h0, n_q_l, dims.n_q)
+        out = _attend_fresh(q, kl, vl, positions, chunk, impl, memo)
+    elif cache_index == 0 and S > 1:
+        ck, cv = kv_cache
+        T_l = ck.shape[1]
+        t0 = _offset(mesh, seq_axes, T_l)
         if akv:
             kf = _heads_to_seq(k, mesh, akv, seq_axes, T_l)
             vf = _heads_to_seq(v, mesh, akv, seq_axes, T_l)
@@ -477,15 +498,11 @@ def attn_apply_sharded(p: Attention, x: torch.Tensor, *,
             cv[:, :n] = v[:, t0:t0 + n].to(cv.dtype)
             kl, vl = (k, v) if not aq else \
                 _kv_for_heads(k, v, h0, n_q_l, dims.n_q)
-        if impl in ("pallas", "flash"):
-            attend = flash_attention_xla if impl == "flash" \
-                else flash_attention
-            out = attend(q, kl, vl, causal=True, chunk=chunk)
-        else:
-            bias = _once(memo, ("bias", chunk), lambda: attention_bias(
-                positions, positions, causal=True, chunk=chunk))
-            out = gqa_attention(q, kl, vl, bias, impl="xla")
+        out = _attend_fresh(q, kl, vl, positions, chunk, impl, memo)
     elif S == 1:
+        ck, cv = kv_cache
+        T_l = ck.shape[1]
+        t0 = _offset(mesh, seq_axes, T_l)
         k = C.all_gather(k, mesh, akv, 2)
         v = C.all_gather(v, mesh, akv, 2)
         if t0 <= cache_index < t0 + T_l:

@@ -302,7 +302,11 @@ def moe_apply_sharded(p: MoE, x: torch.Tensor, cfg: MoEConfig, mesh,
     over the expert axes (for all rows where those axes also shard the
     tokens); weight shards on other dims are gathered at use.
     ``expert_idx`` [B * S, k], the whole batch's, pins the routing as in
-    :func:`moe_apply`."""
+    :func:`moe_apply`.  Under autograd the gathered rows' gradient is
+    reduce-scattered back to the ranks that own them (the all-gather's
+    backward), so the terms that every rank computes whole (the routing,
+    ``moe_aux`` and ``moe_z``) reach each row once a rank, as the loss's
+    share of 1/(the ranks) asks (``train/train_step.py``)."""
     if cfg.dispatch != "scatter":
         raise NotImplementedError(f"dispatch {cfg.dispatch!r} on a mesh: "
                                   f"the mesh path dispatches by scatter")

@@ -39,6 +39,7 @@ the residual keeps its sequence whole there too.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any
 
 import numpy as np
@@ -46,6 +47,7 @@ import torch
 import torch.utils.checkpoint
 from torch import nn
 
+from repro_torch import collectives as C
 from repro_torch import sharding as sh
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.models import layers as L
@@ -312,6 +314,16 @@ def param_specs(cfg: LMConfig, mesh) -> dict:
                          profile(cfg, mesh))
 
 
+def state_specs(cfg: LMConfig, mesh) -> dict:
+    """The reference's shardings of a train state on ``mesh`` (its
+    ``_abstract_state``): the parameters by :func:`param_specs`, the
+    moments by ``zero1_sharding_tree`` of them, the step replicated."""
+    pspecs = param_specs(cfg, mesh)
+    moments = sh.zero1_sharding_tree(param_shapes(cfg), pspecs, mesh)
+    return {"params": pspecs,
+            "opt": {"m": moments, "v": moments, "step": sh.P()}}
+
+
 def init_params(cfg: LMConfig, generator: torch.Generator,
                 mesh=None) -> TransformerLM:
     """A fresh draw of every weight (the JAX package's ``init_params``
@@ -439,27 +451,108 @@ def lm_to_arrays(cfg: LMConfig, lm: TransformerLM) -> dict:
 # the training forward and loss
 # ---------------------------------------------------------------------------
 
+def train_specs(cfg: LMConfig, mesh, rows: int, seq: int) -> dict:
+    """The reference's shardings of a training pass over a batch of
+    ``rows`` x ``seq`` tokens on ``mesh``: its tokens and targets
+    ``(BATCH, None)``, its logits ``(BATCH, None, VOCAB)`` (the constraint
+    of its ``forward``) and its residual ``(BATCH, "model" if
+    seq_parallel else None, None)`` (its layer boundary's)."""
+    prof = profile(cfg, mesh)
+    return {
+        "tokens": sh.resolve_spec((sh.BATCH, None), (rows, seq), mesh, prof),
+        "logits": sh.resolve_spec((sh.BATCH, None, sh.VOCAB),
+                                  (rows, seq, cfg.vocab), mesh, prof),
+        "residual": sh.resolve_spec(
+            (sh.BATCH, "model" if cfg.seq_parallel else None, None),
+            (rows, seq, cfg.d_model), mesh, prof),
+    }
+
+
+def shard_batch(cfg: LMConfig, mesh, batch: dict, n_micro: int = 1
+                ) -> dict:
+    """The rank's share of a whole training batch (tensors [B, ...]) on
+    ``mesh`` for a step of ``n_micro`` micro-batches: micro-batch i is the
+    batch's rows [i B/n, (i+1) B/n), the reference's split of the global
+    batch, of which the rank takes its rows by :func:`train_specs` of a
+    micro-batch; the shares follow each other in micro-batch order, so the
+    step's split of the rank's rows gives each micro-batch's share.
+    ``"rows"`` is B."""
+    B, S = batch["tokens"].shape[:2]
+    b = B // n_micro
+    rows = sh.local_slices(train_specs(cfg, mesh, b, S)["tokens"], (b, S),
+                           mesh, mesh.coords)[0]
+    out = {k: torch.cat([v[i * b:(i + 1) * b][rows]
+                         for i in range(n_micro)])
+           for k, v in batch.items()}
+    out["rows"] = B
+    return out
+
+
+def _train_axes(cfg: LMConfig, mesh, tokens, rows) -> tuple:
+    """(token axes, vocab axes) of a training pass on ``mesh`` whose
+    tokens [B_l, S] are the rank's rows of a batch of ``rows``."""
+    if rows is None:
+        raise ValueError("a training pass on a mesh needs rows=, the whole "
+                         "batch's row count")
+    specs = train_specs(cfg, mesh, rows, tokens.shape[1])
+    tok = sh.spec_axes(specs["tokens"], 0)
+    if tokens.shape[0] * math.prod(mesh.shape[a] for a in tok) != rows:
+        raise ValueError(f"{tokens.shape[0]} rows a rank over {tok} are "
+                         f"not the batch's {rows}")
+    if sh.spec_axes(specs["residual"], 1):
+        raise NotImplementedError(f"a residual sharded as "
+                                  f"{specs['residual']}")
+    return tok, sh.spec_axes(specs["logits"], 2)
+
+
 def forward(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor, *,
-            metrics: list | None = None):
+            metrics: list | None = None, mesh=None, rows: int | None = None,
+            expert_idx: list | None = None):
     """Training forward: tokens [B, S] -> (logits [B, S, vocab] in
     ``cfg.dtype``, aux {"moe_aux", "moe_z"}: each summed over the layers;
     empty for a dense LM).  With ``cfg.remat`` each layer runs under
-    ``torch.utils.checkpoint`` and is recomputed in the backward; its MoE
-    metrics are returned from the checkpointed function, so a recompute
-    adds none.  Each MoE layer's metrics (``expert_idx`` and the rest) are
-    appended to ``metrics`` when that is a list."""
-    x = lm.embed.to(cfg.dtype)[tokens.long()]
+    ``torch.utils.checkpoint`` and is recomputed in the backward (on a
+    mesh with its collectives, as the reference's ``nothing_saveable``
+    recomputes its gathers); its MoE metrics are returned from the
+    checkpointed function, so a recompute adds none.  Each MoE layer's
+    metrics (``expert_idx`` and the rest) are appended to ``metrics`` when
+    that is a list; ``expert_idx`` (one [B * S, k] tensor an MoE layer,
+    the whole batch's even on a mesh) pins each layer's routing, as
+    ``moe_apply`` takes it.
+
+    On the LM's mesh (``mesh`` None or the same) ``tokens`` are the rank's
+    rows of a batch of ``rows`` rows, by :func:`train_specs`: the residual
+    stays ``(BATCH, None, None)``, the layers run on the rank's shards as
+    a prefill does, without a cache, and the logits come out as the rank's
+    shard [B_l, S, vocab_l] of ``(BATCH, None, VOCAB)``; differentiable
+    (``collectives.py``)."""
+    mesh = _mesh_of(lm, mesh)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     memo = {}          # RoPE tables and masks, made once for all layers
+    if mesh is None:
+        tok = ()
+        x = lm.embed.to(cfg.dtype)[tokens.long()]
+
+        def attend(attn, h, chunk):
+            return L.attn_apply(attn, h, positions=positions, chunk=chunk,
+                                impl=cfg.attn_impl, memo=memo)
+    else:
+        tok, vax = _train_axes(cfg, mesh, tokens, rows)
+        x = L.embed_lookup(lm.embed, lm.spec("embed"), tokens, mesh, tok,
+                           cfg.dtype)
+
+        def attend(attn, h, chunk):
+            return L.attn_apply_sharded(
+                attn, h, positions=positions, chunk=chunk,
+                impl=cfg.attn_impl, mesh=mesh, token_axes=tok, memo=memo)
     aux = {}
-    for blk, chunk in zip(lm.layers, _layer_chunks(cfg)):
-        def layer(x, blk=blk, chunk=chunk):
-            def attend(attn, h):
-                return L.attn_apply(attn, h, positions=positions,
-                                    chunk=chunk, impl=cfg.attn_impl,
-                                    memo=memo)
+    for i, (blk, chunk) in enumerate(zip(lm.layers, _layer_chunks(cfg))):
+        def layer(x, blk=blk, chunk=chunk,
+                  pin=expert_idx[i] if expert_idx else None):
             met = []
-            return _block(cfg, blk, x, attend, met), met
+            return _block(cfg, blk, x,
+                          lambda attn, h: attend(attn, h, chunk), met,
+                          mesh=mesh, token_axes=tok, expert_idx=pin), met
 
         if cfg.remat:
             x, met = torch.utils.checkpoint.checkpoint(layer, x,
@@ -472,22 +565,57 @@ def forward(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor, *,
             if metrics is not None:
                 metrics.append(m)
     x = L.rmsnorm(x, lm.ln_final, cfg.norm_eps)
-    unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
-    return x @ unembed.to(cfg.dtype), aux
+    if mesh is None:
+        unembed = lm.embed.T if cfg.tie_embeddings else lm.unembed
+        return x @ unembed.to(cfg.dtype), aux
+    name, vdim = ("embed", 0) if cfg.tie_embeddings else ("unembed", 1)
+    logits, got = L.vocab_logits(x, lm.get_parameter(name), lm.spec(name),
+                                 vdim, mesh, tok, cfg.dtype)
+    if got != vax:
+        raise NotImplementedError(f"logits over vocab axes {got} where the "
+                                  f"reference shards them over {vax}")
+    return logits, aux
 
 
 def loss_fn(cfg: LMConfig, lm: TransformerLM, batch: dict, *,
-            metrics: list | None = None):
+            metrics: list | None = None, mesh=None,
+            expert_idx: list | None = None):
     """Next-token cross-entropy (fp32 logsumexp, the mean over targets
     >= 0) plus the MoE aux losses: (total, {"ce", **aux}).  ``batch``
-    holds "tokens" and "targets" [B, S] on the LM's device."""
-    logits, aux = forward(cfg, lm, batch["tokens"], metrics=metrics)
+    holds "tokens" and "targets" [B, S] on the LM's device.
+
+    On the LM's mesh they are the rank's rows and ``batch["rows"]`` the
+    whole batch's row count (:func:`forward`); the cross-entropy is
+    vocab-parallel over the logits' shards: the logsumexp's maximum and
+    sum, and each row's gold logit (taken on the rank that holds it), are
+    reduced over the vocab axes, and ``ce`` is the sum over the batch axes
+    over their count of targets.  Every rank's total is the whole batch's
+    loss.  ``metrics`` and ``expert_idx`` as in :func:`forward`."""
+    mesh = _mesh_of(lm, mesh)
+    rows = batch.get("rows")
+    logits, aux = forward(cfg, lm, batch["tokens"], metrics=metrics,
+                          mesh=mesh, rows=rows, expert_idx=expert_idx)
     logits = logits.float()
     targets = batch["targets"].long()
-    logz = torch.logsumexp(logits, dim=-1)
-    gold = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
     mask = (targets >= 0).float()
-    ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+    logz = torch.logsumexp(logits, dim=-1)
+    if mesh is None:
+        gold = logits.gather(-1, targets.clamp_min(0)[..., None])[..., 0]
+        ce = ((logz - gold) * mask).sum() / mask.sum().clamp_min(1.0)
+        return ce + sum(aux.values(), 0.0), {"ce": ce, **aux}
+    tok, vax = _train_axes(cfg, mesh, batch["tokens"], rows)
+    V_l = logits.shape[-1]
+    t = targets - L._offset(mesh, vax, V_l)
+    mine = (t >= 0) & (t < V_l)
+    gold = torch.where(mine, logits.gather(
+        -1, t.clamp(0, V_l - 1)[..., None])[..., 0], 0.0)
+    if vax:
+        top = C.all_reduce(logz.detach().clone(), mesh, vax, "max")
+        logz = top + torch.log(C.all_reduce(torch.exp(logz - top), mesh,
+                                            vax))
+        gold = C.all_reduce(gold, mesh, vax)
+    total = C.all_reduce(((logz - gold) * mask).sum(), mesh, tok)
+    ce = total / C.all_reduce(mask.sum(), mesh, tok).clamp_min(1.0)
     return ce + sum(aux.values(), 0.0), {"ce": ce, **aux}
 
 

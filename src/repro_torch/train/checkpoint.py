@@ -24,6 +24,13 @@ other wrote.
   written, so a crashed save never shadows the latest good one.
 * **async**: :class:`AsyncCheckpointer` copies the leaves to host memory
   when called and hashes and writes them on a background thread.
+* **on a mesh** (``mesh=`` and ``shardings=``, the specs of the tree's
+  leaves by their JAX paths, as the reference's ``restore`` takes its
+  ``shardings``): :func:`save` gathers each leaf whole from the ranks'
+  shards, one rank writes it in the layout above and every rank waits for
+  the write; :func:`restore` has each rank read its own slice of each leaf
+  from the file (memory-mapped) after checking the whole file's digest.
+  So a checkpoint moves between meshes of any shape and one card.
 """
 from __future__ import annotations
 
@@ -37,6 +44,9 @@ from typing import Any
 import numpy as np
 import torch
 from torch import nn
+
+from repro_torch import collectives as C
+from repro_torch import sharding as sh
 
 #: the header type ``ml_dtypes``' bfloat16 gives an ``.npy`` file
 BF16_DESCR = "<V2"
@@ -149,9 +159,59 @@ def _write(ckpt_dir: str | Path, step: int, flat: dict) -> Path:
     return final
 
 
-def save(ckpt_dir: str | Path, step: int, tree: Any) -> Path:
-    """Synchronous atomic save. Returns the final directory."""
-    return _write(ckpt_dir, step, _snapshot(tree))
+def _flat_specs(shardings: Any, prefix: str = "") -> dict[str, sh.P]:
+    """The specs of a tree of them (nested dicts, :class:`sharding.P`
+    leaves) by JAX path ("params/layers/attn/wq")."""
+    if isinstance(shardings, dict):
+        out = {}
+        for k, v in shardings.items():
+            out.update(_flat_specs(v, f"{prefix}{k}/"))
+        return out
+    return {prefix[:-1]: sh.P(*shardings)}
+
+
+def _local_block(entries: list) -> torch.Tensor:
+    """The rank's block of a leaf: its layers stacked, or the leaf."""
+    if entries[0][0] is None:
+        return entries[0][1].detach()
+    return torch.stack([leaf.detach() for _, leaf, _ in
+                        sorted(entries, key=lambda e: e[0])])
+
+
+def _writer(mesh) -> bool:
+    return all(c == 0 for c in mesh.coords.values())
+
+
+def _gathered(tree: Any, mesh, specs: dict) -> dict:
+    """:func:`_snapshot` of the whole leaves, gathered from every rank's
+    shards by their ``specs``; empty on every rank but the writer.  The
+    leaves go by path: a rank that holds some layers' moments alone meets
+    their keys in another order."""
+    flat = {}
+    for key, entries in sorted(_keyed(tree).items()):
+        spec = specs[key]
+        block = _local_block(entries)
+        for d in range(block.dim()):
+            block = C.all_gather(block, mesh, sh.spec_axes(spec, d), d)
+        if _writer(mesh):
+            flat[key] = _host(block)
+    return flat
+
+
+@torch.no_grad()
+def save(ckpt_dir: str | Path, step: int, tree: Any, *, mesh=None,
+         shardings: Any = None) -> Path:
+    """Synchronous atomic save. Returns the final directory.  On ``mesh``
+    every rank calls it with its shards and ``shardings`` (see the module's
+    docstring)."""
+    if mesh is None:
+        return _write(ckpt_dir, step, _snapshot(tree))
+    import torch.distributed as dist
+    flat = _gathered(tree, mesh, _flat_specs(shardings))
+    if _writer(mesh):
+        _write(ckpt_dir, step, flat)
+    dist.barrier()
+    return Path(ckpt_dir) / f"step_{step:08d}"
 
 
 class AsyncCheckpointer:
@@ -203,15 +263,57 @@ def _tensor(arr: np.ndarray, dtype: str) -> torch.Tensor:
     return torch.from_numpy(arr)
 
 
+def _digest(arr: np.ndarray) -> str:
+    """SHA-256 of an array's raw bytes, read in pieces (a memory-mapped
+    leaf is not copied whole)."""
+    h = hashlib.sha256()
+    raw = np.ascontiguousarray(arr).reshape(-1).view(np.uint8)
+    for i in range(0, raw.size, 1 << 26):
+        h.update(raw[i:i + (1 << 26)])
+    return h.hexdigest()
+
+
+def _restore_mesh(d: Path, leaves: dict, target: Any, mesh,
+                  specs: dict) -> None:
+    """Each leaf of ``target`` (the rank's shards) from its slice of the
+    file, by ``specs``, after the whole file's digest."""
+    for key, entries in _keyed(target).items():
+        if key not in leaves:
+            raise KeyError(f"checkpoint has no leaf {key!r}")
+        meta = leaves[key]
+        arr = np.load(d / meta["file"], mmap_mode="r")
+        if _digest(arr) != meta["sha256"]:
+            raise IOError(f"checkpoint corruption in leaf {key!r}")
+        block = sh.local_slices(specs[key], arr.shape, mesh, mesh.coords)
+        src = _tensor(np.array(arr[block]), meta["dtype"])
+        want = tuple(_local_block(entries).shape)
+        if tuple(src.shape) != want:
+            raise ValueError(f"shape mismatch for {key}: a slice "
+                             f"{tuple(src.shape)} of {tuple(arr.shape)} vs "
+                             f"{want}")
+        if entries[0][0] is None:
+            entries[0][1].copy_(src)
+            continue
+        for i, (_, leaf, _) in enumerate(sorted(entries,
+                                                key=lambda e: e[0])):
+            leaf.copy_(src[i])
+
+
 @torch.no_grad()
-def restore(ckpt_dir: str | Path, step: int, target: Any) -> Any:
+def restore(ckpt_dir: str | Path, step: int, target: Any, *, mesh=None,
+            shardings: Any = None) -> Any:
     """Restore into ``target``'s tensors, in place, after checking every
     leaf's digest and shape; returns ``target``.  A leaf missing in the
     declared layout is read from the other (a stacked leaf's layer from
-    its indexed path, an indexed leaf from its stack)."""
+    its indexed path, an indexed leaf from its stack).  On ``mesh`` the
+    tensors are the rank's shards, each read from its slice of the leaf by
+    ``shardings`` (the module's docstring), in the declared layout."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     with open(d / "manifest.json") as f:
         leaves = json.load(f)["leaves"]
+    if mesh is not None:
+        _restore_mesh(d, leaves, target, mesh, _flat_specs(shardings))
+        return target
     stacks: dict[str, torch.Tensor] = {}   # the other layout's, read once
 
     def load(key: str) -> torch.Tensor:

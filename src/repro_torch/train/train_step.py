@@ -7,6 +7,16 @@ batch) -> (loss, metrics)``.  The global batch's leading axis splits into
 ``n_micro`` micro-batches; their gradients are summed in fp32 and divided
 by ``n_micro`` and their metrics averaged, as the JAX package's scan does.
 The step updates the state's parameters and moments in place.
+
+On a mesh (parameters that are a rank's shards, ``params.mesh``) the
+batch holds the rank's rows, each micro-batch's share in turn
+(``transformer_lm.shard_batch``: micro-batch i is the global batch's rows
+[i B/n, (i+1) B/n), as the reference splits it), and ``batch["rows"]`` the
+whole batch's row count; each micro-batch's loss is told its own.  Every
+rank's loss is the whole micro-batch's, so each backpropagates 1/(the
+ranks) of it: the collectives' backward sums the ranks' shares
+(``collectives.py``), and the optimizer sums each leaf's gradient over the
+ranks that hold it alike (``optimizer.update``).  The metrics are global.
 """
 from __future__ import annotations
 
@@ -35,12 +45,19 @@ def make_train_step(
         params = state["params"]
         leaves = opt_lib.named_leaves(params)
         device = next(iter(leaves.values())).device
+        mesh = getattr(params, "mesh", None)
+        batch = dict(batch)
+        rows = batch.pop("rows", None)
         micro = _split_micro({k: torch.as_tensor(v, device=device)
                               for k, v in batch.items()}, n_micro)
         grads, seq = None, []
         for i in range(n_micro):
-            loss, metrics = loss_fn(params, {k: v[i]
-                                             for k, v in micro.items()})
+            mb = {k: v[i] for k, v in micro.items()}
+            if mesh is not None:
+                mb["rows"] = rows // n_micro
+            loss, metrics = loss_fn(params, mb)
+            if mesh is not None:
+                loss = loss / mesh.size
             g = torch.autograd.grad(loss, list(leaves.values()))
             if grads is None:
                 grads = [x.float() for x in g]

@@ -80,13 +80,33 @@ def _agree(j, t, what):
 # ---------------------------------------------------------------------------
 
 def test_embedding_build_matches_reference(env):
-    """The forward-file projection built with torch (index_add_ in f32)
-    against the reference's numpy build: rtol 1e-5 / atol 1e-6."""
+    """The forward-file projection built with torch (an entry-order sum in
+    f32) against the reference's numpy build: rtol 1e-5 / atol 1e-6."""
     dense = TD.build_dense_index(env["tidx"])
     assert dense.dim == 64 and dense.emb.dtype == torch.float32
     np.testing.assert_allclose(dense.emb.numpy(),
                                np.asarray(env["jbe"].dense.emb),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("chunk", [1 << 21, 1000])
+def test_embedding_build_sums_in_entry_order(env, chunk):
+    """Each document's row is the float32 sum of its entries' products in
+    entry order (numpy's unbuffered ``np.add.at``, as the reference adds
+    them), bit for bit, over one chunk or many: the build adds the same
+    sequence on the card, where atomics would not."""
+    idx = env["tidx"]
+    dense = TD.build_dense_index(idx, chunk=chunk)
+    proj = TD.projection(idx.vocab, 64, 0, "cpu")
+    prods = (proj[idx.fwd_terms.long()] *
+             torch.log1p(idx.fwd_tfs.to(torch.float32))[:, None]).numpy()
+    starts = idx.fwd_start.numpy()
+    doc = np.repeat(np.arange(idx.n_docs), np.diff(starts))
+    want = np.zeros((idx.n_docs, 64), np.float32)
+    np.add.at(want, doc[:len(prods)], prods)
+    want = torch.from_numpy(want)
+    want /= torch.linalg.norm(want, dim=1, keepdim=True).clamp(min=1e-6)
+    assert torch.equal(dense.emb, want)
 
 
 def test_query_embedding_matches_reference(env):

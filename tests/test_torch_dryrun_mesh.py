@@ -1,19 +1,34 @@
 """The dry run per card of a mesh (``launch/dryrun.py::run_cell`` with
 ``multi_pod=`` or ``mesh=``), on the CPU: qwen2-1.5b x decode_32k and
 olmoe-1b-7b x long_500k at 2 layers on the reference's 16x16 and 2x16x16
-meshes, shape-only at rank 0's coordinates, the bundle on ``meta``."""
+meshes, and the five LMs' train_4k at 2 layers on 2x2 and 16x16, each
+rank's state against the reference's shard shapes on an
+``AbstractMesh``; shape-only at rank 0's coordinates, the bundle on
+``meta``."""
+import dataclasses
 import math
 
+import jax
 import pytest
 import torch
+from jax.sharding import AbstractMesh, AxisType
 
+from repro import sharding as jsh
+from repro.configs import registry as jregistry
+from repro.models import transformer_lm as JT
+from repro_torch.configs.registry import get_arch
 from repro_torch.launch import dryrun, mesh
 from repro_torch.launch.steps import WaitsForSlice, build_bundle
+from repro_torch.models import transformer_lm as TT
+from repro_torch.train import optimizer as opt_lib
 
+from test_torch_mesh_lm import _flat
 from torch_dryrun import KEYS, MEMORY_KEYS
 
 CELLS = [("qwen2-1.5b", "decode_32k"), ("olmoe-1b-7b", "long_500k")]
 OVER = {"n_layers": "2"}
+LMS = ["qwen2-1.5b", "glm4-9b", "internlm2-1.8b", "olmoe-1b-7b",
+       "llama4-scout-17b-a16e"]
 
 
 def shard_bytes(bundle) -> int:
@@ -71,10 +86,8 @@ def test_bundles_on_a_mesh_carry_the_reference_shardings():
     assert tuple(b.args[2]["k"].shape) == (2, 64, 16384, 2, 128)
     assert build_bundle("qwen2-1.5b", "decode_32k", device="meta",
                         overrides=OVER).in_shardings is None
-    for arch_id, shape in (("qwen2-1.5b", "train_4k"),
-                           ("dcn-v2", "serve_p99")):
-        with pytest.raises(WaitsForSlice, match="slice"):
-            build_bundle(arch_id, shape, device="meta", mesh=m)
+    with pytest.raises(WaitsForSlice, match="slice"):
+        build_bundle("dcn-v2", "serve_p99", device="meta", mesh=m)
     with pytest.raises(ValueError, match="shape-only"):
         build_bundle("qwen2-1.5b", "decode_32k", device="cpu", mesh=m,
                      overrides=OVER)
@@ -118,3 +131,77 @@ def test_flash_is_priced_by_its_formula(S, T, chunk):
         lambda: ops.flash_attention(q, k, k, causal=True, chunk=chunk))
     assert got["flops_per_chip"] == 4 * 2 * 4 * 8 * int(ok.sum())
     assert got["bytes_per_chip"] == 4 * (2 * q.numel() + 2 * k.numel())
+
+
+def _reference_shards(arch_id: str, shape) -> dict:
+    """The reference's train_4k state at 2 layers on an ``AbstractMesh``
+    of ``shape``: each leaf's (parameter shard shape, moment shard shape,
+    its dtype's bytes) by JAX path."""
+    cfg = dataclasses.replace(jregistry.get_arch(arch_id).model_cfg(
+        "train_4k"), n_layers=2)
+    jm = AbstractMesh(shape, ("data", "model"),
+                      axis_types=(AxisType.Auto,) * 2)
+    prof = jsh.PROFILES[cfg.sharding_profile](jm)
+    abstract = jax.eval_shape(lambda: JT.init_params(cfg, jax.random.key(0)))
+    specs = jsh.pspec_tree(abstract, JT.param_logical(cfg), jm, prof)
+
+    def local(spec, dims):
+        out = []
+        for i, n in enumerate(dims):
+            e = spec[i] if i < len(spec) else None
+            for a in (e if isinstance(e, tuple) else (e,) if e else ()):
+                n //= jm.shape[a]
+            out.append(n)
+        return tuple(out)
+
+    return {k: (local(s, a.shape), local(jsh.zero1_spec(s, a.shape, jm),
+                                         a.shape), a.dtype.itemsize)
+            for (k, a), s in zip(_flat(abstract).items(),
+                                 _flat(specs).values())}
+
+
+@pytest.mark.parametrize("shape", [(2, 2), (16, 16)])
+@pytest.mark.parametrize("arch_id", LMS)
+def test_train_4k_per_card(arch_id, shape):
+    """The LM's train_4k at 2 layers builds on ``meta`` on the mesh and is
+    priced per card: each parameter's and moment's shard, its layers
+    stacked, has the reference's shard shape, leaf for leaf; the
+    argument bytes are their sum with the step and the rank's rows of the
+    batch; and the record lists the ZeRO-1 reduce-scatter among its
+    collectives."""
+    m = mesh.Mesh(shape, ("data", "model"))
+    rec = dryrun.run_cell(arch_id, "train_4k", mesh=m, overrides=OVER,
+                          verbose=False)
+    b = build_bundle(arch_id, "train_4k", device="meta", mesh=m,
+                     overrides=OVER)
+    state, batch = b.args
+    cfg = dataclasses.replace(get_arch(arch_id).model_cfg("train_4k"),
+                              n_layers=2)
+    assert b.in_shardings[0] == TT.state_specs(cfg, m)
+    layout = opt_lib.mesh_layout(state["params"])
+    params: dict = {}
+    moments: dict = {}
+    for name, p in state["params"].named_parameters():
+        key = layout[name].key.replace(".", "/")
+        params.setdefault(key, []).append(p)
+        if name in state["opt"]["m"]:
+            moments.setdefault(key, []).append(state["opt"]["m"][name])
+
+    def stacked(ts, key):
+        shape = tuple(ts[0].shape)
+        return (len(ts), *shape) if key.startswith("layers/") else shape
+
+    want = _reference_shards(arch_id, shape)
+    assert set(params) == set(moments) == set(want)
+    n = 0
+    for key, (pshape, mshape, itemsize) in want.items():
+        assert stacked(params[key], key) == pshape, key
+        assert stacked(moments[key], key) == mshape, key
+        assert params[key][0].element_size() == itemsize, key
+        n += math.prod(pshape) * itemsize + 2 * 4 * math.prod(mshape)
+    n += 4 + sum(t.numel() * t.element_size() for t in batch.values()
+                 if torch.is_tensor(t))
+    assert rec["memory"]["argument_bytes"] == n
+    assert batch["tokens"].shape[0] * math.prod(
+        m.shape[a] for a in ("data",)) == batch["rows"]
+    assert "reduce-scatter" in rec["collectives"]
