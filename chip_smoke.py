@@ -69,7 +69,15 @@ LMs in fp32 on the flash training path, sharded against rank 0's card
 alone; with 4 cards, cell M4: qwen2-1.5b's train_4k at full width and
 depth on the 2x2 mesh, 256 x 4,096 tokens a step, each rank's peak held to
 its dry run).  ``python3 chip_smoke.py --phase M`` runs the toolchain and
-phase M alone (with 4 cards: M1-M4).  Last, phase Q: the query engine
+phase M alone (with 4 cards: M1-M4).  Then phase ZM: the model zoo on a
+mesh of the cards present, one NCCL process a card (check Z-1: each zoo
+arch's reduced config in fp32, one AdamW step, the serve outputs and
+retrieval scores sharded against rank 0's card alone; with 4 cards,
+cells Z1M, DCN-v2, AutoInt, DIEN and MIND at full width at the four
+recsys cells, and Z2M, gat-cora at its four graph cells, on the 2x2 mesh,
+each rank's peak memory and collective bytes held to its dry run,
+serve_p99 to one card's).  ``python3 chip_smoke.py --phase Z`` runs the
+toolchain and phase ZM alone.  Last, phase Q: the query engine
 over the cards present, driven by this one process, on an index and dense
 state of its own (Q0: the retrieval kernels at a card's shard shapes on
 the last card while the first is current; Q1: the reference's
@@ -4784,6 +4792,411 @@ def phase_mesh(smi: str) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase ZM: the model zoo on a mesh of cards
+# ---------------------------------------------------------------------------
+
+#: the mesh of cells Z1M and Z2M with 4 cards or more, (data, model)
+ZM_SHAPE = (2, 2)
+ZM_ARCHS = ("dcn-v2", "autoint", "dien", "mind", "gat-cora")
+#: check Z-1: one AdamW step of each zoo arch's reduced config (fp32) at
+#: this learning rate, and a recsys arch's first row scored against
+#: ZM_CAND candidates
+ZM_LR, ZM_CAND = 1e-3, 64
+#: its limits against rank 0's card alone: the metrics within this
+#: relative; the serve outputs, retrieval scores and first moments within
+#: the zoo's leaf bound (:func:`leaf_bound`); the parameters by the floor
+#: rule of tests/test_torch_train_lm.py (within ZM_LR where the one-card
+#: gradient lies below 1e-4 of its leaf's largest)
+ZM_RTOL = 1e-5
+#: cells Z1M and Z2M: warm-up and timed steps of each
+ZM_WARM, ZM_TIMED = 2, 3
+#: serve_p99's outputs on the mesh within this of one card's (the largest
+#: |difference| over the largest |one-card value|)
+ZM_SERVE_REL = 1e-5
+#: seconds a rank may take
+ZM_TIMEOUT = 900
+
+
+def zoo_pass(arch_id: str, cfg, params, batch: dict, cand, mesh) -> dict:
+    """Check Z-1's pass of ``arch_id`` on ``mesh`` (None: one card) from
+    ``params`` (the seed-0 draw, on the mesh the rank's shards): the serve
+    outputs of ``batch`` (a GAT's logits), a recsys arch's retrieval
+    scores of its first row against ``cand``, then one AdamW step on
+    ``batch`` (a recsys batch cut by ``shard_batch``, a graph padded to 128
+    x the mesh's size and cut by ``shard_graph``): its metrics, and every
+    parameter and first moment after it, gathered whole."""
+    import functools
+    import torch
+    from repro_torch import collectives as C
+    from repro_torch import sharding as sh
+    from repro_torch.launch.steps import GNN_PAD_MULTIPLE, _pad_graph
+    from repro_torch.models import param_tree as P
+    from repro_torch.models.recsys import embedding as E
+    from repro_torch.train import optimizer as opt_lib
+    from repro_torch.train import train_step as ts
+    mod = zoo_module(arch_id)
+    multiple = GNN_PAD_MULTIPLE * (mesh.size if mesh is not None else 1)
+
+    def graph_of(b):
+        g = _pad_graph(b, multiple)
+        return g if mesh is None else mod.shard_graph(mesh, g)
+
+    out = {}
+    with torch.no_grad():
+        if arch_id == "gat-cora":
+            g = graph_of(batch)
+            y = mod.forward(cfg, params, g, mesh=mesh)
+            if mesh is not None:
+                y = C.all_gather(y, mesh, mod._node_axes(mesh, g["n_nodes"]),
+                                 0)
+            out["serve"] = y[:batch["x"].shape[0]]
+        else:
+            serve = {k: v for k, v in batch.items() if k != "label"}
+            ctx = {k: v[:1] for k, v in serve.items()
+                   if k not in ("target_item", "target_cate")}
+            r = {**ctx, "candidates": cand}
+            if mesh is not None:
+                serve = E.shard_batch(mesh, serve)
+                spec = E.row_spec(mesh, cand.shape, sh.CANDIDATES)
+                r["candidates"] = cand[sh.local_slices(
+                    spec, cand.shape, mesh, mesh.coords)]
+                r["rows"] = cand.shape[0]
+            y = mod.forward(cfg, params, serve, mesh=mesh)
+            s = mod.retrieval_score(cfg, params, r, mesh=mesh)
+            if mesh is not None:
+                y = C.all_gather(y, mesh, E.batch_axes(
+                    mesh, serve, next(iter(serve))), 0)
+                s = C.all_gather(s, mesh, mesh.axes(sh.spec_axes(spec, 0)),
+                                 0)
+            out["serve"], out["retrieval"] = y, s
+    state = ts.init_state(params)
+    if arch_id == "gat-cora":
+        def loss(p, b):
+            return mod.loss_fn(cfg, p, graph_of(b), mesh=mesh)
+        b = batch
+    else:
+        loss = functools.partial(mod.loss_fn, cfg, mesh=mesh)
+        b = batch if mesh is None else E.shard_batch(mesh, batch)
+    step = ts.make_train_step(loss, opt_lib.AdamWConfig(
+        lr=ZM_LR, warmup_steps=1, total_steps=10))
+    state, m = step(state, b)
+    out["metrics"] = {k: float(v) for k, v in m.items()}
+    layout = opt_lib.mesh_layout(state["params"])
+    out["params"], out["m"] = {}, {}
+    for name, p in state["params"].named_parameters():
+        p, mo = p.detach(), state["opt"]["m"][name]
+        if mesh is not None:
+            p = _whole(p, P.leaf_spec(state["params"], name), mesh)
+            mo = _whole(mo, layout[name].mspec, mesh)
+        out["params"][name], out["m"][name] = p, mo
+    return out
+
+
+def zoo_mesh_check(mesh, arch_id: str) -> dict:
+    """Check Z-1 on one rank: ``arch_id``'s reduced config in fp32, one
+    :func:`zoo_pass` on rank 0's card alone and then on ``mesh`` (the
+    seed-0 draw cut to the rank's shards); rank 0 holds the mesh's
+    metrics, serve outputs, retrieval scores, parameters and first
+    moments to the one-card pass's."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch.steps import item_vocab
+    arch = get_arch(arch_id)
+    cfg, batch_fn = arch.reduced()
+    dev = mesh.device
+    batch = {k: torch.from_numpy(np.asarray(v)).to(dev)
+             for k, v in batch_fn().items()}
+    cand = None
+    if arch_id != "gat-cora":
+        cand = torch.randint(0, item_vocab(arch_id, cfg), (ZM_CAND,),
+                             generator=torch.Generator(dev).manual_seed(1),
+                             device=dev, dtype=torch.int32)
+    rank0 = mesh.coords == {a: 0 for a in mesh.axis_names}
+    one = None
+    if rank0:
+        one = zoo_pass(arch_id, cfg, arch.module.init_params(
+            cfg, torch.Generator(dev).manual_seed(0), dev), batch, cand, None)
+    got = zoo_pass(arch_id, cfg, arch.module.init_params(
+        cfg, torch.Generator(dev).manual_seed(0), dev, mesh=mesh), batch,
+        cand, mesh)
+    out = {"arch": arch_id, "cfg": cfg.name}
+    if rank0:
+        out["metrics"], out["metrics_one_card"] = got["metrics"], \
+            one["metrics"]
+        out["metric_rel"] = {k: abs(got["metrics"][k] - v) / max(abs(v),
+                                                                1e-30)
+                             for k, v in one["metrics"].items() if k != "lr"}
+        worst = {}
+        for k in ("serve", "retrieval"):
+            if k in one:
+                worst[k] = float((got[k] - one[k]).abs().max()) / \
+                    leaf_bound(one[k])
+        for name, want in one["params"].items():
+            mo = one["m"][name]
+            floor = mo.abs() < 1e-4 * mo.abs().max()
+            err = (got["params"][name] - want).abs()
+            bound = torch.where(floor, torch.full_like(err, ZM_LR),
+                                leaf_bound(want))
+            worst[f"param {name}"] = float((err / bound).max())
+            worst[f"m {name}"] = float((got["m"][name] - mo).abs().max()) / \
+                leaf_bound(mo)
+        out["worst"] = max(worst.values())
+        out["worst_leaf"] = max(worst, key=worst.get)
+        out["leaves"] = len(one["params"])
+        out["ok"] = (all(r <= ZM_RTOL for r in out["metric_rel"].values())
+                     and out["worst"] <= 1.0 and all(
+                         math.isfinite(v) for v in got["metrics"].values()))
+    del one, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def zoo_mesh_cell(mesh, arch_id: str, shape: str, seed: int) -> dict:
+    """Cell Z1M's or Z2M's ``arch_id`` x ``shape`` on one rank: its dry run
+    at the rank's coordinates, then its ``build_bundle`` on ``mesh``
+    (full width, the seed-0 draw cut to the rank's shards): ZM_WARM
+    warm-up steps (the first one's collectives recorded) and ZM_TIMED
+    steps between CUDA events (minibatch_lg: a batch a step from the host
+    sampler, the same on every rank, copied into the bundle's batch), the
+    rank's peak memory above what it held before the build; serve_p99's
+    outputs gathered and, on rank 0, held to the one-card bundle's."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch import collectives
+    from repro_torch.configs.registry import get_arch
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import run_cell
+    from repro_torch.launch.steps import build_bundle
+    cell = get_arch(arch_id).shapes[shape]
+    shape_only = mesh_lib.Mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                               coords=mesh.coords)
+    t0 = time.perf_counter()
+    dry = run_cell(arch_id, shape, mesh=shape_only, verbose=False)
+    dry_s = time.perf_counter() - t0
+    host = None
+    if cell.get("sampled"):
+        host, info = zoo_gat_batches(shape, cell, None, seed)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    t1 = time.perf_counter()
+    b = build_bundle(arch_id, shape, mesh=mesh)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t1
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    args = list(b.args)
+    losses, ys = [], []
+
+    def feed(i):
+        """minibatch_lg: step i's sampled batch into the bundle's."""
+        if host is not None:
+            for k, v in host[i].items():
+                args[1][k].copy_(torch.from_numpy(v))
+
+    def run():
+        if cell["kind"] == "train":
+            args[0], m = b.fn(*args)
+            losses.append(next(iter(m.values())).detach())
+        else:
+            ys[:] = [b.fn(*args)]
+    feed(0)
+    with collectives.recording() as rec:
+        run()
+    for i in range(1, ZM_WARM):
+        feed(i)
+        run()
+    ev = [(torch.cuda.Event(enable_timing=True),
+           torch.cuda.Event(enable_timing=True)) for _ in range(ZM_TIMED)]
+    for i, (a, z) in enumerate(ev):
+        feed(ZM_WARM + i)
+        a.record()
+        run()
+        z.record()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = [a.elapsed_time(z) for a, z in ev]
+    finite = all(bool(torch.isfinite(t).all()) for t in losses + ys)
+    # rows a step: a recsys cell's rows or candidates, a graph's nodes
+    rows = cell.get("candidates", cell.get("batch", cell.get(
+        "n_nodes", cell.get("n_graphs", 0) * cell.get("nodes_per_graph",
+                                                      0))))
+    out = {"arch": arch_id, "shape": shape, "ms": ms,
+           "mean_ms": sum(ms) / len(ms), "peak": peak,
+           "dry_peak": dry["bytes_per_device"], "dry_memory": dry["memory"],
+           "dry_s": round(dry_s, 2), "build_s": round(build_s, 2),
+           "collective_bytes": rec.total, "collectives": rec.bytes,
+           "dry_collective_bytes": dry["collective_bytes_per_chip"],
+           "dry_collectives": dry["collectives"], "finite": finite,
+           "losses": [float(t) for t in losses], "rows": rows,
+           "dry_flops": dry["flops_per_chip"],
+           "model_flops": b.model_flops_per_step}
+    if host is not None:
+        out["sampler_ms"] = info["sampler_ms"]
+    y = _whole(ys[0], b.out_shardings, mesh) if shape == "serve_p99" \
+        else None
+    del b, args, ys, losses
+    gc.collect()
+    torch.cuda.empty_cache()
+    if y is not None and mesh.coords == {a: 0 for a in mesh.axis_names}:
+        one = build_bundle(arch_id, shape, device=mesh.device)
+        ref = one.fn(*one.args)
+        out["serve_rel"] = float((y - ref).abs().max() / ref.abs().max())
+        del one, ref
+        gc.collect()
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def zoo_mesh_rank(rank: int, world: int, port: int, out_dir: str) -> int:
+    """One rank of phase ZM (``chip_smoke.py --zoo-mesh-rank``): joins the
+    NCCL group on card ``rank``, runs check Z-1 on the mesh of all ranks
+    and, with 4, cells Z1M and Z2M on the 2x2 mesh; writes its results to
+    ``<out_dir>/rank<rank>.json``."""
+    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import shapes
+    from repro_torch.launch import mesh as mesh_lib
+    mesh_lib.init_cards(rank, world, f"tcp://localhost:{port}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    shape = ZM_SHAPE if world == 4 else (1, world)
+    mesh = mesh_lib.make_card_mesh(shape)
+    res = {"rank": rank, "coords": mesh.coords, "mesh": mesh.name,
+           "device": str(mesh.device), "check": [], "z1m": [], "z2m": []}
+    t0 = time.perf_counter()
+    for arch_id in ZM_ARCHS:
+        res["check"].append(zoo_mesh_check(mesh, arch_id))
+    res["check_s"] = round(time.perf_counter() - t0, 2)
+    if world == 4:
+        t0 = time.perf_counter()
+        for arch_id in Z_RECSYS:
+            for shape in shapes.RECSYS_SHAPES:
+                res["z1m"].append(zoo_mesh_cell(mesh, arch_id, shape, 0))
+        res["z1m_s"] = round(time.perf_counter() - t0, 2)
+        t0 = time.perf_counter()
+        for j, shape in enumerate(shapes.GNN_SHAPES):
+            res["z2m"].append(zoo_mesh_cell(mesh, "gat-cora", shape,
+                                            200 + j))
+        res["z2m_s"] = round(time.perf_counter() - t0, 2)
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_zoo_mesh(smi: str) -> None:
+    """Phase ZM: the model zoo on a mesh of cards, one process a card
+    (NCCL).  Check Z-1 on a mesh of the cards present (2x2 with 4 or
+    more, 1 x n else): each zoo arch's reduced config in fp32, the serve
+    outputs, retrieval scores and one AdamW step on the mesh against rank
+    0's card alone (:func:`zoo_mesh_check`).  With 4 cards, cell Z1M
+    (DCN-v2, AutoInt, DIEN and MIND at full width at the four
+    RECSYS_SHAPES) and cell Z2M (gat-cora at the four GNN_SHAPES) on the
+    2x2 mesh (:func:`zoo_mesh_cell`): each rank's peak within M_PEAK_REL
+    of its dry run, its collective bytes a step equal to the dry run's,
+    finite losses and outputs, serve_p99 within ZM_SERVE_REL of one
+    card's, ms a step."""
+    import torch
+    from repro_torch.launch import mesh as mesh_lib
+    n = torch.cuda.device_count()
+    world = 4 if n >= 4 else n
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = Path(__file__).resolve().parent / "build" / "zoo_mesh"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for old in out_dir.glob("rank*.json"):
+        old.unlink()
+    port = mesh_lib.free_port()
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--zoo-mesh-rank", str(r), str(world),
+                               str(port), str(out_dir)])
+             for r in range(world)]
+    try:
+        for p in procs:
+            p.wait(timeout=ZM_TIMEOUT)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    rcs = [p.returncode for p in procs]
+    assert rcs == [0] * world, f"phase ZM ranks exited {rcs}"
+    ranks = [json.loads((out_dir / f"rank{r}.json").read_text())
+             for r in range(world)]
+    log(f"[ZM] {world} ranks on the {ranks[0]['mesh']} mesh ({n} cards "
+        f"present), {time.perf_counter() - t0:.1f} s; check Z-1 "
+        f"{ranks[0]['check_s']} s; {smi}")
+    bad = []
+    for c in ranks[0]["check"]:
+        log(f"[ZM check Z-1] {c['arch']} ({c['cfg']}, reduced, fp32) on the "
+            f"{ranks[0]['mesh']} mesh vs rank 0's card alone (limits: "
+            f"metrics relative {ZM_RTOL}; serve, retrieval, parameters "
+            f"(floor rule) and first moments <= 1 of their bound): metrics "
+            f"{c['metrics']} vs {c['metrics_one_card']}, relative "
+            f"{c['metric_rel']}; worst of {c['leaves']} leaves and the "
+            f"outputs {c['worst']:.4f} of its bound ({c['worst_leaf']})")
+        if not c["ok"]:
+            bad.append(("Z-1", c["arch"]))
+    if world < 4:
+        assert not bad, bad
+        log(f"[ZM] cells Z1M and Z2M did not run: they need 4 cards and "
+            f"{n} {'is' if n == 1 else 'are'} present")
+        return
+    for key, name in (("z1m", "Z1M"), ("z2m", "Z2M")):
+        for i, c0 in enumerate(ranks[0][key]):
+            cells = [r[key][i] for r in ranks]
+            what = "candidates" if c0["shape"] == "retrieval_cand" else \
+                "nodes" if key == "z2m" else "rows"
+            for r, c in enumerate(cells):
+                ratio = c["peak"] / c["dry_peak"]
+                log(f"[ZM {name}] rank {r} {ranks[r]['coords']}: "
+                    f"{c['arch']} x {c['shape']}: ms a step {c['ms']} (after "
+                    f"{ZM_WARM} warm-up, CUDA events); peak {c['peak']} "
+                    f"bytes, dry run {c['dry_peak']} (memory "
+                    f"{c['dry_memory']}; {c['dry_s']} s), measured / dry "
+                    f"run {ratio:.4f}; collective bytes a step "
+                    f"{c['collective_bytes']} {c['collectives']}, dry run "
+                    f"{c['dry_collective_bytes']} {c['dry_collectives']}; "
+                    f"dry-run flops {c['dry_flops']:.4g}; build "
+                    f"{c['build_s']} s; losses {c['losses']}" + (
+                        f"; sampler ms a batch {c['sampler_ms']}"
+                        if "sampler_ms" in c else ""))
+                if not c["finite"] or abs(ratio - 1) > M_PEAK_REL:
+                    bad.append((name, c["arch"], c["shape"], r, c["finite"],
+                                ratio))
+                if abs(c["collective_bytes"] - c["dry_collective_bytes"]) > \
+                        1e-9 * max(c["dry_collective_bytes"], 1.0):
+                    bad.append((name, c["arch"], c["shape"], r,
+                                "collective bytes", c["collective_bytes"],
+                                c["dry_collective_bytes"]))
+            slowest = max(c["mean_ms"] for c in cells)
+            extra = ""
+            if "serve_rel" in c0:
+                extra = (f"; outputs vs one card's from the same draw "
+                         f"{c0['serve_rel']:.3e} of the largest (limit "
+                         f"{ZM_SERVE_REL})")
+                if not c0["serve_rel"] <= ZM_SERVE_REL:
+                    bad.append((name, c0["arch"], "serve_rel",
+                                c0["serve_rel"]))
+            log(f"[ZM {name}] {c0['arch']} x {c0['shape']} on 2x2: mean ms "
+                f"a step a rank {[round(c['mean_ms'], 3) for c in cells]}, "
+                f"slowest {slowest:.3f}; {c0['rows']} {what} a step, "
+                f"{c0['rows'] / slowest * 1e3:.1f} {what}/s over the mesh; "
+                f"model FLOPs {c0['model_flops'] / 1e9:.2f} G a step{extra}; "
+                f"{smi}")
+    log(f"[ZM] Z1M {ranks[0]['z1m_s']} s, Z2M {ranks[0]['z2m_s']} s on "
+        f"rank 0")
+    assert not bad, bad
+
+
+# ---------------------------------------------------------------------------
 # phase Q: the query engine over the local cards
 # ---------------------------------------------------------------------------
 
@@ -5187,6 +5600,9 @@ def main(argv=None) -> int:
         return 2
     if argv[:1] == ["--mesh-rank"]:
         return mesh_rank(int(argv[1]), int(argv[2]), int(argv[3]), argv[4])
+    if argv[:1] == ["--zoo-mesh-rank"]:
+        return zoo_mesh_rank(int(argv[1]), int(argv[2]), int(argv[3]),
+                             argv[4])
     sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
     # the plain versions' matmuls in full fp32, as the kernels compute
@@ -5199,6 +5615,12 @@ def main(argv=None) -> int:
         mesh = phase_mesh(smi)
         log(f"[done] phase M alone {time.perf_counter() - t_start:.1f} s; "
             f"flash launches of the ranks' cells {mesh['flash']}")
+        log(smi)
+        return 0
+    if argv == ["--phase", "Z"]:
+        # the zoo on a mesh alone (cells Z1M and Z2M with 4 cards)
+        phase_zoo_mesh(smi)
+        log(f"[done] phase ZM alone {time.perf_counter() - t_start:.1f} s")
         log(smi)
         return 0
     if argv == ["--phase", "Q"]:
@@ -5334,6 +5756,11 @@ def main(argv=None) -> int:
     windows.append({"flash_attention": {"device": mesh["flash"],
                                         "host": mesh["flash"]}})
     log(f"[main] phase M {time.perf_counter() - t0:.1f} s")
+    # phase ZM, the model zoo on a mesh of the cards present (no kernel of
+    # the port runs in it)
+    t0 = time.perf_counter()
+    phase_zoo_mesh(smi)
+    log(f"[main] phase ZM {time.perf_counter() - t0:.1f} s")
     # phase Q, the query engine over the cards present, on an index and
     # dense state of its own (phase Z freed the earlier ones): the
     # launches of Q2's main path, summed over the cards, join the rows

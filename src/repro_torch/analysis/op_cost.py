@@ -80,6 +80,12 @@ _FREE = {_aten.empty.memory_format, _aten.empty_like.default,
          _aten.sym_size.int, _aten.sym_stride.int, _aten.sym_numel.default}
 
 
+#: ops whose later outputs the card does not allocate (CUDA's kernel makes
+#: them empty where the CPU's and meta's are full-size): the number of
+#: outputs the memory count follows
+_CARD_OUTPUTS = {torch.ops.aten.log_sigmoid_forward.default: 1}
+
+
 def _tensors(tree):
     if isinstance(tree, torch.Tensor):
         yield tree
@@ -242,7 +248,7 @@ class OpCounter(TorchDispatchMode):
             if isinstance(out, torch.Tensor):
                 self._track(out, base)
             else:
-                for t in _tensors(out):
+                for t in list(_tensors(out))[:_CARD_OUTPUTS.get(func)]:
                     self._track(t, base)
         return out
 

@@ -22,9 +22,8 @@ all-reduces, the optimizer's reduce-scatter and all-gather).  Each
 record keeps the reference's keys and adds ``fits``: the card's peak
 bytes against the card's memory.  ``t_compute`` prices the step's
 operations at the peak of its dtype (bf16 tensor cores for the LMs, fp32
-for the zoo), ``t_collective`` the collective bytes over NVLink.  A zoo
-cell, which a later slice puts on a mesh, is skipped there and says so;
-a failing cell is recorded and the exit is 1.
+for the zoo), ``t_collective`` the collective bytes over NVLink.  A
+failing cell is recorded and the exit is 1.
 """
 from __future__ import annotations
 
@@ -37,8 +36,7 @@ from pathlib import Path
 from repro_torch.analysis import op_cost
 from repro_torch.configs.registry import all_arch_ids, get_arch
 from repro_torch.launch import mesh as mesh_lib
-from repro_torch.launch.steps import WaitsForSlice, _apply_overrides, \
-    build_bundle
+from repro_torch.launch.steps import _apply_overrides, build_bundle
 
 #: the checkout's build directory (listed in .gitignore)
 OUT_DIR = Path(__file__).resolve().parents[3] / "build" / "dryrun"
@@ -122,7 +120,7 @@ def main(argv=None) -> None:
         [True] if args.multi_pod else [None]
     names = {None: "1card", False: "sp", True: "mp"}
 
-    failures, skipped = [], []
+    failures = []
     for arch_id in archs:
         shapes = [args.shape] if args.shape else \
             sorted(get_arch(arch_id).shapes)
@@ -136,16 +134,10 @@ def main(argv=None) -> None:
                                    overrides=overrides or None)
                     (outdir / f"{tag}.json").write_text(
                         json.dumps(rec, indent=1))
-                except WaitsForSlice as e:
-                    skipped.append(tag)
-                    print(f"SKIPPED {tag}: {e}")
                 except Exception as e:  # noqa: BLE001 — record and continue
                     failures.append(tag)
                     print(f"FAILED {tag}: {e}")
                     traceback.print_exc()
-    if skipped:
-        print(f"\n{len(skipped)} skipped (their mesh slice is still to "
-              f"come): {skipped}")
     if failures:
         print(f"\n{len(failures)} FAILURES: {failures}")
         raise SystemExit(1)

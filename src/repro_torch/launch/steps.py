@@ -12,15 +12,19 @@ inputs are valid draws (ids below their vocabularies).
 train state, the KV cache).
 
 With ``mesh`` (``launch/mesh.py``: a live mesh of cards, or a shape-only
-one with ``device="meta"``) the LM steps take the rank's shards of their
-arguments, laid out as the reference's ``in_shardings`` say, and return
-their results as its ``out_shardings`` say; the bundle carries both as
-the port's specs (``repro_torch/sharding.py``).  The serve steps return
-the logits and the cache; the train step updates the rank's state (its
-parameters' shards and its ZeRO-1 moments) in place and returns the
-global metrics.  The draws are the one-card draws, each cut to the rank's
-shard.  The zoo's bundles on a mesh of more than one card wait for the
-zoo's slice (:class:`WaitsForSlice`).
+one with ``device="meta"``) every step takes the rank's shards of its
+arguments, laid out as the reference's ``in_shardings`` say, and returns
+its results as its ``out_shardings`` say; the bundle carries both as the
+port's specs (``repro_torch/sharding.py``).  The LM serve steps return
+the logits and the cache; a recsys serve or retrieval step the rank's
+outputs (its rows over ``BATCH``, its candidates over ``CANDIDATES``);
+a train step updates the rank's state (its parameters' shards and its
+ZeRO-1 moments) in place and returns the global metrics.  A recsys
+batch is the rank's rows with ``"rows"`` the whole count
+(``recsys/embedding.py::shard_batch``); a GAT graph arrives whole, at its
+published size, and the step pads it to 128 x the mesh's size and cuts
+it (``gnn.shard_graph``), as the reference's does.  The draws are the
+one-card draws, each cut to the rank's shard.
 """
 from __future__ import annotations
 
@@ -31,22 +35,20 @@ from typing import Callable
 import torch
 
 from repro_torch import sharding as sh
-from repro_torch.common import resolve_device, round_up
+from repro_torch.common import round_up
 from repro_torch.configs.registry import ArchDef, get_arch
+from repro_torch.models import param_tree as P
 from repro_torch.models import transformer_lm as tlm
+from repro_torch.models.recsys import embedding as E
 from repro_torch.train import optimizer as opt_lib
 from repro_torch.train import train_step as ts
 
 #: an input's (shape, dtype)
 Spec = tuple[tuple[int, ...], torch.dtype]
 
-#: the GNN cells' pad multiple: the reference's 128 x the mesh's size, one
-#: device here
+#: the GNN cells' pad multiple on one card; on a mesh, this x the mesh's
+#: size, as the reference pads
 GNN_PAD_MULTIPLE = 128
-
-
-class WaitsForSlice(NotImplementedError):
-    """A bundle that a later slice of the port puts on a mesh."""
 
 
 @dataclasses.dataclass
@@ -80,10 +82,10 @@ class _Draw:
             if module is tlm:
                 return tlm.TransformerLM(cfg, self.device, mesh=self.mesh)
             name = _CLASS[module.__name__.rsplit(".", 1)[-1]]
-            return getattr(module, name)(cfg, self.device)
+            return getattr(module, name)(cfg, self.device, mesh=self.mesh)
         if module is tlm:
             return tlm.init_params(cfg, self.gen, mesh=self.mesh)
-        return module.init_params(cfg, self.gen, self.device)
+        return module.init_params(cfg, self.gen, self.device, mesh=self.mesh)
 
     def shard(self, t: torch.Tensor, spec) -> torch.Tensor:
         """The rank's shard of ``t`` by ``spec`` (all of it without a
@@ -267,9 +269,12 @@ def _gnn_flops(cfg, n_nodes: int, n_edges: int) -> float:
 def _gnn_train(arch: ArchDef, shape_name: str, cell, draw: _Draw,
                opt_cfg) -> StepBundle:
     """A train step on a graph of the cell's published size; the step
-    pads it to ``GNN_PAD_MULTIPLE`` inside, as the reference's does."""
+    pads it to ``GNN_PAD_MULTIPLE`` (x the mesh's size) inside, as the
+    reference's does, and on a mesh takes the rank's part of it
+    (``gnn.shard_graph``)."""
     cfg = arch.model_cfg(shape_name)
     mod = arch.module
+    mesh = draw.mesh
     state = ts.init_state(draw.params(mod, cfg))
     i32 = torch.int32
     if "n_graphs" in cell:
@@ -298,13 +303,25 @@ def _gnn_train(arch: ArchDef, shape_name: str, cell, draw: _Draw,
                                      device=draw.device),
         }
 
+    in_sh = out_sh = None
+    multiple = GNN_PAD_MULTIPLE
+    if mesh is not None:
+        multiple *= mesh.size
+        st = P.state_specs(mod, cfg, mesh)
+        in_sh = (st, {k: sh.P() for k in batch})
+        out_sh = (st, sh.P())
+
     def loss(params, batch):
-        return mod.loss_fn(cfg, params, _pad_graph(batch, GNN_PAD_MULTIPLE))
+        graph = _pad_graph(batch, multiple)
+        if mesh is not None:
+            graph = mod.shard_graph(mesh, graph)
+        return mod.loss_fn(cfg, params, graph, mesh=mesh)
 
     fn = ts.make_train_step(loss, opt_cfg, n_micro=1)
     return StepBundle(
         name="train_step", fn=fn, args=(state, batch), donate_argnums=(0,),
-        model_flops_per_step=_gnn_flops(cfg, N, E))
+        model_flops_per_step=_gnn_flops(cfg, N, E),
+        in_shardings=in_sh, out_shardings=out_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -394,43 +411,73 @@ def item_vocab(arch_id: str, cfg) -> int:
 
 def _recsys_bundle(arch: ArchDef, shape_name: str, cell, draw: _Draw,
                    opt_cfg) -> StepBundle:
+    """A recsys cell's step.  On a mesh: the train and serve batches the
+    rank's rows over ``BATCH`` (the reference's
+    ``_recsys_batch_shardings``), a retrieval's candidates and scores the
+    rank's over ``CANDIDATES`` with its query context whole."""
     cfg = arch.model_cfg(shape_name)
     mod = arch.module
     aid = arch.arch_id
+    mesh = draw.mesh
+    in_sh = out_sh = None
     if cell["kind"] == "train":
         state = ts.init_state(draw.params(mod, cfg))
         batch = _recsys_batch(aid, cfg, cell["batch"], draw)
-        fn = ts.make_train_step(functools.partial(mod.loss_fn, cfg), opt_cfg,
-                                n_micro=arch.train_microbatches)
+        if mesh is not None:
+            st = P.state_specs(mod, cfg, mesh)
+            in_sh = (st, {k: E.row_spec(mesh, v.shape)
+                          for k, v in batch.items()})
+            out_sh = (st, sh.P())
+            batch = E.shard_batch(mesh, batch,
+                                  n_micro=arch.train_microbatches)
+        fn = ts.make_train_step(functools.partial(mod.loss_fn, cfg,
+                                                  mesh=mesh),
+                                opt_cfg, n_micro=arch.train_microbatches)
         return StepBundle(
             name="train_step", fn=fn, args=(state, batch),
             donate_argnums=(0,),
             model_flops_per_step=_recsys_flops(aid, cfg, cell["batch"],
-                                               "train"))
+                                               "train"),
+            in_shardings=in_sh, out_shardings=out_sh)
     params = draw.params(mod, cfg)
     batch = _recsys_batch(aid, cfg, cell["batch"], draw)
     batch.pop("label", None)
     if cell["kind"] == "serve":
+        if mesh is not None:
+            in_sh = (P.param_specs(mod, cfg, mesh),
+                     {k: E.row_spec(mesh, v.shape) for k, v in batch.items()})
+            out_sh = E.row_spec(mesh, (cell["batch"],))
+            batch = E.shard_batch(mesh, batch)
+
         @torch.no_grad()
         def serve_step(params, batch):
-            y = mod.forward(cfg, params, batch)
+            y = mod.forward(cfg, params, batch, mesh=mesh)
             return y if aid == "mind" else torch.sigmoid(y)
 
         return StepBundle(
             name="serve_step", fn=serve_step, args=(params, batch),
             model_flops_per_step=_recsys_flops(aid, cfg, cell["batch"],
-                                               "serve"))
+                                               "serve"),
+            in_shardings=in_sh, out_shardings=out_sh)
     # retrieval: 1 query context vs n_candidates item ids
     C = cell["candidates"]
     batch["candidates"] = draw.ints((C,), item_vocab(aid, cfg))
+    if mesh is not None:
+        cand = E.row_spec(mesh, (C,), sh.CANDIDATES)
+        in_sh = (P.param_specs(mod, cfg, mesh),
+                 {k: cand if k == "candidates" else sh.P() for k in batch})
+        out_sh = cand
+        batch["candidates"] = draw.shard(batch["candidates"], cand)
+        batch["rows"] = C
 
     @torch.no_grad()
     def retrieval_step(params, batch):
-        return mod.retrieval_score(cfg, params, batch)
+        return mod.retrieval_score(cfg, params, batch, mesh=mesh)
 
     return StepBundle(
         name="retrieval_step", fn=retrieval_step, args=(params, batch),
-        model_flops_per_step=_recsys_flops(aid, cfg, C, "retrieval"))
+        model_flops_per_step=_recsys_flops(aid, cfg, C, "retrieval"),
+        in_shardings=in_sh, out_shardings=out_sh)
 
 
 # ---------------------------------------------------------------------------
@@ -502,18 +549,10 @@ def build_bundle(arch_id: str, shape_name: str, *, device=None, mesh=None,
     arch = _apply_overrides(arch, overrides or {})
     cell = arch.shapes[shape_name]
     opt_cfg = opt_cfg or opt_lib.AdamWConfig()
-    if device is None and mesh is not None and mesh.device is not None:
-        device = mesh.device
-    device = resolve_device(device)
+    device = P.device_of(device, mesh)
     if mesh is not None and not mesh.live and device.type != "meta":
         raise ValueError(f"a shape-only mesh ({mesh}) takes tensors on "
                          f"meta, not on {device}")
-    if mesh is not None and arch.family != "lm":
-        if mesh.size > 1:
-            raise WaitsForSlice(
-                f"{arch_id} x {shape_name} on a mesh of {mesh.size} cards: "
-                f"the zoo on the mesh waits for its slice of the port")
-        mesh = None                   # one card
     draw = _Draw(device, mesh)
     if arch.family == "lm":
         if cell["kind"] == "train":

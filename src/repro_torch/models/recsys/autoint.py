@@ -4,6 +4,10 @@ interaction (the port of ``src/repro/models/recsys/autoint.py``).
 39 sparse fields (26 Criteo categorical + 13 bucketised dense), dim-16
 embeddings, 3 interacting layers with 2 heads of d_attn=32, residual
 connections, final flatten -> logit.
+
+On a mesh (``embedding.py``): the table's rows over ``model`` where they
+divide (the full table's 33,775,577 do not: replicated), every other
+leaf replicated, so the rank's rows run as pure data parallelism.
 """
 from __future__ import annotations
 
@@ -12,9 +16,10 @@ from typing import Any
 
 import torch
 
-from repro_torch.common import resolve_device
+from repro_torch import sharding as sh
 from repro_torch.models import param_tree as P
 from repro_torch.models.recsys import embedding as E
+from repro_torch.sharding import Ax
 
 #: 26 Criteo categorical vocabs + 13 bucketised-dense vocabs (1000 buckets).
 AUTOINT_VOCABS = tuple(E.CRITEO_VOCABS) + (1000,) * 13
@@ -35,34 +40,48 @@ class AutoIntConfig:
         return E.FieldTable(list(self.vocabs), self.embed_dim)
 
 
+def param_shapes(cfg: AutoIntConfig) -> dict:
+    H, A = cfg.n_heads, cfg.d_attn
+    d_out = H * A
+    layers = []
+    d_in = cfg.embed_dim
+    for _ in range(cfg.n_attn_layers):
+        layers.append({"wq": (d_in, H, A), "wk": (d_in, H, A),
+                       "wv": (d_in, H, A), "w_res": (d_in, d_out)})
+        d_in = d_out
+    return {"table": cfg.table().shape(), "layers": layers,
+            "out": {"w": (cfg.n_sparse * d_out, 1), "b": (1,)}}
+
+
+def param_logical(cfg: AutoIntConfig) -> dict:
+    """The reference's logical axes of every leaf."""
+    layer = {"wq": Ax(None, None, None), "wk": Ax(None, None, None),
+             "wv": Ax(None, None, None), "w_res": Ax(None, None)}
+    return {"table": cfg.table().logical(),
+            "layers": [dict(layer) for _ in range(cfg.n_attn_layers)],
+            "out": {"w": Ax(None, None), "b": Ax(None)}}
+
+
 class AutoInt(P.ParamTree):
     """AutoInt's parameters (``table``, ``layers.i.{wq,wk,wv,w_res}``,
-    ``out.{w,b}``) on ``device`` (``None`` = the card), zero-filled."""
+    ``out.{w,b}``) on ``device`` (``None`` = the card, or the mesh's),
+    zero-filled; with ``mesh``, the rank's shards."""
 
-    def __init__(self, cfg: AutoIntConfig, device=None):
-        H, A = cfg.n_heads, cfg.d_attn
-        d_out = H * A
-        layers = []
-        d_in = cfg.embed_dim
-        for _ in range(cfg.n_attn_layers):
-            layers.append({"wq": (d_in, H, A), "wk": (d_in, H, A),
-                           "wv": (d_in, H, A), "w_res": (d_in, d_out)})
-            d_in = d_out
-        super().__init__({
-            "table": cfg.table().shape(),
-            "layers": layers,
-            "out": {"w": (cfg.n_sparse * d_out, 1), "b": (1,)},
-        }, cfg.dtype, resolve_device(device))
+    def __init__(self, cfg: AutoIntConfig, device=None, mesh=None):
+        super().__init__(param_shapes(cfg), cfg.dtype,
+                         P.device_of(device, mesh), mesh,
+                         param_logical(cfg))
 
 
 def init_params(cfg: AutoIntConfig, generator: torch.Generator,
-                device=None) -> AutoInt:
-    return P.init_normal(AutoInt(cfg, device), generator,
+                device=None, mesh=None) -> AutoInt:
+    return P.init_normal(AutoInt(cfg, device, mesh), generator,
                          {"table": cfg.embed_dim ** -0.5})
 
 
-def from_arrays(cfg: AutoIntConfig, tree, device=None) -> AutoInt:
-    return P.load_arrays(AutoInt(cfg, device), tree)
+def from_arrays(cfg: AutoIntConfig, tree, device=None,
+                mesh=None) -> AutoInt:
+    return P.load_arrays(AutoInt(cfg, device, mesh), tree)
 
 
 to_arrays = P.to_arrays
@@ -87,25 +106,45 @@ def _interact(p, x: torch.Tensor) -> torch.Tensor:
     return torch.relu(out + x @ p.w_res)
 
 
-def forward(cfg: AutoIntConfig, params: AutoInt, batch) -> torch.Tensor:
-    """batch: {cat [B, n_sparse] i32} -> logit [B]."""
-    x = cfg.table().lookup(params.table, batch["cat"])  # [B, F, D]
+def _logit(cfg: AutoIntConfig, params: AutoInt, cat, mesh,
+           rows) -> torch.Tensor:
+    """The logits of the rows of ``cat`` (on ``mesh``: the rank's, cut
+    over ``rows``)."""
+    spec = params.shard_specs["table"] if mesh is not None else None
+    x = cfg.table().lookup(params.table, cat, spec, mesh, rows)  # [B, F, D]
     for p in params.layers:
         x = _interact(p, x)
     B = x.shape[0]
     return (x.reshape(B, -1) @ params.out.w + params.out.b)[:, 0]
 
 
-def loss_fn(cfg: AutoIntConfig, params: AutoInt, batch):
-    logit = forward(cfg, params, batch)
-    loss = E.bce_loss(logit, batch["label"])
+def forward(cfg: AutoIntConfig, params: AutoInt, batch, *, mesh=None
+            ) -> torch.Tensor:
+    """batch: {cat [B, n_sparse] i32} -> logit [B].  On the parameters'
+    mesh the batch is the rank's rows and ``batch["rows"]`` the whole
+    count (``embedding.shard_batch``)."""
+    mesh = P.mesh_of(params, mesh)
+    rows = () if mesh is None else E.batch_axes(mesh, batch, "cat")
+    return _logit(cfg, params, batch["cat"], mesh, rows)
+
+
+def loss_fn(cfg: AutoIntConfig, params: AutoInt, batch, *, mesh=None):
+    mesh = P.mesh_of(params, mesh)
+    rows = () if mesh is None else E.batch_axes(mesh, batch, "cat")
+    logit = _logit(cfg, params, batch["cat"], mesh, rows)
+    loss = E.bce_loss(logit, batch["label"], mesh, rows, batch.get("rows"))
     return loss, {"bce": loss}
 
 
-def retrieval_score(cfg: AutoIntConfig, params: AutoInt,
-                    batch) -> torch.Tensor:
+def retrieval_score(cfg: AutoIntConfig, params: AutoInt, batch, *,
+                    mesh=None) -> torch.Tensor:
+    """On the parameters' mesh the candidates are the rank's, cut by
+    ``CANDIDATES``, and ``batch["rows"]`` their whole count."""
+    mesh = P.mesh_of(params, mesh)
     C = batch["candidates"].shape[0]
     cand = batch["candidates"] % cfg.vocabs[-1]     # hash into the item field
     cat = batch["cat"].expand(C, cfg.n_sparse).clone()
     cat[:, -1] = cand
-    return forward(cfg, params, {"cat": cat})
+    rows = () if mesh is None else E.batch_axes(mesh, batch, "candidates",
+                                                sh.CANDIDATES)
+    return _logit(cfg, params, cat, mesh, rows)

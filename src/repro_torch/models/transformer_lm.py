@@ -52,6 +52,7 @@ from repro_torch import sharding as sh
 from repro_torch.common import DEFAULT_DTYPE, resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as moe_lib
+from repro_torch.models import param_tree
 from repro_torch.sharding import Ax
 
 
@@ -163,9 +164,7 @@ class TransformerLM(nn.Module):
 
     def __init__(self, cfg: LMConfig, device=None, mesh=None):
         super().__init__()
-        if device is None and mesh is not None and mesh.device is not None:
-            device = mesh.device
-        device = resolve_device(device)
+        device = param_tree.device_of(device, mesh)
         # on a mesh: made on meta at full size, then each parameter is
         # replaced by its shard
         at = torch.device("meta") if mesh is not None else device
@@ -470,22 +469,12 @@ def train_specs(cfg: LMConfig, mesh, rows: int, seq: int) -> dict:
 
 def shard_batch(cfg: LMConfig, mesh, batch: dict, n_micro: int = 1
                 ) -> dict:
-    """The rank's share of a whole training batch (tensors [B, ...]) on
-    ``mesh`` for a step of ``n_micro`` micro-batches: micro-batch i is the
-    batch's rows [i B/n, (i+1) B/n), the reference's split of the global
-    batch, of which the rank takes its rows by :func:`train_specs` of a
-    micro-batch; the shares follow each other in micro-batch order, so the
-    step's split of the rank's rows gives each micro-batch's share.
-    ``"rows"`` is B."""
+    """The rank's share of a whole training batch on ``mesh`` for a step
+    of ``n_micro`` micro-batches (``sharding.batch_share``), its rows by
+    :func:`train_specs` of a micro-batch.  ``"rows"`` is B."""
     B, S = batch["tokens"].shape[:2]
-    b = B // n_micro
-    rows = sh.local_slices(train_specs(cfg, mesh, b, S)["tokens"], (b, S),
-                           mesh, mesh.coords)[0]
-    out = {k: torch.cat([v[i * b:(i + 1) * b][rows]
-                         for i in range(n_micro)])
-           for k, v in batch.items()}
-    out["rows"] = B
-    return out
+    return sh.batch_share(batch, train_specs(cfg, mesh, B // n_micro, S)[
+        "tokens"], mesh, n_micro)
 
 
 def _train_axes(cfg: LMConfig, mesh, tokens, rows) -> tuple:
@@ -526,7 +515,7 @@ def forward(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor, *,
     a prefill does, without a cache, and the logits come out as the rank's
     shard [B_l, S, vocab_l] of ``(BATCH, None, VOCAB)``; differentiable
     (``collectives.py``)."""
-    mesh = _mesh_of(lm, mesh)
+    mesh = param_tree.mesh_of(lm, mesh)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     memo = {}          # RoPE tables and masks, made once for all layers
     if mesh is None:
@@ -591,7 +580,7 @@ def loss_fn(cfg: LMConfig, lm: TransformerLM, batch: dict, *,
     reduced over the vocab axes, and ``ce`` is the sum over the batch axes
     over their count of targets.  Every rank's total is the whole batch's
     loss.  ``metrics`` and ``expert_idx`` as in :func:`forward`."""
-    mesh = _mesh_of(lm, mesh)
+    mesh = param_tree.mesh_of(lm, mesh)
     rows = batch.get("rows")
     logits, aux = forward(cfg, lm, batch["tokens"], metrics=metrics,
                           mesh=mesh, rows=rows, expert_idx=expert_idx)
@@ -671,14 +660,12 @@ def init_kv_cache(cfg: LMConfig, batch: int, max_len: int, dtype=None,
     of them, by :func:`cache_spec`, and under "shape" the whole cache's
     shape, from which a pass on the mesh reads its layout."""
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv, cfg.d_head)
+    kw = dict(dtype=dtype or cfg.dtype,
+              device=param_tree.device_of(device, mesh))
     if mesh is not None:
-        if device is None and mesh.device is not None:
-            device = mesh.device
         local = sh.local_shape(cache_spec(cfg, mesh, shape), shape, mesh)
-        kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
         return {"k": torch.zeros(local, **kw), "v": torch.zeros(local, **kw),
                 "shape": shape}
-    kw = dict(dtype=dtype or cfg.dtype, device=resolve_device(device))
     return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw)}
 
 
@@ -705,15 +692,6 @@ def serve_specs(cfg: LMConfig, mesh, batch: int, seq: int,
             (sh.BATCH, "model" if cfg.seq_parallel else None, None),
             (batch, seq, cfg.d_model), mesh, prof),
     }
-
-
-def _mesh_of(lm: TransformerLM, mesh):
-    """The mesh a pass runs on: the one the LM's shards were cut for."""
-    held = getattr(lm, "mesh", None)
-    if mesh is not None and mesh is not held:
-        raise ValueError(f"the LM's parameters are sharded for {held}, "
-                         f"not for {mesh}")
-    return held
 
 
 def _serve_pass_sharded(cfg: LMConfig, lm: TransformerLM, tokens, cache,
@@ -781,7 +759,7 @@ def _serve_pass(cfg: LMConfig, lm: TransformerLM, tokens: torch.Tensor,
     [B * S, k] tensor an MoE layer, the whole batch's even on a mesh) pins
     each layer's routing, as ``moe_apply`` takes it.  On a mesh (the LM's,
     ``mesh`` None or the same) see :func:`_serve_pass_sharded`."""
-    if _mesh_of(lm, mesh) is not None:
+    if param_tree.mesh_of(lm, mesh) is not None:
         if n_rows is not None:
             raise NotImplementedError("n_rows on a mesh")
         return _serve_pass_sharded(cfg, lm, tokens, cache, start_pos,

@@ -226,13 +226,16 @@ def _shape(leaf) -> tuple[int, ...]:
 def _tree_map(fn, tree, other):
     if isinstance(tree, dict):
         return {k: _tree_map(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_tree_map(fn, v, o) for v, o in zip(tree, other)]
     return fn(tree, other)
 
 
 def pspec_tree(shape_tree, logical_tree, mesh, profile):
-    """The :class:`P` of every leaf of ``shape_tree`` (a nest of dicts whose
-    leaves are shapes, or anything with a ``shape``), from the parallel
-    nest ``logical_tree`` of :class:`Ax` leaves."""
+    """The :class:`P` of every leaf of ``shape_tree`` (a nest of dicts and
+    lists whose leaves are shapes, tuples of ints, or anything with a
+    ``shape``), from the parallel nest ``logical_tree`` of :class:`Ax`
+    leaves."""
     return _tree_map(
         lambda a, ax: resolve_spec(ax.names, _shape(a), mesh, profile),
         shape_tree, logical_tree)
@@ -308,3 +311,21 @@ def local_slices(spec: P, shape: Sequence[int], mesh,
         j = shard_index(mesh, axes, coords)
         out.append(slice(j * n, (j + 1) * n))
     return tuple(out)
+
+
+def batch_share(batch: dict, spec: P, mesh, n_micro: int = 1) -> dict:
+    """The rank's share of a whole training batch (tensors [B, ...]) for a
+    step of ``n_micro`` micro-batches: micro-batch i is the batch's rows
+    [i B/n, (i+1) B/n), the reference's split of the global batch, of
+    which the rank takes the rows that ``spec`` (a micro-batch's, its
+    leading dim by the batch's axes) gives it; the shares follow each
+    other in micro-batch order, so the train step's split of the rank's
+    rows gives each micro-batch's share.  The tensors are copied out of
+    the batch; ``"rows"`` is B."""
+    B = next(iter(batch.values())).shape[0]
+    b = B // n_micro
+    rows = local_slices(spec, (b,), mesh, mesh.coords)[0]
+    out = {k: v.reshape(n_micro, b, *v.shape[1:])[:, rows]
+           .reshape(-1, *v.shape[1:]).clone() for k, v in batch.items()}
+    out["rows"] = B
+    return out

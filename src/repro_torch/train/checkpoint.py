@@ -160,11 +160,14 @@ def _write(ckpt_dir: str | Path, step: int, flat: dict) -> Path:
 
 
 def _flat_specs(shardings: Any, prefix: str = "") -> dict[str, sh.P]:
-    """The specs of a tree of them (nested dicts, :class:`sharding.P`
-    leaves) by JAX path ("params/layers/attn/wq")."""
-    if isinstance(shardings, dict):
+    """The specs of a tree of them (nested dicts and lists,
+    :class:`sharding.P` leaves) by JAX path ("params/layers/attn/wq",
+    "params/cross/0/w")."""
+    if isinstance(shardings, (dict, list)):
         out = {}
-        for k, v in shardings.items():
+        items = shardings.items() if isinstance(shardings, dict) else \
+            enumerate(shardings)
+        for k, v in items:
             out.update(_flat_specs(v, f"{prefix}{k}/"))
         return out
     return {prefix[:-1]: sh.P(*shardings)}

@@ -10,13 +10,16 @@ The step updates the state's parameters and moments in place.
 
 On a mesh (parameters that are a rank's shards, ``params.mesh``) the
 batch holds the rank's rows, each micro-batch's share in turn
-(``transformer_lm.shard_batch``: micro-batch i is the global batch's rows
-[i B/n, (i+1) B/n), as the reference splits it), and ``batch["rows"]`` the
-whole batch's row count; each micro-batch's loss is told its own.  Every
-rank's loss is the whole micro-batch's, so each backpropagates 1/(the
-ranks) of it: the collectives' backward sums the ranks' shares
-(``collectives.py``), and the optimizer sums each leaf's gradient over the
-ranks that hold it alike (``optimizer.update``).  The metrics are global.
+(``sharding.batch_share``, under ``transformer_lm.shard_batch`` and
+``recsys/embedding.py::shard_batch``: micro-batch i is the global batch's
+rows [i B/n, (i+1) B/n), as the reference splits it), and
+``batch["rows"]`` the whole batch's row count; each micro-batch's loss
+is told its own.  A GAT step takes its graph whole and cuts it inside
+its loss (no ``"rows"``).  Every rank's loss is the whole micro-batch's,
+so each backpropagates 1/(the ranks) of it: the collectives' backward
+sums the ranks' shares (``collectives.py``), and the optimizer sums each
+leaf's gradient over the ranks that hold it alike (``optimizer.update``).
+The metrics are global.
 """
 from __future__ import annotations
 
@@ -53,7 +56,7 @@ def make_train_step(
         grads, seq = None, []
         for i in range(n_micro):
             mb = {k: v[i] for k, v in micro.items()}
-            if mesh is not None:
+            if rows is not None:
                 mb["rows"] = rows // n_micro
             loss, metrics = loss_fn(params, mb)
             if mesh is not None:

@@ -3,9 +3,10 @@
 olmoe-1b-7b x long_500k at 2 layers on the reference's 16x16 and 2x16x16
 meshes, and the five LMs' train_4k at 2 layers on 2x2 and 16x16, each
 rank's state against the reference's shard shapes on an
-``AbstractMesh``; shape-only at rank 0's coordinates, the bundle on
-``meta``."""
+``AbstractMesh``; a zoo cell built and priced per card; shape-only at
+rank 0's coordinates, the bundle on ``meta``."""
 import dataclasses
+import json
 import math
 
 import jax
@@ -18,7 +19,7 @@ from repro.configs import registry as jregistry
 from repro.models import transformer_lm as JT
 from repro_torch.configs.registry import get_arch
 from repro_torch.launch import dryrun, mesh
-from repro_torch.launch.steps import WaitsForSlice, build_bundle
+from repro_torch.launch.steps import build_bundle
 from repro_torch.models import transformer_lm as TT
 from repro_torch.train import optimizer as opt_lib
 
@@ -86,15 +87,25 @@ def test_bundles_on_a_mesh_carry_the_reference_shardings():
     assert tuple(b.args[2]["k"].shape) == (2, 64, 16384, 2, 128)
     assert build_bundle("qwen2-1.5b", "decode_32k", device="meta",
                         overrides=OVER).in_shardings is None
-    with pytest.raises(WaitsForSlice, match="slice"):
-        build_bundle("dcn-v2", "serve_p99", device="meta", mesh=m)
+    # a zoo cell: the rank's rows of the batch over the data axes, the
+    # table's 33,762,577 rows whole (odd), the MLP's columns over model
+    zoo = build_bundle("dcn-v2", "serve_p99", device="meta", mesh=m)
+    params_sh, batch_sh = zoo.in_shardings
+    assert batch_sh["cat"] == ("data", None) and zoo.out_shardings == \
+        ("data",)
+    assert params_sh["table"] == (None, None)
+    assert params_sh["mlp"][0]["w"] == (None, "model")
+    assert tuple(zoo.args[1]["cat"].shape) == (256, 26)
+    assert zoo.args[1]["rows"] == 512
     with pytest.raises(ValueError, match="shape-only"):
         build_bundle("qwen2-1.5b", "decode_32k", device="cpu", mesh=m,
                      overrides=OVER)
-    # a 1x1 mesh is one card: the zoo's bundles build as without a mesh
+    # a 1x1 mesh holds every argument whole, all specs replicated
     one = build_bundle("dcn-v2", "serve_p99", device="meta",
                        mesh=mesh.make_host_mesh())
-    assert one.in_shardings is None and torch.is_tensor(one.args[1]["cat"])
+    assert set(one.in_shardings[1].values()) == {("data", None)} and \
+        torch.is_tensor(one.args[1]["cat"]) and \
+        tuple(one.args[1]["cat"].shape) == (512, 26)
 
 
 def test_main_prices_the_production_meshes(tmp_path, capsys):
@@ -107,7 +118,12 @@ def test_main_prices_the_production_meshes(tmp_path, capsys):
     dryrun.main(["--arch", "dcn-v2", "--shape", "serve_p99", "--multi-pod",
                  "--out", str(tmp_path)])
     out = capsys.readouterr().out
-    assert "SKIPPED dcn-v2__serve_p99__mp" in out and "DRY-RUN PASS" in out
+    assert "SKIPPED" not in out and "DRY-RUN PASS" in out
+    rec = json.loads(
+        (tmp_path / "dcn-v2__serve_p99__mp.json").read_text())
+    # 512 rows over pod x data: 16 a card, the MLP's columns over model
+    assert rec["mesh"] == "2x16x16" and rec["n_chips"] == 512
+    assert rec["collectives"] and rec["collective_bytes_per_chip"] > 0
 
 
 @pytest.mark.parametrize("S,T,chunk", [(7, 7, 0), (7, 9, 0), (9, 7, 3),

@@ -363,6 +363,18 @@ def test_analyze_memory_counts_each_storage_once():
     assert inplace["memory"]["temp_bytes"] == 0
 
 
+def test_analyze_prices_log_sigmoid_as_the_card_allocates():
+    """``log_sigmoid_forward`` returns a buffer as large as its input on
+    the CPU and on ``meta`` and an empty one on the card: the memory count
+    follows its output alone, so DIEN's aux loss is priced as the card
+    holds it."""
+    x = torch.empty(1000, device="meta", requires_grad=True)
+    soft = op_cost.analyze(lambda x: torch.nn.functional.logsigmoid(x),
+                           x)["memory"]
+    sig = op_cost.analyze(lambda x: torch.sigmoid(x), x)["memory"]
+    assert soft == sig and soft["output_bytes"] == 4000
+
+
 # ---------------------------------------------------------------------------
 # the card's constants, the dry run's driver and the pipeline dry run
 # ---------------------------------------------------------------------------

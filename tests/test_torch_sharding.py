@@ -6,27 +6,38 @@ LMs at full width, under all six profiles, on the meshes (16, 16), (2, 16,
 16), (1, 4), (2, 2) and (4, 1): the port's ``resolve_spec`` (through
 ``transformer_lm.param_specs`` and ``serve_specs``) equals the
 reference's, run on a ``jax.sharding.AbstractMesh`` (no devices), and so
-does ``zero1_spec``.  Specs are compared as tuples of entries."""
+does ``zero1_spec``.  The model zoo's five archs, full and reduced, on
+(2, 2), (16, 16) and (2, 16, 16) under the ``tp`` profile: every
+parameter's spec, its moments' ZeRO-1 spec, and at full width every
+cell's ``build_bundle(..., device="meta", mesh=)`` in and out shardings
+against the reference's ``build_bundle`` on the ``AbstractMesh``.  Specs
+are compared as tuples of entries."""
 import dataclasses
 import itertools
 
 import jax
 import pytest
 import torch
-from jax.sharding import AbstractMesh, AxisType
+from jax.sharding import AbstractMesh, AxisType, NamedSharding, \
+    PartitionSpec
 
 from repro import sharding as jsh
 from repro.configs import registry as jregistry
+from repro.launch import steps as jsteps
 from repro.models import transformer_lm as JT
 from repro_torch import collectives as C
 from repro_torch import sharding as tsh
 from repro_torch.configs import registry as tregistry
 from repro_torch.configs.shapes import LM_SHAPES
 from repro_torch.launch import mesh as tmesh
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import param_tree
 from repro_torch.models import transformer_lm as TT
+from repro_torch.train import optimizer as opt_lib
 
 LMS = ["qwen2-1.5b", "glm4-9b", "internlm2-1.8b", "olmoe-1b-7b",
        "llama4-scout-17b-a16e"]
+ZOO = ["dcn-v2", "autoint", "dien", "mind", "gat-cora"]
 MESHES = {"16x16": ((16, 16), ("data", "model")),
           "2x16x16": ((2, 16, 16), ("pod", "data", "model")),
           "1x4": ((1, 4), ("data", "model")),
@@ -218,3 +229,107 @@ def test_kv_heads_for_a_rank_of_q_heads(n_q, n_kv, m):
             want = (r * n + i) // (n_q // n_kv)
             assert torch.equal(kl[:, :, i // g], k[:, :, want])
             assert torch.equal(vl[:, :, i // g], v[:, :, want])
+
+
+def spec_leaves(tree, prefix="") -> dict:
+    """path -> entries (trailing Nones dropped) of every spec in a nest of
+    dicts, lists and tuples: the port's ``P``, the reference's
+    ``PartitionSpec`` or ``NamedSharding``."""
+    if isinstance(tree, NamedSharding):
+        tree = tree.spec
+    if isinstance(tree, (tsh.P, PartitionSpec)):
+        e = list(tree)
+        while e and e[-1] is None:
+            e.pop()
+        return {prefix: tuple(e)}
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    out = {}
+    for k, v in items:
+        out.update(spec_leaves(v, f"{prefix}{k}/"))
+    return out
+
+
+def _zoo_cfgs(arch_id, size):
+    ja, ta = jregistry.get_arch(arch_id), tregistry.get_arch(arch_id)
+    if size == "full":
+        return ja.model_cfg(), ta.model_cfg()
+    return ja.reduced()[0], ta.reduced()[0]
+
+
+@pytest.mark.parametrize("size", ["full", "reduced"])
+@pytest.mark.parametrize("mesh_name", ["2x2", "16x16", "2x16x16"])
+@pytest.mark.parametrize("arch_id", ZOO)
+def test_zoo_specs_match_reference(arch_id, mesh_name, size):
+    """Every zoo parameter's spec (the tree built on the mesh, and
+    ``param_tree.state_specs``) and its moments' (``mesh_layout``, and the
+    moment shards ``optimizer.init`` makes) against the reference's
+    ``pspec_tree`` and ``zero1_spec`` under ``tp``; at full width every
+    cell's bundle's in and out shardings against the reference's
+    ``build_bundle``."""
+    jcfg, tcfg = _zoo_cfgs(arch_id, size)
+    jmod = jregistry.get_arch(arch_id).module
+    tmod = tregistry.get_arch(arch_id).module
+    jm, tm = ref_mesh(mesh_name), port_mesh(mesh_name)
+    abstract = jax.eval_shape(lambda: jmod.init_params(jcfg,
+                                                       jax.random.key(0)))
+    jspecs = jsh.pspec_tree(abstract, jmod.param_logical(jcfg), jm,
+                            jsh.PROFILES["tp"](jm))
+    want = spec_leaves(jspecs)
+    shapes = {p: a.shape for p, a in zip(want, jax.tree.leaves(abstract))}
+    want_m = {p: spec_leaves(jsh.zero1_spec(s, shapes[p], jm))[""]
+              for p, s in zip(want, jax.tree.leaves(
+                  jspecs, is_leaf=lambda x: isinstance(x, PartitionSpec)))}
+    tree = getattr(tmod, tsteps._CLASS[tmod.__name__.rsplit(".", 1)[-1]])(
+        tcfg, "meta", mesh=tm)
+    layout = opt_lib.mesh_layout(tree)
+    moments = opt_lib.init(tree)["m"]
+    got, got_m = {}, {}
+    for name, p in tree.named_parameters():
+        path = name.replace(".", "/") + "/"
+        got[path] = spec_leaves(param_tree.leaf_spec(tree, name))[""]
+        got_m[path] = spec_leaves(layout[name].mspec)[""]
+        assert tuple(moments[name].shape) == tsh.local_shape(
+            layout[name].mspec, shapes[path], tm), name
+    assert got == want and got_m == want_m
+    st = param_tree.state_specs(tmod, tcfg, tm)
+    assert spec_leaves(st["params"]) == want
+    assert spec_leaves(st["opt"]["m"]) == want_m
+    if size == "reduced":
+        return
+    for shape in sorted(tregistry.get_arch(arch_id).shapes):
+        jb = jsteps.build_bundle(arch_id, shape, jm)
+        tb = tsteps.build_bundle(arch_id, shape, device="meta", mesh=tm)
+        assert spec_leaves(tb.in_shardings) == spec_leaves(jb.in_shardings), \
+            shape
+        assert spec_leaves(tb.out_shardings) == \
+            spec_leaves(jb.out_shardings), shape
+
+
+def test_zoo_known_layouts():
+    """The zoo's layouts on 2x2 at full width: the odd tables (DCN-v2's
+    33,762,577 rows, AutoInt's 33,775,577, DIEN's 63,001 and 801)
+    replicated, MIND's 100,000 over model; the MLP towers' columns over
+    model, DCN-v2's out rows over model; AutoInt and GAT replicated.  At
+    the reduced sizes the tables' rows are cut (AutoInt's 1,950 over 2,
+    not 4)."""
+    P = tsh.P
+
+    def specs(arch_id, mesh_name, size="full"):
+        cfg = _zoo_cfgs(arch_id, size)[1]
+        return param_tree.param_specs(tregistry.get_arch(arch_id).module,
+                                      cfg, port_mesh(mesh_name))
+
+    dcn = specs("dcn-v2", "2x2")
+    assert dcn["table"] == P(None, None)
+    assert [m["w"] for m in dcn["mlp"]] == [P(None, "model")] * 3
+    assert dcn["out"]["w"] == P("model", None)
+    dien = specs("dien", "2x2")
+    assert dien["item_table"] == dien["cate_table"] == P(None, None)
+    assert dien["mlp"][0]["b"] == P("model") and \
+        dien["out"]["w"] == P(None, None)
+    assert specs("mind", "2x2")["item_table"] == P("model", None)
+    assert set(spec_leaves(specs("autoint", "2x2")).values()) == {()}
+    assert set(spec_leaves(specs("gat-cora", "16x16")).values()) == {()}
+    assert specs("dcn-v2", "1x4", "reduced")["table"] == P("model", None)
+    assert specs("autoint", "2x2", "reduced")["table"] == P("model", None)
+    assert specs("autoint", "1x4", "reduced")["table"] == P(None, None)
