@@ -18,6 +18,15 @@ ended by the backend's barrier (``torch.cuda.synchronize()`` on a CUDA
 backend).  ``compile_ms`` is the cold pass's excess, ``mrt_shared_ms``
 splits each stage over the pipelines sharing it.  The sequential path's ``mrt_ms`` is one
 synchronised run of the whole pipeline after a warm-up run, per query.
+Without ``measure_time`` the plan runs once, asynchronously, with no
+barrier between stages, and its ``stage_table`` holds no times
+(``cold_ms`` and ``steady_ms`` are None).
+
+Spans (``repro_torch.obs.tracing``): ``experiment.call`` around the whole
+call, ``experiment.wait`` around the planned path's wait for the device to
+finish the results, and ``experiment.measures`` around each pipeline's
+evaluation; in the process-global tracer where the backend's descriptor
+opts in, and in a recording ``torch.profiler`` always.
 """
 from __future__ import annotations
 
@@ -30,6 +39,7 @@ from repro_torch.core.compiler import Context, TorchBackend, run_pipeline
 from repro_torch.core.passes import compile_pipeline
 from repro_torch.core.plan import ArtifactCache, ExperimentPlan
 from repro_torch.core.transformer import Transformer
+from repro_torch.obs.tracing import tracer_for
 
 
 def Experiment(pipelines: Sequence[Transformer], topics, qrels,
@@ -40,23 +50,35 @@ def Experiment(pipelines: Sequence[Transformer], topics, qrels,
                artifact_cache: ArtifactCache | str | Path | None = None) -> dict:
     """Returns {"table": [row dicts], "results": [R per pipeline]}; planned
     runs also carry "plan" (the ExperimentPlan) and "stage_table"
-    (per-stage timing/sharing attribution)."""
+    (per-stage sharing attribution, and timing with ``measure_time``:
+    otherwise its ``cold_ms`` and ``steady_ms`` are None)."""
     names = list(names) if names else [repr(p)[:60] for p in pipelines]
     if isinstance(artifact_cache, (str, Path)):
         artifact_cache = ArtifactCache(artifact_cache)
-    if plan:
-        return _experiment_planned(pipelines, topics, qrels, metrics,
-                                   backend, names, optimize, measure_time,
-                                   artifact_cache)
-    return _experiment_sequential(pipelines, topics, qrels, metrics, backend,
-                                  names, optimize, measure_time, share_cache)
+    tracer = tracer_for(backend.descriptor)
+    with tracer.span("experiment.call", "experiment",
+                     n_pipelines=len(names), planned=plan):
+        if plan:
+            return _experiment_planned(pipelines, topics, qrels, metrics,
+                                       backend, names, optimize,
+                                       measure_time, artifact_cache, tracer)
+        return _experiment_sequential(pipelines, topics, qrels, metrics,
+                                      backend, names, optimize, measure_time,
+                                      share_cache, tracer)
+
+
+def _measures(tracer, name, R, qrels, metrics) -> dict:
+    """The evaluation row of one pipeline's results."""
+    with tracer.span("experiment.measures", "experiment", pipeline=name):
+        return {"name": name, **M.compute_measures(R, qrels, list(metrics))}
 
 
 def _experiment_planned(pipelines, topics, qrels, metrics, backend, names,
-                        optimize, measure_time, cache) -> dict:
+                        optimize, measure_time, cache, tracer) -> dict:
     eplan = ExperimentPlan(pipelines, backend, optimize=optimize)
+    # stages end in a barrier only where they are timed (or persisted)
     results = eplan.execute(topics, ctx=Context(backend), cache=cache,
-                            record="cold")
+                            record="cold" if measure_time else None)
     if measure_time:
         if cache is not None and cache.hits:
             # artifacts served from disk mean the cold pass ran nothing —
@@ -66,10 +88,15 @@ def _experiment_planned(pipelines, topics, qrels, metrics, backend, names,
         # steady-state pass: fresh memo, first-call costs paid.  No artifact
         # cache here — MRT must measure execution, not disk reads.
         results = eplan.execute(topics, ctx=Context(backend), record="warm")
+    # the evaluation copies the results to the host, which waits for the
+    # device anyway: wait here, so that experiment.measures times the
+    # evaluation alone
+    with tracer.span("experiment.wait", "experiment"):
+        backend.barrier(results)
     nq = int(topics["qid"].shape[0])
     rows = []
     for i, (name, R) in enumerate(zip(names, results)):
-        row = {"name": name, **M.compute_measures(R, qrels, list(metrics))}
+        row = _measures(tracer, name, R, qrels, metrics)
         if measure_time:
             t = eplan.pipeline_times(i)
             row["mrt_ms"] = 1000.0 * t["steady_s"] / nq
@@ -81,7 +108,8 @@ def _experiment_planned(pipelines, topics, qrels, metrics, backend, names,
 
 
 def _experiment_sequential(pipelines, topics, qrels, metrics, backend, names,
-                           optimize, measure_time, share_cache) -> dict:
+                           optimize, measure_time, share_cache,
+                           tracer) -> dict:
     """The pre-planner path (``plan=False``)."""
     sync = backend.barrier
     shared = Context(backend)
@@ -99,7 +127,7 @@ def _experiment_sequential(pipelines, topics, qrels, metrics, backend, names,
                          ctx=shared if share_cache else Context(backend))
         sync()
         elapsed = time.perf_counter() - t0
-        row = {"name": name, **M.compute_measures(R, qrels, list(metrics))}
+        row = _measures(tracer, name, R, qrels, metrics)
         if measure_time:
             row["mrt_ms"] = 1000.0 * elapsed / int(R["qid"].shape[0])
         rows.append(row)

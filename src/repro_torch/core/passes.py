@@ -52,7 +52,7 @@ from repro_torch.core.descriptor import BackendDescriptor, as_descriptor
 from repro_torch.core.ir import Op, Schema, SchemaError, leaf, lower, pretty
 from repro_torch.core.transformer import Transformer
 from repro_torch.obs.metrics import CounterMap, MetricsRegistry
-from repro_torch.obs.tracing import NOOP_TRACER, get_tracer
+from repro_torch.obs.tracing import tracer_for
 
 #: query-term width of the gate's probes, for estimates and measurements
 #: alike (only cost *ratios* decide, and they are monotone in the query
@@ -232,10 +232,9 @@ class PassContext:
         #: per-compile metrics registry; the compile report reads the gate
         #: counts through it
         self.metrics = MetricsRegistry()
-        #: spans route to the process-global tracer only when the
-        #: descriptor opted in — the default is the shared no-op
-        self.tracer = (get_tracer() if self.descriptor.observability
-                       else NOOP_TRACER)
+        #: spans are recorded by the process-global tracer only when the
+        #: descriptor opted in; otherwise they reach a recording profiler
+        self.tracer = tracer_for(self.descriptor)
         #: fusion-gate decisions and how many fused (``report["gate"]``)
         self.gate = CounterMap(
             self.metrics.counter(

@@ -45,7 +45,7 @@ from repro_torch.core.compiler import (Context, TorchBackend, _execute,
                                        derive_token)
 from repro_torch.core.passes import compile_pipeline
 from repro_torch.core.transformer import Transformer
-from repro_torch.obs.tracing import NOOP_TRACER, get_tracer
+from repro_torch.obs.tracing import tracer_for
 
 
 # ---------------------------------------------------------------------------
@@ -272,6 +272,13 @@ class ExperimentPlan:
                  *, optimize: bool = True):
         self.backend = backend
         self.pipelines = list(pipelines)
+        # the compile passes and the trie, rebuilt on every Experiment call
+        with tracer_for(backend.descriptor).span(
+                "plan.build", "plan", n_pipelines=len(self.pipelines)):
+            self._build(optimize)
+
+    def _build(self, optimize: bool) -> None:
+        backend = self.backend
         #: per-pipeline rewrite traces [(rule, before_op, after_op), ...]
         self.traces: list[list] = [[] for _ in self.pipelines]
         #: one CSE interning table across all pipelines: shared prefixes
@@ -330,9 +337,7 @@ class ExperimentPlan:
                 cache: ArtifactCache | None = None,
                 record: str | None = "cold") -> list:
         ctx = ctx or Context(self.backend)
-        desc = getattr(self.backend, "descriptor", None)
-        tracer = (get_tracer() if getattr(desc, "observability", False)
-                  else NOOP_TRACER)
+        tracer = tracer_for(getattr(self.backend, "descriptor", None))
         device = self.backend.device
         qtok = ctx.source_token(Q, None)
         idx_dig = backend_digest(self.backend) if cache is not None else None
@@ -415,7 +420,10 @@ class ExperimentPlan:
                 "amortised_s": amortised}
 
     def stage_stats(self) -> list[dict]:
-        """Per-trie-node report (one row per *executed* stage)."""
+        """Per-trie-node report (one row per *executed* stage).  A stage
+        that no pass timed (``execute(record=None)``, as an Experiment
+        without ``measure_time`` runs) has ``cold_ms`` and ``steady_ms``
+        None."""
         rows = []
         for n in sorted(self.nodes(), key=lambda n: (n.depth, n.label())):
             warm = n.warm_s if n.warm_s is not None else n.cold_s

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.core.transformer import Transformer
 from repro_torch.index import retrieve as RT
+from repro_torch.obs.tracing import tracer_for
 
 
 # ---------------------------------------------------------------------------
@@ -585,7 +586,9 @@ class Generate(Transformer):
     chunk's real prompts (not the rows that pad it to its bucket), where
     the JAX package's Generate routes all NQ prompts in one call, so the
     two agree where the chunk holds every query, and the reference run
-    chunk by chunk otherwise (ROADMAP §3)."""
+    chunk by chunk otherwise (ROADMAP §3).  Spans: ``generate.assemble``
+    around the prompts, ``generate.lm`` around the LM (on the card, the
+    replays of the captured prefill-and-decode graphs)."""
     kind = "generate"
     out_kind = "A"
     reads_results = True
@@ -619,6 +622,7 @@ class Generate(Transformer):
     def execute(self, ctx, Q, R):
         assert R is not None, "Generate needs retrieved results"
         be = ctx.backend
+        tracer = tracer_for(be.descriptor)
         cfg, lm = be.lm(self.params["model"])
         gen = greedy_generate_fn(
             cfg, max_prompt_len=self.params["max_prompt_len"],
@@ -628,14 +632,19 @@ class Generate(Transformer):
             # the prefill and every decode step on the home card, where
             # the prompts are gathered and the LM lies
             from repro_torch.core.engine import StageProgram
-            prompts = self.assemble(ctx, Q, R)
+            with tracer.span("generate.assemble", "generate"):
+                prompts = self.assemble(ctx, Q, R)
             prog = StageProgram(key=(be.uid, self.key(), "generate"), fn=gen)
-            tokens = be.engine.run_pinned_chunks(prog, prompts, lm)
+            with tracer.span("generate.lm", "generate"):
+                tokens = be.engine.run_pinned_chunks(prog, prompts, lm)
         else:
             assemble = self._assembler(be)
 
             def run(rep, terms, weights, docids):
-                return gen(lm, assemble(rep, terms, weights, docids))
+                with tracer.span("generate.assemble", "generate"):
+                    prompts = assemble(rep, terms, weights, docids)
+                with tracer.span("generate.lm", "generate"):
+                    return gen(lm, prompts)
 
             tokens = be.map_query_chunks(run, Q, R["docids"])
         return Q, {"qid": Q["qid"], "docids": R["docids"],

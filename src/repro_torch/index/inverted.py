@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.common import resolve_device
 from repro_torch.index.corpus import Corpus
+from repro_torch.obs.tracing import NOOP_TRACER
 
 BLOCK = 128
 
@@ -186,15 +187,17 @@ def gather_postings(index: InvertedIndex, terms: torch.Tensor,
 
     Returns dict with [NQ, MAXQ, max_postings] doc_ids/tfs/mask and
     per-term df/cf [NQ, MAXQ].  Masked postings point at doc 0 with tf 0.
+    A ``sparse.gather`` span (a profiler range while one records).
     """
-    t = terms.clamp(min=0).long()
-    start = index.term_start[t]
-    length = index.term_start[t + 1] - start
-    ar = torch.arange(max_postings, device=terms.device)
-    in_range = (ar < length[..., None]) & (terms >= 0)[..., None]
-    pos = (start[..., None] + ar).clamp(max=index.doc_ids.shape[0] - 1)
-    docs = torch.where(in_range, index.doc_ids[pos], -1)
-    tf = torch.where(in_range, index.tfs[pos], 0)
-    mask = in_range & (docs >= 0)
-    return {"doc_ids": docs.clamp(min=0), "tfs": tf, "mask": mask,
-            "df": index.df[t], "cf": index.cf[t]}
+    with NOOP_TRACER.span("sparse.gather", "sparse"):
+        t = terms.clamp(min=0).long()
+        start = index.term_start[t]
+        length = index.term_start[t + 1] - start
+        ar = torch.arange(max_postings, device=terms.device)
+        in_range = (ar < length[..., None]) & (terms >= 0)[..., None]
+        pos = (start[..., None] + ar).clamp(max=index.doc_ids.shape[0] - 1)
+        docs = torch.where(in_range, index.doc_ids[pos], -1)
+        tf = torch.where(in_range, index.tfs[pos], 0)
+        mask = in_range & (docs >= 0)
+        return {"doc_ids": docs.clamp(min=0), "tfs": tf, "mask": mask,
+                "df": index.df[t], "cf": index.cf[t]}

@@ -36,6 +36,12 @@ nothing), because tens of thousands of atomic adds on one address per
 slot serialise on the card.
 Every top-k follows the ``lax.top_k`` rule (descending, ties to the lowest
 index) and every sort is stable, as ``jnp.argsort`` is.
+
+Spans: ``sparse.gather`` (``gather_postings``), ``sparse.score`` (the
+weighting-model pass, ``score_all``, ``fused_scoring``), ``sparse.scatter``
+(``_scatter_slots``) and ``sparse.topk`` (every top-k cut).  The operators
+run with no backend at hand, so their spans reach a recording
+``torch.profiler`` alone, never the tracer's records.
 """
 from __future__ import annotations
 
@@ -44,6 +50,7 @@ import torch
 from repro_torch.common import cdiv, topk
 from repro_torch.index import scoring
 from repro_torch.index.inverted import BLOCK, InvertedIndex, gather_postings
+from repro_torch.obs.tracing import NOOP_TRACER
 
 
 def _scatter_slots(n_docs: int, post: dict,
@@ -57,24 +64,27 @@ def _scatter_slots(n_docs: int, post: dict,
     NQ, MAXQ, L = doc_ids.shape
     tail = contrib.shape[3:]
     width = n_docs + L
-    dense = torch.zeros((NQ * width, *tail), dtype=torch.float32,
-                        device=contrib.device)
-    ar = torch.arange(L, device=doc_ids.device)
-    col = torch.where(mask, doc_ids.long(), n_docs + ar)
-    idx = col + (torch.arange(NQ, device=doc_ids.device) * width)[:, None, None]
-    for j in range(MAXQ):
-        dense.index_add_(0, idx[:, j].reshape(-1),
-                         contrib[:, j].reshape(NQ * L, *tail))
-    return dense.reshape(NQ, width, *tail)[:, :n_docs]
+    with NOOP_TRACER.span("sparse.scatter", "sparse"):
+        dense = torch.zeros((NQ * width, *tail), dtype=torch.float32,
+                            device=contrib.device)
+        ar = torch.arange(L, device=doc_ids.device)
+        col = torch.where(mask, doc_ids.long(), n_docs + ar)
+        idx = col + (torch.arange(NQ, device=doc_ids.device)
+                     * width)[:, None, None]
+        for j in range(MAXQ):
+            dense.index_add_(0, idx[:, j].reshape(-1),
+                             contrib[:, j].reshape(NQ * L, *tail))
+        return dense.reshape(NQ, width, *tail)[:, :n_docs]
 
 
 def _posting_scores(index, post, weights, model):
     """Per-posting weighted scores [NQ, MAXQ, L] for one weighting model."""
-    dl = index.doc_len[post["doc_ids"]]
-    s = scoring.WEIGHTING_MODELS[model](
-        post["tfs"], dl, post["df"][..., None], post["cf"][..., None],
-        index.stats)
-    return s * weights[..., None] * post["mask"]
+    with NOOP_TRACER.span("sparse.score", "sparse"):
+        dl = index.doc_len[post["doc_ids"]]
+        s = scoring.WEIGHTING_MODELS[model](
+            post["tfs"], dl, post["df"][..., None], post["cf"][..., None],
+            index.stats)
+        return s * weights[..., None] * post["mask"]
 
 
 def score_exhaustive(index: InvertedIndex, terms, weights, *,
@@ -89,7 +99,8 @@ def retrieve_topk(index: InvertedIndex, terms, weights, *, model: str,
                   k: int, max_postings: int):
     scores = score_exhaustive(index, terms, weights, model=model,
                               max_postings=max_postings)
-    top_s, top_d = topk(scores, k)
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        top_s, top_d = topk(scores, k)
     return top_d.to(torch.int32), top_s
 
 
@@ -121,7 +132,8 @@ def _aggregate_sparse(doc_ids, scores, k):
     agg.index_put_((rows, seg), s, accumulate=True)
     rep = torch.where(first, torch.gather(agg, 1, seg), -torch.inf)
     rep = torch.where(d >= 0, rep, -torch.inf)     # drop padding docs
-    top_s, idx = topk(rep, k)
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        top_s, idx = topk(rep, k)
     return torch.gather(d, 1, idx).to(torch.int32), top_s
 
 
@@ -151,7 +163,8 @@ def retrieve_pruned(index: InvertedIndex, terms, weights, *, model: str,
     ub = torch.where(blk_valid, ub * weights[..., None], -torch.inf)
 
     flat_ub = ub.reshape(NQ, -1)
-    sel_ub, sel = topk(flat_ub, n_blocks)                # block selection
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        sel_ub, sel = topk(flat_ub, n_blocks)            # block selection
     sel_term = sel // mbt                                # term giving df/cf
     sel_blk = torch.gather(blk_idx.reshape(NQ, -1), 1, sel)
     sel_valid = torch.isfinite(sel_ub)
@@ -176,11 +189,12 @@ def retrieve_pruned(index: InvertedIndex, terms, weights, *, model: str,
 def _fat_topk(dense: torch.Tensor, k: int):
     """dense [NQ, n_docs, F] -> (docids [NQ, k], scores, features
     [NQ, k, F-1]) cut on column 0."""
-    top_s, top_d = topk(dense[..., 0], k)
-    feats = torch.gather(
-        dense[..., 1:], 1,
-        top_d[..., None].expand(-1, -1, dense.shape[-1] - 1))
-    return top_d.to(torch.int32), top_s, feats
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        top_s, top_d = topk(dense[..., 0], k)
+        feats = torch.gather(
+            dense[..., 1:], 1,
+            top_d[..., None].expand(-1, -1, dense.shape[-1] - 1))
+        return top_d.to(torch.int32), top_s, feats
 
 
 def retrieve_fat(index: InvertedIndex, terms, weights, *, rank_model: str,
@@ -189,13 +203,14 @@ def retrieve_fat(index: InvertedIndex, terms, weights, *, rank_model: str,
     ``feature_models`` scores for the candidates.  Returns (docids [NQ, k],
     scores [NQ, k], features [NQ, k, F])."""
     post = gather_postings(index, terms, max_postings)
-    dl = index.doc_len[post["doc_ids"]]
     models = (rank_model,) + tuple(feature_models)
-    all_s = scoring.score_all(models, post["tfs"], dl,
-                              post["df"][..., None], post["cf"][..., None],
-                              index.stats)
-    all_s = all_s * (weights[..., None, None] *
-                     post["mask"][..., None].to(torch.float32))
+    with NOOP_TRACER.span("sparse.score", "sparse"):
+        dl = index.doc_len[post["doc_ids"]]
+        all_s = scoring.score_all(models, post["tfs"], dl,
+                                  post["df"][..., None],
+                                  post["cf"][..., None], index.stats)
+        all_s = all_s * (weights[..., None, None] *
+                         post["mask"][..., None].to(torch.float32))
     return _fat_topk(_scatter_slots(index.n_docs, post, all_s), k)
 
 
@@ -206,16 +221,19 @@ def retrieve_multi(index: InvertedIndex, terms, weights, model_weights, *,
     ``model_weights`` [F] contracts the per-model scores of each posting
     before the per-slot scatter, as an elementwise product and a sum over
     the F models (as a matrix-vector product with F = 2 it took the most
-    device time of the fusion path, ``benchmarks/torch_rq_profile.py``).
+    device time of the fusion path in a profile on the H100).
     Returns (docids [NQ, k], scores)."""
     post = gather_postings(index, terms, max_postings)
-    dl = index.doc_len[post["doc_ids"]]
-    all_s = scoring.score_all(models, post["tfs"], dl,
-                              post["df"][..., None], post["cf"][..., None],
-                              index.stats)
-    s = (all_s * model_weights).sum(-1)
-    s = s * weights[..., None] * post["mask"]
-    top_s, top_d = topk(_scatter_slots(index.n_docs, post, s), k)
+    with NOOP_TRACER.span("sparse.score", "sparse"):
+        dl = index.doc_len[post["doc_ids"]]
+        all_s = scoring.score_all(models, post["tfs"], dl,
+                                  post["df"][..., None],
+                                  post["cf"][..., None], index.stats)
+        s = (all_s * model_weights).sum(-1)
+        s = s * weights[..., None] * post["mask"]
+    dense = _scatter_slots(index.n_docs, post, s)
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        top_s, top_d = topk(dense, k)
     return top_d.to(torch.int32), top_s
 
 
@@ -231,7 +249,8 @@ def retrieve_topk_fused(index: InvertedIndex, terms, weights, *, model: str,
     from repro_torch.kernels.topk.ops import streaming_topk
     scores = score_exhaustive(index, terms, weights, model=model,
                               max_postings=max_postings)
-    vals, idxs = streaming_topk(scores, k=k)
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        vals, idxs = streaming_topk(scores, k=k)
     return idxs, vals
 
 
@@ -243,13 +262,14 @@ def retrieve_fat_fused(index: InvertedIndex, terms, weights, *,
     over the postings (``kernels/fused_scoring``), candidates cut to K."""
     from repro_torch.kernels.fused_scoring.ops import fused_scoring
     post = gather_postings(index, terms, max_postings)
-    dl = index.doc_len[post["doc_ids"]]
     models = (rank_model,) + tuple(feature_models)
-    all_s = fused_scoring(post["tfs"], dl, post["df"][..., None],
-                          post["cf"][..., None], models=models,
-                          stats=index.stats)
-    all_s = all_s * (weights[..., None, None] *
-                     post["mask"][..., None].to(torch.float32))
+    with NOOP_TRACER.span("sparse.score", "sparse"):
+        dl = index.doc_len[post["doc_ids"]]
+        all_s = fused_scoring(post["tfs"], dl, post["df"][..., None],
+                              post["cf"][..., None], models=models,
+                              stats=index.stats)
+        all_s = all_s * (weights[..., None, None] *
+                         post["mask"][..., None].to(torch.float32))
     return _fat_topk(_scatter_slots(index.n_docs, post, all_s), k)
 
 
@@ -424,7 +444,8 @@ def rm3_expand(index: InvertedIndex, terms, weights, docids, scores, *,
         torch.gather(terms, 1, last0.clamp(min=0)[:, None])[:, 0] == 0)
     rm = torch.where(zero[:, :V], 0.0, rm)
 
-    exp_w, exp_t = topk(rm, fb_terms)
+    with NOOP_TRACER.span("sparse.topk", "sparse"):
+        exp_w, exp_t = topk(rm, fb_terms)
     exp_w = exp_w / exp_w.sum(1, keepdim=True).clamp(min=1e-9)
 
     n_orig = real.sum(1)

@@ -1,4 +1,17 @@
-"""Structured span tracing with Chrome trace-event export.
+"""Structured span tracing with Chrome trace-event export, mirrored into
+``torch.profiler``.
+
+Two sinks share one span API.  The in-memory records: an enabled
+:class:`Tracer` keeps each span and event (the instrumentation sites route
+to the process-global tracer only where the backend's descriptor opts in,
+:func:`tracer_for`).  The profiler: while a ``torch.profiler`` is
+recording, every context-manager span (:meth:`Tracer.span`) is also a
+profiler range of the same name, whether or not the tracer is enabled, so
+a profile of any call shows the program's layers on the device timeline.
+``begin()`` spans (which may end on another thread), ``add_span`` and
+``event`` (retrospective) are not mirrored.  The ranges are torch's
+function-scope record functions: host ranges only, with no copy on the
+device's rows.
 
 Spans carry explicit ``span_id``/``parent_id`` links — nesting is a
 property of the data, not of wall-clock containment — so spans recorded
@@ -14,13 +27,18 @@ Parenting rules:
     serving thread) attach their children.
   * ``add_span``/``event`` never touch the thread-local stack.
 
-Clocks: every timestamp is ``time.monotonic()`` relative to the
-tracer's epoch.  No wall-clock is recorded, so traces from restarted
-processes never interleave misleadingly (Perfetto renders relative
-time anyway).
+Clocks: a record's times are ``time.monotonic()`` relative to the
+tracer's epoch.  :attr:`Tracer.clock_offset_ns` is the offset of the
+profiler's clock from ``time.monotonic()``, read anew at each use (the
+realtime clock is slewed against the monotonic one over a long-lived
+tracer's life), and :meth:`Tracer.export_chrome` writes ``ts`` on the
+profiler's clock, so a tracer export and a ``prof.export_chrome_trace``
+file merge into one timeline.  A mirrored span's record lies inside its
+profiler range.
 
-The disabled path is one attribute check returning shared no-op
-singletons; a disabled tracer allocates nothing per call.
+With no profiler recording, the disabled path is one flag check
+returning the shared no-op span; a disabled tracer allocates nothing per
+call.
 """
 from __future__ import annotations
 
@@ -28,6 +46,24 @@ import itertools
 import json
 import threading
 import time
+
+import torch
+
+#: whether a ``torch.profiler`` is recording on this thread
+_profiling = torch._C._autograd._profiler_enabled
+#: a host range of the profiler: the function-scope record function (no
+#: copy on the device's rows, which would read as device work)
+_Range = torch._C._profiler._RecordFunctionFast
+
+
+def _profiler_clock_offset_ns() -> int:
+    """The profiler's clock less ``time.monotonic_ns()``.  The profiler
+    stamps its host events in Unix time (its approximate clock, converted
+    at the end of the profile over the profile's whole span);
+    ``tests/test_torch_obs.py`` holds the tracer's records to its ranges."""
+    m0 = time.monotonic_ns()
+    now = time.time_ns()
+    return now - (m0 + time.monotonic_ns()) // 2
 
 
 class _NoopSpan:
@@ -52,9 +88,36 @@ class _NoopSpan:
 NOOP_SPAN = _NoopSpan()
 
 
+class _RangeSpan:
+    """A span of the profiler sink alone (the tracer is disabled)."""
+
+    __slots__ = ("_range",)
+    span_id = None
+
+    def __init__(self, name: str):
+        self._range = _Range(name)
+        self._range.__enter__()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.end()
+        return False
+
+    def set(self, **kw):
+        return self
+
+    def end(self, t=None):
+        if self._range is not None:
+            self._range.__exit__(None, None, None)
+            self._range = None
+        return self
+
+
 class Span:
     __slots__ = ("name", "cat", "span_id", "parent_id", "t0", "t1",
-                 "tid", "args", "_tracer", "_on_stack")
+                 "tid", "args", "_tracer", "_on_stack", "_range")
 
     def __init__(self, tracer, name, cat, span_id, parent_id, t0, tid, args):
         self.name = name
@@ -67,6 +130,7 @@ class Span:
         self.args = args
         self._tracer = tracer
         self._on_stack = False
+        self._range = None
 
     def set(self, **kw):
         self.args.update(kw)
@@ -126,6 +190,18 @@ class Tracer:
         (e.g. a ``RequestTrace``)."""
         return t - self._epoch
 
+    @property
+    def clock_offset_ns(self) -> int:
+        """The profiler's clock less ``time.monotonic()``, in ns, now."""
+        return _profiler_clock_offset_ns()
+
+    def profiler_ns(self, t: float, offset_ns: int | None = None) -> int:
+        """An epoch-relative time on the profiler's clock, in ns
+        (``offset_ns``: a :attr:`clock_offset_ns` already read)."""
+        if offset_ns is None:
+            offset_ns = self.clock_offset_ns
+        return round((self._epoch + t) * 1e9) + offset_ns
+
     def _stack(self) -> list:
         st = getattr(self._tls, "stack", None)
         if st is None:
@@ -140,14 +216,20 @@ class Tracer:
     def span(self, name: str, cat: str = "", parent: int | None = None,
              **args):
         """Live nested span (context manager).  Parent defaults to the
-        enclosing live span on this thread."""
+        enclosing live span on this thread.  While a profiler records, also
+        a profiler range named ``name``."""
         if not self._enabled:
-            return NOOP_SPAN
+            return _RangeSpan(name) if _profiling() else NOOP_SPAN
+        rng = None
+        if _profiling():
+            rng = _Range(name)
+            rng.__enter__()
         st = self._stack()
         pid = parent if parent is not None else (
             st[-1].span_id if st else None)
         sp = Span(self, name, cat, next(self._ids), pid, self.now(),
                   threading.get_ident(), args)
+        sp._range = rng
         sp._on_stack = True
         st.append(sp)
         return sp
@@ -163,6 +245,9 @@ class Tracer:
 
     def _finish(self, sp: Span, t: float | None) -> None:
         sp.t1 = self.now() if t is None else t
+        if sp._range is not None:
+            sp._range.__exit__(None, None, None)
+            sp._range = None
         if sp._on_stack:
             st = self._stack()
             if sp in st:
@@ -221,16 +306,20 @@ class Tracer:
         with self._lock:
             return len(self._records)
 
-    def export_chrome(self) -> dict:
+    def export_chrome(self, base_ns: int = 0) -> dict:
         """Chrome trace-event JSON (Perfetto-loadable): complete (``X``)
-        events with microsecond ``ts``/``dur``; ``args`` carries the
-        explicit ``span_id``/``parent_id`` links."""
+        events with microsecond ``ts``/``dur``, ``ts`` on the profiler's
+        clock less ``base_ns`` (a ``prof.export_chrome_trace`` file's
+        ``baseTimeNanoseconds``, to merge this export's events into it);
+        ``args`` carries the explicit ``span_id``/``parent_id`` links."""
         events = []
+        off = self.clock_offset_ns
         for r in self.records():
             args = {"span_id": r["id"], "parent_id": r["parent"], **r["args"]}
             ev = {"name": r["name"], "cat": r["cat"] or "default",
                   "pid": 1, "tid": int(r["tid"]) & 0x7FFFFFFF,
-                  "ts": round(r["t0"] * 1e6, 3), "args": args}
+                  "ts": (self.profiler_ns(r["t0"], off) - base_ns) / 1e3,
+                  "args": args}
             if r["ph"] == "X":
                 ev["ph"] = "X"
                 ev["dur"] = round(max(0.0, (r["t1"] - r["t0"])) * 1e6, 3)
@@ -263,3 +352,12 @@ def set_tracer(tracer: Tracer | None) -> Tracer:
     global _GLOBAL
     _GLOBAL = tracer if tracer is not None else NOOP_TRACER
     return _GLOBAL
+
+
+def tracer_for(descriptor) -> Tracer:
+    """The tracer an instrumentation site records to: the process-global
+    one where the backend's descriptor opted in (``observability``), else
+    the shared disabled one (whose spans still reach a recording
+    profiler)."""
+    return (_GLOBAL if getattr(descriptor, "observability", False)
+            else NOOP_TRACER)
